@@ -1,0 +1,248 @@
+"""Native direct factorization: the SPLU path, in PyTorch.
+
+Counterpart of ``russell_tpu.sparse.factor`` (reference role: the
+symbolic analysis + numeric LU + solves of russell_sparse's MUMPS /
+UMFPACK / cuDSS backends). The split is the same:
+
+- **analysis** (host, numpy): compute the ordering and freeze every index
+  set the numeric phase needs (MUMPS JOB_ANALYZE).
+- **numeric factorize / solve** (device): max-norm equilibration, the
+  SPLU block factorization and packed substitution, and fixed-count
+  iterative refinement against the scaled matrix.
+
+Only ``Genie.SPLU`` is ported so far; every other genie (AUTO included,
+with or without a grid hint) raises ``NotImplementedError`` rather than
+route anywhere else. Factors are full f64/complex128: the H100 has f64,
+so the reference package's mixed-precision regime is not carried over.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from russell_tpu_torch.sparse.enums import Genie, Ordering, Scaling
+from russell_tpu_torch.sparse import splu as _splu
+
+__all__ = ["SolvePlan", "analyze", "numeric_factorize",
+           "numeric_factorize_pair", "factor_solve", "factor_solve_pair"]
+
+
+@dataclass
+class SolvePlan:
+    """Static description of a factorization (symbolic phase output)."""
+
+    genie: Genie
+    n: int
+    # full-pattern entry layout (after symmetric-storage expansion)
+    rows: np.ndarray
+    cols: np.ndarray
+    splu_plan: Optional["_splu.SpluPlan"] = None
+    scaling: Scaling = Scaling.MAX
+    pivot_epsilon: float = 1e-14
+    refine_steps: int = 2
+    effective_ordering: str = "natural"
+
+
+def analyze(
+    n: int,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    genie: Genie = Genie.AUTO,
+    ordering: Ordering = Ordering.AUTO,
+    scaling: Scaling = Scaling.AUTO,
+    pivot_epsilon: float = 1e-14,
+    refine_steps: int = 2,
+    mixed_precision: Optional[bool] = None,
+    grid: Optional[tuple] = None,
+) -> SolvePlan:
+    """Symbolic phase: freeze the numeric phase's indices.
+
+    ``rows``/``cols`` must describe the FULL pattern (triangular symmetric
+    storage expanded by the caller). ``grid`` is the structure hint of the
+    GRIDMF path; SPLU does not read it. ``mixed_precision=True`` (f32
+    factors) is not ported."""
+    if genie != Genie.SPLU:
+        raise NotImplementedError(
+            f"genie {genie} is not ported yet: the port has Genie.SPLU "
+            "only; GRIDMF, GENMF, DENSE and BANDED are later slices "
+            "(ROADMAP.md)")
+    if mixed_precision:
+        raise NotImplementedError("mixed-precision factors are not ported: "
+                                  "the port factorizes in f64 (ROADMAP.md)")
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    # METIS is nested dissection in the reference (enums.rs:71-158);
+    # "nd" plays the same role AND unlocks the level-batched numeric
+    # phase. AUTO tries both symbolics (cheap, host-only) and keeps the
+    # one with fewer stored blocks. Block size 32, as in the reference
+    # package, so both build the same plan.
+    bsz = 32
+    if ordering == Ordering.AUTO:
+        plan_nd = _splu.splu_analyze(n, rows, cols, ordering="nd",
+                                     block_size=bsz,
+                                     pivot_epsilon=pivot_epsilon)
+        if n > 20_000:
+            # mindeg's clique formation is superlinear; at this size
+            # nested dissection wins anyway (grid-like problems)
+            plan, eff_ord = plan_nd, "nd"
+        else:
+            plan_amd = _splu.splu_analyze(n, rows, cols, ordering="amd",
+                                          block_size=bsz,
+                                          pivot_epsilon=pivot_epsilon)
+            if plan_nd.nblk <= plan_amd.nblk:
+                plan, eff_ord = plan_nd, "nd"
+            else:
+                plan, eff_ord = plan_amd, "amd"
+    else:
+        eff_ord = {Ordering.METIS: "nd", Ordering.AMD: "amd"}.get(
+            ordering, "natural")
+        plan = _splu.splu_analyze(n, rows, cols, ordering=eff_ord,
+                                  block_size=bsz,
+                                  pivot_epsilon=pivot_epsilon)
+    return SolvePlan(Genie.SPLU, n, rows, cols, splu_plan=plan,
+                     scaling=Scaling.MAX if scaling == Scaling.AUTO
+                     else scaling,
+                     pivot_epsilon=pivot_epsilon,
+                     refine_steps=max(refine_steps, 2),
+                     effective_ordering=eff_ord)
+
+
+def _device_indices(plan: SolvePlan, device):
+    """(rows, cols) on ``device``, uploaded once per (plan, device)."""
+    cache = plan.__dict__.setdefault("_device_cache", {})
+    key = str(torch.device(device))
+    ent = cache.get(key)
+    if ent is None:
+        ent = cache[key] = (torch.as_tensor(plan.rows, device=device),
+                            torch.as_tensor(plan.cols, device=device))
+    return ent
+
+
+def _segment_max(vals, seg, n):
+    """Per-segment max of ``vals`` (segments with no entry give 0, which
+    the callers treat like the reference's -inf: no scaling)."""
+    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg, vals, "amax", include_self=False)
+
+
+def _segment_sum(vals, seg, n):
+    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg, vals)
+
+
+def _equilibrate(plan: SolvePlan, data):
+    """Max-norm row/col scaling computed on the device; returns
+    (data', rs, cs)."""
+    n = plan.n
+    rows, cols = _device_indices(plan, data.device)
+    rdt = data.real.dtype if data.is_complex() else data.dtype
+    if plan.scaling == Scaling.NO:
+        rs = torch.ones(n, dtype=rdt, device=data.device)
+        return data, rs, rs
+    absd = data.abs()
+    rmax = _segment_max(absd, rows, n)
+    rs = torch.where(rmax > 0, 1.0 / rmax, 1.0)
+    absd2 = absd * rs[rows]
+    cmax = _segment_max(absd2, cols, n)
+    cs = torch.where(cmax > 0, 1.0 / cmax, 1.0)
+    if plan.scaling == Scaling.ROW_COL_ITER:
+        for _ in range(2):
+            absd3 = absd * rs[rows] * cs[cols]
+            rmax = _segment_max(absd3, rows, n)
+            rs = rs * torch.where(rmax > 0, 1.0 / torch.sqrt(rmax), 1.0)
+            absd3 = absd * rs[rows] * cs[cols]
+            cmax = _segment_max(absd3, cols, n)
+            cs = cs * torch.where(cmax > 0, 1.0 / cmax, 1.0)
+    return data * (rs[rows] * cs[cols]).to(data.dtype), rs, cs
+
+
+def _check_plan(plan: SolvePlan):
+    if plan.genie != Genie.SPLU:
+        raise NotImplementedError(f"genie {plan.genie} is not ported yet "
+                                  "(ROADMAP.md)")
+
+
+def numeric_factorize(plan: SolvePlan, data):
+    """Numeric factorization of the entry values ``data`` (f64 or
+    complex128 tensor, on the device to factorize on) laid out as
+    (plan.rows, plan.cols)."""
+    _check_plan(plan)
+    data, rs, cs = _equilibrate(plan, data)
+    fac = _splu.splu_factorize(plan.splu_plan, data)
+    fac["rs"] = rs
+    fac["cs"] = cs
+    fac["data"] = data  # scaled entries (kept for refinement)
+    return fac
+
+
+def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
+    """Factorize TWO matrices with the same structure (Radau5's real and
+    complex Newton matrices) in ONE pass over the packed schedule
+    (splu_factorize_multi) — the analog of the reference's concurrent
+    real/complex factorization (radau5.rs, P5)."""
+    _check_plan(plan)
+    dr, rs_r, cs_r = _equilibrate(plan, data_r)
+    dc, rs_c, cs_c = _equilibrate(plan, data_c)
+    fr, fc = _splu.splu_factorize_multi(plan.splu_plan, (dr, dc))
+    fr["rs"], fr["cs"], fr["data"] = rs_r, cs_r, dr
+    fc["rs"], fc["cs"], fc["data"] = rs_c, cs_c, dc
+    return fr, fc
+
+
+def _residual(plan: SolvePlan, fac, x, b):
+    """Unscaled-rhs-space residual b - A x through the scaled entries:
+    R(b - A x) = R b - As (C^{-1} x), then divided by R."""
+    rows, cols = _device_indices(plan, x.device)
+    dtype = x.dtype
+    u = x / fac["cs"].to(dtype)
+    ax = _segment_sum(fac["data"] * u[cols], rows, plan.n)
+    return (fac["rs"].to(dtype) * b.to(dtype) - ax) / fac["rs"].to(dtype)
+
+
+def _solve_once(plan: SolvePlan, fac, b):
+    out_dtype = fac["data"].dtype
+    y = fac["rs"].to(out_dtype) * b.to(out_dtype)
+    x = _splu.splu_solve(plan.splu_plan, fac, y)
+    return fac["cs"].to(out_dtype) * x.to(out_dtype)
+
+
+def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
+    """Solve A x = b from a numeric factorization, with ``refine_steps``
+    (default ``plan.refine_steps``) rounds of iterative refinement
+    against the scaled matrix. Radau5 passes 0 for its Newton solves."""
+    _check_plan(plan)
+    if refine_steps is None:
+        refine_steps = plan.refine_steps
+    x = _solve_once(plan, fac, b)
+    for _ in range(refine_steps):
+        x = x + _solve_once(plan, fac, _residual(plan, fac, x, b))
+    return x
+
+
+def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
+                      refine_steps=None):
+    """Solve the real and complex systems TOGETHER (one packed-substitution
+    pass per refinement round covers both)."""
+    _check_plan(plan)
+    if refine_steps is None:
+        refine_steps = plan.refine_steps
+    facs = (fac_r, fac_c)
+    bs = (b_r, b_c)
+
+    def solve_once_pair(rhs):
+        ys = [f["rs"].to(f["data"].dtype) * v.to(f["data"].dtype)
+              for f, v in zip(facs, rhs)]
+        xs = _splu.splu_solve_multi(plan.splu_plan, facs, ys)
+        return [f["cs"].to(f["data"].dtype) * x.to(f["data"].dtype)
+                for f, x in zip(facs, xs)]
+
+    xs = solve_once_pair(bs)
+    for _ in range(refine_steps):
+        resids = [_residual(plan, f, x, v) for f, x, v in zip(facs, xs, bs)]
+        dxs = solve_once_pair(resids)
+        xs = [x + dx for x, dx in zip(xs, dxs)]
+    return xs[0], xs[1]
