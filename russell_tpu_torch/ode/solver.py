@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+import russell_tpu_torch
 from russell_tpu_torch.ode.constants import N_EQUAL_STEPS
 from russell_tpu_torch.ode.enums import Method
 from russell_tpu_torch.ode.params import Params
@@ -32,9 +33,10 @@ EPS = 2.220446049250313e-16
 
 
 class OdeSolver:
-    """Error-controlled ODE/DAE solver (ode_solver.rs:120) on ``device``."""
+    """Error-controlled ODE/DAE solver (ode_solver.rs:120) on ``device``
+    (the card unless the caller asks for the CPU)."""
 
-    def __init__(self, params: Params, system: System, device="cpu"):
+    def __init__(self, params: Params, system: System, device="cuda"):
         params.validate()
         if params.method != Method.RADAU5:
             raise NotImplementedError(
@@ -43,7 +45,7 @@ class OdeSolver:
         self.params = params
         self.system = system
         self.ndim = system.ndim
-        self.device = torch.device(device)
+        self.device = russell_tpu_torch.device(device)
         self.actual = Radau5(params, system, self.device)
         self.work = Workspace(params.method)
 

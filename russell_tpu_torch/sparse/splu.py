@@ -514,19 +514,6 @@ def _check_kernel_args(name, blocks, index_tensors):
                              "1-D int32")
 
 
-def _stream_of(t):
-    if t.get_device() != torch.cuda.current_device():
-        raise ValueError(f"tensor on {t.device}, but the current CUDA "
-                         f"device is {torch.cuda.current_device()}")
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _launch_check(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{rc}")
-
-
 def _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, TL, be):
     """Plain PyTorch version of ``splu_pairs`` (splu.py:878-891 of the
     reference package): batched products of the gathered blocks, summed
@@ -571,9 +558,9 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, seg_ptr, be):
     out = torch.empty((TL, be * be), dtype=blocks.dtype,
                       device=blocks.device)
     fn = _cuda.library("splu_pairs").splu_pairs_f64
-    _launch_check("splu_pairs", fn(
+    _cuda.launch_check("splu_pairs", fn(
         blocks.data_ptr(), pair_l.data_ptr(), pair_u.data_ptr(),
-        seg_ptr.data_ptr(), TL, be, out.data_ptr(), _stream_of(blocks)))
+        seg_ptr.data_ptr(), TL, be, out.data_ptr(), _cuda.stream_of(blocks)))
     splu_pairs.launches += 1
     return out
 
@@ -601,9 +588,9 @@ def gather_rows(blocks, idx):
     out = torch.empty((idx.shape[0], W), dtype=blocks.dtype,
                       device=blocks.device)
     fn = _cuda.library("gather_rows").gather_rows_f64
-    _launch_check("gather_rows", fn(
+    _cuda.launch_check("gather_rows", fn(
         blocks.data_ptr(), idx.data_ptr(), idx.shape[0], W, out.data_ptr(),
-        _stream_of(blocks)))
+        _cuda.stream_of(blocks)))
     gather_rows.launches += 1
     return out
 

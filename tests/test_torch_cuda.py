@@ -1,6 +1,6 @@
 """russell_tpu_torch on the card: each CUDA kernel against its plain
-PyTorch version, and the SPLU factorization and Radau5 on CUDA against
-the same code on the CPU.
+PyTorch version, and the SPLU factorization, Radau5 and the BSR products
+on CUDA against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no jax (the GPU machine has none); run it there without the
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
-from russell_tpu_torch.sparse import factor, splu
+from russell_tpu_torch.sparse import factor, kernels, splu
+from russell_tpu_torch.sparse import samples as ssamples
+from russell_tpu_torch.sparse.coo import CooMatrix
 from russell_tpu_torch.sparse.enums import Genie
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +118,75 @@ def test_radau5_van_der_pol_on_card(cuda):
             st.n_iterations_max) == (2249, 162, 253, 668, 280, 242, 8, 2, 6)
     assert abs(float(y[0]) - 1.706163410178079E+00) < 1e-12
     assert abs(float(y[1]) - (-8.927971289301175E-01)) < 1e-11
+
+
+def _random_coo(nrow, ncol, nnz, row_hi, seed):
+    rng = np.random.default_rng(seed)
+    return CooMatrix.from_arrays(nrow, ncol, rng.integers(0, row_hi, nnz),
+                                 rng.integers(0, ncol, nnz),
+                                 rng.standard_normal(nnz))
+
+
+# ragged last block rows and x panels, pads, and (empty_tail) block rows
+# made only of pads
+BSR_CASES = {
+    "lap15_8x128": (lambda: ssamples.laplacian_2d(15), 8, 128),
+    "lap10_16x16": (lambda: ssamples.laplacian_2d(10), 16, 16),
+    "rect37x300_8x128": (lambda: _random_coo(37, 300, 400, 37, 21), 8, 128),
+    "irregular500_8x128": (lambda: ssamples.irregular_geometric(500), 8, 128),
+    "irregular500_16x16": (lambda: ssamples.irregular_geometric(500), 16, 16),
+    "empty_tail_16x16": (lambda: _random_coo(100, 100, 300, 40, 22), 16, 16),
+}
+
+
+def _assert_kernel_close(got, want):
+    # the sum order differs (per-lane FMA loops vs einsum / bmm + index_add_)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("case", list(BSR_CASES))
+def test_bsr_kernels_match_plain_versions(cuda, case):
+    make, bm, bn = BSR_CASES[case]
+    coo = make()
+    bsr = kernels.bsr_from_coo(coo, bm, bn, device=cuda)
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+    n0 = kernels.bsr_matvec.launches
+    y = kernels.bsr_matvec(bsr, x)
+    assert kernels.bsr_matvec.launches == n0 + 1
+    _assert_kernel_close(y, kernels._bsr_matvec_plain(bsr, x))
+    for m in (1, 3, 16):
+        X = torch.as_tensor(rng.standard_normal((coo.ncol, m)), device=cuda)
+        n0 = kernels.bsr_matmat.launches
+        Y = kernels.bsr_matmat(bsr, X)
+        assert kernels.bsr_matmat.launches == n0 + 1
+        _assert_kernel_close(Y, kernels._bsr_matmat_plain(bsr, X))
+    if bm == bn:
+        plan = kernels.spgemm_plan(bsr, bsr)
+        n0 = kernels.spgemm.launches
+        C, cij = kernels.spgemm(plan, bsr, bsr)
+        assert kernels.spgemm.launches == n0 + 1
+        dp = kernels._device_plan(plan, cuda)
+        _assert_kernel_close(C, kernels._spgemm_plain(dp, bsr, bsr,
+                                                      plan.c_blocks))
+        # and against the CPU run of the same plan
+        cpu = kernels.bsr_from_coo(coo, bm, bn, device="cpu")
+        C_cpu, _ = kernels.spgemm(plan, cpu, cpu)
+        _assert_kernel_close(C.cpu(), C_cpu)
+
+
+def test_bsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    coo = ssamples.laplacian_2d(10)
+    x = torch.ones(coo.ncol, dtype=torch.float64, device=cuda)
+    wide = kernels.bsr_from_coo(coo, 64, 64, device=cuda)
+    with pytest.raises(ValueError):     # bm 64 > 32: no kernel, no fallback
+        kernels.bsr_matvec(wide, x)
+    odd = kernels.bsr_from_coo(coo, 8, 7, device=cuda)
+    with pytest.raises(ValueError):     # odd bn
+        kernels.bsr_matvec(odd, x)
+    X = torch.ones((coo.ncol, 256), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):     # bm * m > 1024
+        kernels.bsr_matmat(kernels.bsr_from_coo(coo, 8, 128, device=cuda), X)
+    with pytest.raises(ValueError):     # bm * bn > 1024
+        kernels.spgemm(kernels.spgemm_plan(wide, wide), wide, wide)

@@ -28,7 +28,11 @@ def test_port_modules_import_without_jax():
     assert {"russell_tpu_torch.sparse.splu", "russell_tpu_torch.sparse.factor",
             "russell_tpu_torch.sparse._cuda", "russell_tpu_torch.ode.radau5",
             "russell_tpu_torch.ode.solver", "russell_tpu_torch.interop",
-            "russell_tpu_torch.native"} <= set(names)
+            "russell_tpu_torch.native", "russell_tpu_torch.sparse.kernels",
+            "russell_tpu_torch.sparse.coo", "russell_tpu_torch.sparse.csr",
+            "russell_tpu_torch.sparse.csc", "russell_tpu_torch.sparse.samples",
+            "russell_tpu_torch.sparse.verify",
+            "russell_tpu_torch.sparse.matrix_market"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -273,7 +273,8 @@ def test_interop_reference_factor_solved_by_port():
     jx = jsplu.splu_solve_multi(jp, (jfr, jfc), (jnp.asarray(br),
                                                  jnp.asarray(bc)))
     tp = interop.splu_plan_from(jp)
-    facs = [interop.factor_to_torch({k: np.asarray(v) for k, v in f.items()})
+    facs = [interop.factor_to_torch({k: np.asarray(v) for k, v in f.items()},
+                                   "cpu")
             for f in (jfr, jfc)]
     tx = tsplu.splu_solve_multi(tp, facs, (torch.as_tensor(br),
                                            torch.as_tensor(bc)))
