@@ -11,19 +11,29 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
 1. device: the card's name and power limit (nvidia-smi);
 2. build: all five kernels compiled from ``russell_tpu_torch/csrc``, one
    nvcc per source, all at once, with ptxas' register and spill lines;
-3. kernels: each SPLU kernel against its plain PyTorch version on the
-   card, at the shapes of one row of the npoint-129 plan, with its median
-   time, its bound and (gather_rows) the library call's time;
-4. the van der Pol oracle: all nine radau5.f counters, exactly;
-5. the npoint-16 Brusselator: the reference package's counters, exactly;
-6. the main path: npoint 129, tolerances 1e-4, t in [0, 1], cold and warm,
+3. warmup: factorize pairs back to back for WARM_S seconds, so that no
+   timing below is the card's first work;
+4. kernels: each SPLU kernel against its plain PyTorch version on the
+   card, at the shapes of four rows of the npoint-129 plan (the most
+   pairs, the most live lanes, the longest lane, the median len), with
+   its device time (``time_ms``, calls back to back, L2 warm; and
+   ``cold_ms``, L2 flushed before each call) beside its bound on the
+   live-lanes contract and on the earlier all-TL-lanes one, the plain
+   version's time and the library call's; then the W-1024 and W-4096
+   timings in both orders, one call at a time (``call_ms``) and back to
+   back;
+5. the van der Pol oracle: all nine radau5.f counters, exactly;
+6. the npoint-16 Brusselator: the reference package's counters, exactly;
+7. the main path: npoint 129, tolerances 1e-4, t in [0, 1], cold and warm,
    with each kernel's launch count from that run;
-7. layers: one factorize pair, one solve pair and the diagonal-block
-   inversion of one row, timed on the npoint-129 matrix;
-8. bsr_kernels: each BSR kernel against its plain version on the card on
+8. layers: one factorize pair, one solve pair and the diagonal-block
+   inversion of one row, timed per call on the npoint-129 matrix;
+9. replay: one whole factorize pair under torch.profiler: each SPLU
+   kernel's summed device time beside the bound of the same work;
+10. bsr_kernels: each BSR kernel against its plain version on the card on
    the npoint-129 Brusselator Jacobian (8x128 blocks for SpMV and SpMM at
    m = 16, 16x16 blocks for A·A), with the same numbers;
-9. bsr_path: the BSR path through the public entry points on the
+11. bsr_path: the BSR path through the public entry points on the
    npoint-513 Brusselator Jacobian J(y0) (n 526,338), with launch counts
    and peak device memory; then each product held against its kernel's
    plain version on the same inputs (every entry) and against scipy on
@@ -36,19 +46,34 @@ before the last is the kernels' JSON; the last is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 
     python3 chip_smoke.py
+
+To compare the SPLU kernels of two trees on one card, unpack the other
+tree (``git archive``) into an ignored directory and run
+``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 9 with
+DIR's package and with this tree's, each in its own process, in turns
+P C C P, ROUNDS times. ``--replay [--tree DIR]`` is one such process.
+``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
+plan for each chunk size K of CHUNK_SWEEP, which is how
+``splu.CHUNK_PAIRS`` was chosen.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
-import russell_tpu_torch  # noqa: F401  (fails at once outside the repo)
+if __name__ == "__main__" and "--tree" in sys.argv:
+    # the A/B replay (--ab): this script run against another tree's package
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]))
+
+import russell_tpu_torch  # noqa: E402  (fails at once outside the repo)
 
 SEED = 129
 NPOINT = 129
@@ -63,6 +88,15 @@ HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS_PER_S = 67e12
 # kernel against its plain version: the summation order differs
 RTOL = 1e-12
+# the replay's matrices: Radau5's real and complex shifts (radau5.f's
+# GAMMA, ALPHA + i BETA) at h = 0.1, minus the Brusselator Jacobian at y0
+H_REPLAY = 0.1
+GAMMA = 3.6378342527444957 / H_REPLAY
+ALPHA_BETA = complex(2.6810828736277521, 3.0504301992474105) / H_REPLAY
+WARM_S = 1.0          # the card is kept busy this long before timing
+CHUNK_SWEEP = (2, 4, 8, 16)
+# read before each call that cold_ms times: over twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
 
 
 def bound(nbytes, flops):
@@ -96,7 +130,63 @@ def say(phase, **kw):
 
 
 def time_ms(fn, reps=REPS, warmup=3):
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    """Device time of one call of ``fn`` in ms: ``reps`` calls back to back
+    between two CUDA events, queued behind a sleep kernel long enough for
+    the host to queue them all, so the device runs them without waiting on
+    the host (the host's launch cost is not in the figure)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    # cycles at up to 2 GHz: a slower clock only lengthens the sleep
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps=REPS, warmup=3):
+    """Median device time of one call of ``fn`` in ms with a cold L2: a
+    buffer of L2_FLUSH_BYTES is read before each call and two CUDA events
+    bracket the call alone, all queued behind a sleep kernel as in
+    ``time_ms``. The call's inputs then come from HBM, as the bounds
+    assume."""
+    flush = torch.ones(L2_FLUSH_BYTES // 8, dtype=torch.float64,
+                       device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        flush.sum()
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def call_ms(fn, reps=REPS, warmup=3):
+    """Median time of ``fn`` in ms with CUDA events around each call, one
+    call at a time: the host's launch cost is included when it exceeds
+    the kernel's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -109,6 +199,30 @@ def time_ms(fn, reps=REPS, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn):
+    """Run ``fn`` once under torch.profiler (CUDA activity) and return
+    ({kernel name: summed device ms} of every kernel it ran, the host wall
+    of the run in s)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out, wall
+
+
+def summed(ms_by_name, pattern):
+    return sum(v for k, v in ms_by_name.items() if pattern in k)
 
 
 def counters(st):
@@ -159,70 +273,260 @@ def brusselator_plan(npoint):
     return factor.analyze(ndim, rows, cols, genie=Genie.SPLU)
 
 
+def replay_setup(npoint=NPOINT):
+    """The plan and the real/complex values of one Radau5 factorize pair
+    on the npoint Brusselator, through public functions only (the parent
+    tree has them too, so --ab replays it with either package)."""
+    from russell_tpu_torch.ode import samples
+    from russell_tpu_torch.sparse import factor
+    from russell_tpu_torch.sparse.enums import Genie
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, npoint)
+    ii, jj = system.jac_structure
+    n = system.ndim
+    plan = factor.analyze(n, np.concatenate([ii, np.arange(n)]),
+                          np.concatenate([jj, np.arange(n)]),
+                          genie=Genie.SPLU)
+    jv = system.jacobian(t0, torch.as_tensor(y0), None).numpy()
+    dev = torch.device("cuda")
+    vr = torch.as_tensor(np.concatenate([-jv, np.full(n, GAMMA)]),
+                         device=dev)
+    vc = torch.as_tensor(np.concatenate([-jv + 0j, np.full(n, ALPHA_BETA)]),
+                         device=dev)
+    return plan, vr, vc
+
+
+def warm_up(setup):
+    """Factorize pairs back to back for WARM_S seconds, at least one (it
+    builds the kernels at first use); returns (pairs, wall s)."""
+    from russell_tpu_torch.sparse import factor
+    t0 = time.perf_counter()
+    n = 0
+    while n == 0 or time.perf_counter() - t0 < WARM_S:
+        factor.numeric_factorize_pair(*setup)
+        torch.cuda.synchronize()
+        n += 1
+    return n, time.perf_counter() - t0
+
+
+def replay(setup):
+    """After ``warm_up``, one factorize pair under torch.profiler: each SPLU
+    kernel's summed device time per factorize pair, all device time, and
+    the host wall of the profiled pair."""
+    from russell_tpu_torch.sparse import factor
+    warm, warm_wall = warm_up(setup)
+    ms, wall = kernel_device_ms(lambda: factor.numeric_factorize_pair(*setup))
+    return {"splu_pairs_ms": summed(ms, "splu_pairs"),
+            "gather_rows_ms": summed(ms, "gather_rows"),
+            "device_busy_ms": sum(ms.values()),
+            "profiled_wall_s": wall, "warm_pairs": warm,
+            "warm_wall_s": warm_wall,
+            "package": os.path.dirname(russell_tpu_torch.__file__)}
+
+
+def pairs_bounds(pk, r, be, ln, npair, n_chunks):
+    """splu_pairs' bound on row r at width be, on the live-lanes contract
+    and on the earlier one that wrote all TL lanes: each distinct tile read
+    once, the lanes written once, the index arrays the kernel reads;
+    2 be^3 flops per pair. Returns ((ms, by), (ms, by))."""
+    TL = pk["TL"]
+    tiles = np.unique(np.concatenate([pk["pair_l"][r, :npair],
+                                      pk["pair_u"][r, :npair]])).size
+    flops = 2 * npair * be ** 3
+    return (bound(8 * be * be * (tiles + ln) + 4 * (2 * npair + 2 * ln)
+                  + 16 * n_chunks, flops),
+            bound(8 * be * be * (tiles + TL) + 4 * (2 * npair + TL + 1),
+                  flops))
+
+
+def named_rows(sp, dp):
+    """phase_kernels' rows: the most pairs, the most live lanes (len), the
+    longest lane (pairs in series in the earlier design), the median len."""
+    from russell_tpu_torch.sparse import splu
+    TL = sp.packed["TL"]
+    seg_ptr = splu._seg_ptr(sp.packed["pair_seg"], TL)
+    lens = np.asarray([r[1] for r in dp["rows"]])
+    npair = np.asarray([r[3] for r in dp["rows"]])
+    longest = np.asarray([np.diff(seg_ptr[r, :lens[r] + 1]).max()
+                          for r in range(len(lens))])
+    return ({"argmax_pairs": int(npair.argmax()),
+             "argmax_len": int(lens.argmax()),
+             "longest_lane": int(longest.argmax()),
+             "median_len": int(np.argsort(lens, kind="stable")[
+                 len(lens) // 2])}, longest)
+
+
+def phase_warmup():
+    """Keep the card busy with factorize pairs for WARM_S before anything
+    is timed (the clocks settle; first-use set-up is done)."""
+    n, wall = warm_up(replay_setup())
+    say("warmup", factorize_pairs=n, wall_s=wall)
+
+
 def phase_kernels(plan):
-    """Each kernel against its plain version at one row's shapes."""
+    """Each SPLU kernel against its plain version at the shapes of four
+    rows of the npoint-129 plan, with its device time (L2 warm and cold)
+    beside its bounds, the plain version's and (gather_rows) the library
+    call's (warm and cold); and the
+    W-1024 and W-4096 timings in both orders by both timing methods.
+    Returns the results."""
     from russell_tpu_torch.sparse import splu
     sp = plan.splu_plan
     pk = sp.packed
     dev = torch.device("cuda")
     dp = splu._device_plan(sp, dev)
     TL = pk["TL"]
-    npair = np.asarray([r[3] for r in dp["rows"]])
-    lens = np.asarray([r[1] for r in dp["rows"]])
-    r_pair = int(npair.argmax())
-    r_len = int(lens.argmax())
+    named, longest = named_rows(sp, dp)
+    say("kernel_rows", K=splu.CHUNK_PAIRS, rows={
+        name: {"row": r, "len": dp["rows"][r][1], "pairs": dp["rows"][r][3],
+               "longest_lane": int(longest[r]), "chunks": dp["rows"][r][5],
+               "multi_chunks": dp["rows"][r][6]}
+        for name, r in named.items()})
     rng = np.random.default_rng(SEED)
     n_store = sp.nblk + TL + 1
     results = {}
+    blocks_w = {}
+
+    def row_args(blocks, r, be):
+        n, ln = dp["rows"][r][3], dp["rows"][r][1]
+        return (blocks, dp["pair_l"][r, :n], dp["pair_u"][r, :n],
+                dp["pair_seg"][r, :n], dp["work"][r], ln, be)
+
     for be in (sp.b, 2 * sp.b):
         blocks = torch.as_tensor(
             rng.standard_normal((n_store, be * be)), device=dev)
-        r, n = r_pair, int(npair[r_pair])
-        args = (blocks, dp["pair_l"][r, :n], dp["pair_u"][r, :n],
-                dp["pair_seg"][r, :n], dp["seg_ptr"][r], be)
-        got = splu.splu_pairs(*args)
-        want = splu._splu_pairs_plain(*args[:4], TL, be)
-        torch.cuda.synchronize()
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        # the sum order differs (per-lane FMA loop vs bmm + index_add_)
-        torch.testing.assert_close(got, want, rtol=1e-12,
-                                   atol=1e-12 * scale)
-        ms = time_ms(lambda: splu.splu_pairs(*args))
-        plain_ms = time_ms(lambda: splu._splu_pairs_plain(*args[:4], TL, be))
-        # each distinct tile read once, the lanes written once, the index
-        # arrays the kernel reads; 2 be^3 flops per pair
-        tiles = torch.unique(torch.cat([args[1], args[2]])).numel()
-        b_ms, b_by = bound(8 * be * be * (tiles + TL) + 4 * (2 * n + TL + 1),
-                           2 * n * be ** 3)
-        say("kernel", name="splu_pairs", row=r, TL=TL, pairs=n, be=be,
-            max_abs_err=err, scale=scale, rtol=1e-12, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None)
-        results.setdefault("splu_pairs", []).append(
-            (err, ms, plain_ms, None, b_ms, b_by))
+        blocks_w[be] = blocks
+        for name, r in named.items():
+            args = row_args(blocks, r, be)
+            ln, npair = args[5], args[1].numel()
+            got = splu.splu_pairs(*args)
+            again = splu.splu_pairs(*args)
+            want = splu._splu_pairs_plain(*args[:4], ln, be)
+            err, scale = assert_close(f"splu_pairs {name} be {be}", got, want)
+            if not torch.equal(got, again):
+                raise AssertionError(f"splu_pairs {name} be {be}: two "
+                                     "launches differ")
+            live, full = pairs_bounds(pk, r, be, ln, npair, dp["rows"][r][5])
+            ms = time_ms(lambda: splu.splu_pairs(*args))
+            cold = cold_ms(lambda: splu.splu_pairs(*args))
+            plain_ms = time_ms(lambda: splu._splu_pairs_plain(*args[:4], ln,
+                                                              be))
+            say("kernel", name="splu_pairs", row_name=name, row=r, be=be,
+                len=ln, pairs=npair, max_abs_err=err, scale=scale, rtol=RTOL,
+                bit_identical=True, ms=ms, ms_cold_l2=cold, plain_ms=plain_ms,
+                library_ms=None, bound_ms=live[0], bound_by=live[1],
+                share=live[0] / ms, share_cold_l2=live[0] / cold,
+                bound_tl_ms=full[0], bound_tl_by=full[1],
+                share_tl=full[0] / ms)
+            results[("splu_pairs", name, be)] = (
+                err, ms, plain_ms, None, live[0], live[1], cold)
 
-        idx = dp["dinv"][r_len, :int(lens[r_len])]
-        got = splu.gather_rows(blocks, idx)
-        want = splu._gather_rows_plain(blocks, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"gather_rows differs from blocks[idx] "
-                                 f"at W={be * be}")
-        ms = time_ms(lambda: splu.gather_rows(blocks, idx))
-        plain_ms = time_ms(lambda: splu._gather_rows_plain(blocks, idx))
-        library_ms = time_ms(lambda: torch.index_select(blocks, 0, idx))
-        rows = int(idx.numel())
-        b_ms, b_by = bound(8 * be * be * (torch.unique(idx).numel() + rows)
-                           + 4 * rows, 0)
-        say("kernel", name="gather_rows", row=r_len, rows=rows,
-            W=be * be, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-        results.setdefault("gather_rows", []).append(
-            (0.0, ms, plain_ms, library_ms, b_ms, b_by))
-        del blocks
+            idx = dp["dinv"][r, :ln]
+            if not torch.equal(splu.gather_rows(blocks, idx),
+                               splu._gather_rows_plain(blocks, idx)):
+                raise AssertionError(f"gather_rows differs from blocks[idx] "
+                                     f"at W={be * be}")
+            ms = time_ms(lambda: splu.gather_rows(blocks, idx))
+            cold = cold_ms(lambda: splu.gather_rows(blocks, idx))
+            plain_ms = time_ms(lambda: splu._gather_rows_plain(blocks, idx))
+            library_ms = time_ms(lambda: torch.index_select(blocks, 0, idx))
+            library_cold = cold_ms(lambda: torch.index_select(blocks, 0, idx))
+            b_ms, b_by = bound(8 * be * be * (torch.unique(idx).numel() + ln)
+                               + 4 * ln, 0)
+            say("kernel", name="gather_rows", row_name=name, row=r,
+                rows=ln, W=be * be, max_abs_err=0.0, ms=ms, ms_cold_l2=cold,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_ms_cold_l2=library_cold, bound_ms=b_ms,
+                bound_by=b_by, share=b_ms / ms, share_cold_l2=b_ms / cold,
+                distinct_sources=int(torch.unique(idx).numel()))
+            results[("gather_rows", name, be)] = (
+                0.0, ms, plain_ms, library_ms, b_ms, b_by, cold)
+
+    # the W-1024 / W-4096 timings in both orders, one call at a time (host
+    # launch cost included) and back to back (device time)
+    r = named["argmax_len"]
+    for order in ((sp.b, 2 * sp.b), (2 * sp.b, sp.b)):
+        rec = {}
+        for be in order:
+            blocks = blocks_w[be]
+            idx = dp["dinv"][r, :dp["rows"][r][1]]
+            args = row_args(blocks, r, be)
+            fns = {"gather_rows": lambda: splu.gather_rows(blocks, idx),
+                   "index_select": lambda: torch.index_select(blocks, 0,
+                                                              idx),
+                   "splu_pairs": lambda: splu.splu_pairs(*args)}
+            rec[f"W{be * be}"] = {k: {"call_ms": call_ms(f),
+                                      "ms": time_ms(f)}
+                                  for k, f in fns.items()}
+        say("order", row=r, widths=[be * be for be in order], **rec)
+    del blocks_w, blocks
     torch.cuda.empty_cache()
     return results
+
+
+def chunk_sweep(plan):
+    """splu_pairs' device time over every row of the plan, b and 2b, under
+    torch.profiler, for each chunk size K of CHUNK_SWEEP."""
+    from russell_tpu_torch.sparse import splu
+    sp = plan.splu_plan
+    pk = sp.packed
+    dev = torch.device("cuda")
+    dp = splu._device_plan(sp, dev)
+    rng = np.random.default_rng(SEED)
+    blocks_w = {be: torch.as_tensor(rng.standard_normal(
+        (sp.nblk + pk["TL"] + 1, be * be)), device=dev)
+        for be in (sp.b, 2 * sp.b)}
+    seg_ptr = splu._seg_ptr(pk["pair_seg"], pk["TL"])
+    for K in CHUNK_SWEEP:
+        works = []
+        for r, row in enumerate(dp["rows"]):
+            c, off, n_multi = splu._pair_chunks(seg_ptr[r], row[1], K)
+            works.append(splu.PairWork(torch.as_tensor(c, device=dev),
+                                       torch.as_tensor(off, device=dev),
+                                       n_multi))
+        rec = {}
+        for be, blocks in blocks_w.items():
+            def every_row():
+                for r, row in enumerate(dp["rows"]):
+                    n = row[3]
+                    splu.splu_pairs(blocks, dp["pair_l"][r, :n],
+                                    dp["pair_u"][r, :n],
+                                    dp["pair_seg"][r, :n], works[r], row[1],
+                                    be)
+            every_row()
+            rec[f"be{be}_ms"] = summed(kernel_device_ms(every_row)[0],
+                                       "splu_pairs")
+        say("chunk_sweep", K=K, chunks=sum(len(w.chunk) for w in works),
+            **rec)
+
+
+def phase_replay(plan):
+    """phase_kernels' profiled part: one whole factorize pair (every row,
+    both widths) under the profiler, beside the bound of the same work on
+    both contracts. It runs after the main path, so that the profiler's
+    tracing cannot reach the main path's wall."""
+    from russell_tpu_torch.sparse import splu
+    sp = plan.splu_plan
+    pk = sp.packed
+    dp = splu._device_plan(sp, torch.device("cuda"))
+    rep = replay(replay_setup())
+    bounds = {"live": 0.0, "tl": 0.0}
+    for r, row in enumerate(dp["rows"]):
+        for be in (sp.b, 2 * sp.b):
+            live, full = pairs_bounds(pk, r, be, row[1], row[3], row[5])
+            bounds["live"] += live[0]
+            bounds["tl"] += full[0]
+    g_bound = sum(bound(8 * be * be * (np.unique(pk["dinv"][r, :row[1]]).size
+                                       + row[1]) + 4 * row[1], 0)[0]
+                  for r, row in enumerate(dp["rows"])
+                  for be in (sp.b, 2 * sp.b))
+    say("replay", npoint=NPOINT, **rep,
+        splu_pairs_bound_ms=bounds["live"],
+        splu_pairs_bound_tl_ms=bounds["tl"],
+        splu_pairs_share=bounds["live"] / rep["splu_pairs_ms"],
+        splu_pairs_share_tl=bounds["tl"] / rep["splu_pairs_ms"],
+        gather_rows_bound_ms=g_bound,
+        gather_rows_share=g_bound / rep["gather_rows_ms"])
+    return rep
 
 
 def solve_radau5(system, y0, x1, params, dev):
@@ -345,20 +649,20 @@ def phase_layers(sol, y):
         fr, fc = fact()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    factor_ms = time_ms(fact, reps=3, warmup=0)
+    factor_ms = call_ms(fact, reps=3, warmup=0)
     rng = np.random.default_rng(SEED)
     n = sol.ndim
     br = torch.as_tensor(rng.standard_normal(n), device=y.device)
     bc = torch.complex(br, torch.as_tensor(rng.standard_normal(n),
                                            device=y.device))
-    solve_ms = time_ms(lambda: factor.factor_solve_pair(
+    solve_ms = call_ms(lambda: factor.factor_solve_pair(
         r5.plan, fr, fc, br, bc, refine_steps=0), reps=10)
     sp = r5.plan.splu_plan
     nd = max(r[2] for r in splu._device_plan(sp, y.device)["rows"])
     D = torch.as_tensor(rng.standard_normal((nd, 64, 64)), device=y.device)
     delta = torch.tensor(1e-14, dtype=torch.float64, device=y.device)
-    inv32_ms = time_ms(lambda: splu._inv_block(D[:, :32, :32], delta))
-    inv64_ms = time_ms(lambda: splu._inv_block(D, delta))
+    inv32_ms = call_ms(lambda: splu._inv_block(D[:, :32, :32], delta))
+    inv64_ms = call_ms(lambda: splu._inv_block(D, delta))
     say("layers", factorize_pair_wall_ms=[1e3 * w for w in walls],
         factorize_pair_device_ms=factor_ms, solve_pair_ms=solve_ms,
         inv_block_lanes=nd, inv_block_b32_ms=inv32_ms,
@@ -609,6 +913,7 @@ def main():
     say("plan", npoint=NPOINT, ndim=plan.n, nblk=plan.splu_plan.nblk,
         rows=plan_rows, TL=plan.splu_plan.packed["TL"],
         C=int(plan.splu_plan.packed["pair_l"].shape[1]))
+    phase_warmup()
     kres = phase_kernels(plan)
     phase_van_der_pol()
     phase_brusselator_small()
@@ -616,6 +921,7 @@ def main():
     phase_layers(sol, y)
     del sol, y
     torch.cuda.empty_cache()
+    rep = phase_replay(plan)
     phase_bsr_kernels()
     bsr_launches, bres = phase_bsr_path()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
@@ -629,20 +935,26 @@ def main():
            "spgemm_blocks": ("russell_tpu_torch/csrc/spgemm_blocks.cu",
                              "russell_tpu/sparse/kernels.py:306")}
     kernels = []
-    for name, res in kres.items():
+    b = plan.splu_plan.b
+    for name, row in (("splu_pairs", "argmax_pairs"),
+                      ("gather_rows", "argmax_len")):
         # one factorize row: the real (b) and complex (2b) states summed
+        res = [kres[(name, row, be)] for be in (b, 2 * b)]
         lib = [r[3] for r in res]
         by = max(res, key=lambda r: r[4])[5]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1],
             "launches": runs["warm"]["launches"][name],
-            "max_abs_err": max(r[0] for r in res),
+            "max_abs_err": max(v[0] for k, v in kres.items()
+                               if k[0] == name),
             "ms": sum(r[1] for r in res),
+            "ms_cold_l2": sum(r[6] for r in res),
             "plain_ms": sum(r[2] for r in res),
             "library_ms": None if None in lib else sum(lib),
             "bound_ms": sum(r[4] for r in res), "bound_by": by,
-            "shapes": "one npoint-129 SPLU factorize row, b 32 + 2b 64"})
+            "replay_ms_per_factorize_pair": rep[f"{name}_ms"],
+            "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
@@ -655,5 +967,57 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_replay():
+    """--replay [--tree DIR]: one line, the replay of this package (or
+    DIR's) on the npoint-129 factorize pair."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    print(json.dumps(replay(replay_setup())), flush=True)
+
+
+def main_ab(parent, rounds):
+    """--ab PARENT [ROUNDS]: the replay with the parent tree's package
+    (``git archive`` of the parent commit unpacked at PARENT) and with this
+    tree's, each in its own process, in turns P C C P, ROUNDS times, on
+    one card; then the medians of each kernel's device time per factorize
+    pair."""
+    phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    runs = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent") * rounds:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--replay", "--tree",
+             trees[which]], cwd=trees[which], capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"replay of {which} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not rec["package"].startswith(trees[which]):
+            raise AssertionError(f"{which} ran {rec['package']}")
+        say("ab_replay", tree=which, **rec)
+        runs[which].append(rec)
+    med = {which: {k: statistics.median(r[k] for r in recs) for k in (
+        "splu_pairs_ms", "gather_rows_ms", "device_busy_ms",
+        "profiled_wall_s")} for which, recs in runs.items()}
+    say("ab", order="P C C P", rounds=rounds, median=med,
+        splu_pairs_ratio=med["change"]["splu_pairs_ms"]
+        / med["parent"]["splu_pairs_ms"],
+        gather_rows_ratio=med["change"]["gather_rows_ms"]
+        / med["parent"]["gather_rows_ms"])
+
+
 if __name__ == "__main__":
-    main()
+    if "--replay" in sys.argv:
+        main_replay()
+    elif "--chunk-sweep" in sys.argv:
+        phase_device()
+        phase_build()
+        chunk_sweep(brusselator_plan(NPOINT))
+    elif "--ab" in sys.argv:
+        i = sys.argv.index("--ab")
+        main_ab(sys.argv[i + 1],
+                int(sys.argv[i + 2]) if len(sys.argv) > i + 2 else 1)
+    else:
+        main()

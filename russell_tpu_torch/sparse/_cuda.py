@@ -36,7 +36,10 @@ _I = ctypes.c_int
 # C entry point and argument types of each kernel library; every entry
 # point returns a cudaError_t code
 _SIGNATURES = {
-    "splu_pairs": ("splu_pairs_f64", [_P, _P, _P, _P, _I, _I, _P, _P]),
+    # blocks, pair_l, pair_u, chunk, lane_off, tickets, n_chunks, n_live,
+    # be, out, scratch, stream
+    "splu_pairs": ("splu_pairs_f64",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "gather_rows": ("gather_rows_f64", [_P, _P, _I, _I, _P, _P]),
     "bsr_spmv": ("bsr_spmv_f64",
                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),

@@ -11,8 +11,9 @@ and the symbolic/numeric phases of interface_umfpack.c.
   so both packages build equal plans (every array equal).
 - **numeric (device)**: a Python loop over schedule rows; the row scalars
   (``t0``, ``len``, ``nd``) are host ints, so no row waits on the device.
-  Each row sums its block-pair products per target lane (the
-  ``splu_pairs`` CUDA kernel on the card), subtracts them from the
+  Each row sums its block-pair products per live target lane (the
+  ``splu_pairs`` CUDA kernel on the card, over a balanced work list of
+  pair chunks built once per plan), subtracts them from the
   assembled values, inverts its diagonal lanes (``_inv_block``: recursive
   Schur splitting down to a Gauss-Jordan base with MUMPS-style static
   pivot clamping), right-multiplies every other lane by a per-lane block
@@ -45,7 +46,13 @@ from russell_tpu_torch.sparse.ordering import mindeg_ordering
 
 __all__ = ["SpluPlan", "splu_analyze", "splu_factorize",
            "splu_factorize_multi", "splu_solve", "splu_solve_multi",
-           "splu_pairs", "gather_rows", "reset_launch_counts"]
+           "splu_pairs", "gather_rows", "reset_launch_counts", "PairWork",
+           "CHUNK_PAIRS"]
+
+# most pairs in one chunk of splu_pairs' work list (_pair_chunks): the
+# longest chain one CTA walks in series (chosen from the sweep over K of
+# ``chip_smoke.py --chunk-sweep``, PERF.md)
+CHUNK_PAIRS = 4
 
 
 @dataclass
@@ -514,53 +521,102 @@ def _check_kernel_args(name, blocks, index_tensors):
                              "1-D int32")
 
 
-def _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, TL, be):
+def _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, n_live, be):
     """Plain PyTorch version of ``splu_pairs`` (splu.py:878-891 of the
     reference package): batched products of the gathered blocks, summed
-    per segment into a (TL + 1)-row buffer whose row TL takes the pads
-    and is dropped."""
+    per segment into an (n_live + 1)-row buffer whose last row takes the
+    pads (every segment >= n_live) and is dropped."""
     Ls = blocks[pair_l].view(-1, be, be)
     Us = blocks[pair_u].view(-1, be, be)
     prod = torch.bmm(Ls, Us).view(-1, be * be)
-    out = torch.zeros((TL + 1, be * be), dtype=blocks.dtype,
+    out = torch.zeros((n_live + 1, be * be), dtype=blocks.dtype,
                       device=blocks.device)
-    out.index_add_(0, pair_seg, prod)
-    return out[:TL]
+    out.index_add_(0, pair_seg.clamp(max=n_live), prod)
+    return out[:n_live]
 
 
-def splu_pairs(blocks, pair_l, pair_u, pair_seg, seg_ptr, be):
+@dataclass(frozen=True)
+class PairWork:
+    """``splu_pairs``' balanced work list for one factorize row, built on
+    the host once per plan (``_pair_chunks``) and uploaded by
+    ``_device_plan``. Each chunk is at most K consecutive pairs of one
+    lane; a live lane without pairs has one empty chunk; the lanes with
+    the most chunks come first, so the chunks of multi-chunk lanes are a
+    prefix of ``n_multi`` chunks."""
+
+    chunk: torch.Tensor     # (n_chunks, 4) int32: lane, first pair,
+    #                         pairs, chunks of that lane
+    lane_off: torch.Tensor  # (n_live,) int32: each lane's first chunk
+    n_multi: int
+
+
+# splu_pairs' per-lane tickets, one zeroed int32 buffer per (device,
+# stream): the last CTA of a multi-chunk lane resets its ticket, and the
+# launches on one stream run in order, so every plan may share a stream's
+# buffer, while launches on two streams never share one
+_tickets: dict = {}
+
+
+def _stream_tickets(device, stream, n):
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
     """Segment-summed block-pair products of one factorize row:
     ``out[s] = sum_{i: pair_seg[i] == s} B[pair_l[i]] @ B[pair_u[i]]`` for
-    the TL = ``len(seg_ptr) - 1`` lanes s, with B = ``blocks`` viewed as
-    (N, be, be). Pairs are sorted by segment; ``seg_ptr[s]:seg_ptr[s+1]``
-    is lane s's pair range, and pads (segment TL) lie past ``seg_ptr[TL]``.
-    Returns (TL, be*be).
+    the ``n_live`` live lanes s, with B = ``blocks`` viewed as
+    (N, be, be). Pairs are sorted by segment; pairs of segment >= n_live
+    are pads (the plan puts no real pair there, ``_device_plan`` checks).
+    ``work`` is the row's ``PairWork``. Returns (n_live, be*be).
 
-    Replaces the reference package's ``_pairs_pallas``. A CPU tensor takes
-    the plain version; a CUDA tensor launches ``csrc/splu_pairs.cu`` or
-    raises. Index ranges are plan constants, checked once per plan by
+    Replaces the reference package's ``_pairs_pallas`` (whose lanes past
+    the row's ``len`` are always zero). A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/splu_pairs.cu`` or raises.
+    Index ranges are plan constants, checked once per plan by
     ``_device_plan``."""
     _check_kernel_args("splu_pairs", blocks,
-                       (pair_l, pair_u, pair_seg, seg_ptr))
-    TL = seg_ptr.shape[0] - 1
+                       (pair_l, pair_u, pair_seg, work.lane_off))
+    chunk = work.chunk
+    if (chunk.device != blocks.device or chunk.dtype != torch.int32
+            or chunk.dim() != 2 or chunk.shape[1] != 4
+            or not chunk.is_contiguous()):
+        raise ValueError("splu_pairs: work.chunk must be a contiguous "
+                         f"(n, 4) int32 tensor on {blocks.device}")
     if blocks.shape[1] != be * be:
         raise ValueError(f"splu_pairs: blocks must be (N, be*be), got "
                          f"be={be}, {tuple(blocks.shape)}")
     if not (pair_l.shape == pair_u.shape == pair_seg.shape):
         raise ValueError("splu_pairs: pair arrays differ in length")
+    n_chunks = chunk.shape[0]
+    if not (0 < n_live <= min(n_chunks, work.lane_off.shape[0])
+            and 0 <= work.n_multi <= n_chunks):
+        raise ValueError(f"splu_pairs: n_live {n_live} and n_multi "
+                         f"{work.n_multi} do not fit the work list")
     if blocks.device.type == "cpu":
-        return _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, TL, be)
+        return _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, n_live,
+                                 be)
     if blocks.device.type != "cuda":
         raise ValueError(f"splu_pairs: no kernel for {blocks.device}")
     if be not in (32, 64) or blocks.data_ptr() % 16:
         raise ValueError(f"splu_pairs: the kernel takes be 32 or 64 "
                          f"(got {be}) and 16-byte aligned blocks")
-    out = torch.empty((TL, be * be), dtype=blocks.dtype,
+    stream = _cuda.stream_of(blocks)
+    tickets = _stream_tickets(blocks.device, stream, n_live)
+    out = torch.empty((n_live, be * be), dtype=blocks.dtype,
                       device=blocks.device)
+    # one partial per chunk of the multi-chunk lanes
+    scratch = (torch.empty((work.n_multi, be * be), dtype=blocks.dtype,
+                           device=blocks.device) if work.n_multi else None)
     fn = _cuda.library("splu_pairs").splu_pairs_f64
     _cuda.launch_check("splu_pairs", fn(
         blocks.data_ptr(), pair_l.data_ptr(), pair_u.data_ptr(),
-        seg_ptr.data_ptr(), TL, be, out.data_ptr(), _cuda.stream_of(blocks)))
+        chunk.data_ptr(), work.lane_off.data_ptr(), tickets.data_ptr(),
+        n_chunks, n_live, be, out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), stream))
     splu_pairs.launches += 1
     return out
 
@@ -618,6 +674,34 @@ def _seg_ptr(pair_seg, TL):
                      for row in pair_seg]).astype(np.int32)
 
 
+def _pair_chunks(seg_ptr, ln, K=None):
+    """Balanced work list of one factorize row for ``splu_pairs``: each
+    live lane s < ``ln`` (pairs ``seg_ptr[s]:seg_ptr[s+1]``) is cut into
+    ceil(pairs / K) chunks of near-equal size, at most K consecutive pairs
+    each; a lane without pairs gets one empty chunk. Lanes with more
+    chunks come first (stable in lane order) and each lane's chunks are
+    consecutive, in pair order. Returns (chunk, lane_off, n_multi):
+    ``chunk`` (n_chunks, 4) int32 rows (lane, first pair, pairs, chunks
+    of the lane); ``lane_off`` (ln,) int32, each lane's first chunk;
+    ``n_multi`` the chunks of multi-chunk lanes, a prefix of the list."""
+    K = CHUNK_PAIRS if K is None else int(K)
+    starts = np.asarray(seg_ptr[:ln], dtype=np.int64)
+    counts = np.asarray(seg_ptr[1:ln + 1], dtype=np.int64) - starts
+    nck = np.maximum(1, -(-counts // K))
+    order = np.argsort(-nck, kind="stable")
+    nck_o = nck[order]
+    off_o = np.cumsum(nck_o) - nck_o
+    lane_off = np.empty(ln, dtype=np.int64)
+    lane_off[order] = off_o
+    lane = np.repeat(order, nck_o)
+    j = np.arange(int(nck_o.sum())) - np.repeat(off_o, nck_o)
+    c, n = nck[lane], counts[lane]
+    lo, hi = n * j // c, n * (j + 1) // c
+    chunk = np.stack([lane, starts[lane] + lo, hi - lo, c], axis=1)
+    return (chunk.astype(np.int32), lane_off.astype(np.int32),
+            int(nck_o[nck_o > 1].sum()))
+
+
 def _check_range(name, a, hi):
     if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
         raise ValueError(f"plan array {name} leaves [0, {hi})")
@@ -672,6 +756,20 @@ def _device_plan(plan: SpluPlan, device):
         raise ValueError("plan pair segments are not sorted")
     if (pk["t0"] + TL > nrow_store).any():
         raise ValueError("plan row window leaves the block storage")
+    # splu_pairs writes the live lanes only: no real pair may target a
+    # segment at or past the row's len
+    lens = pk["len"].astype(np.int64)
+    if (seg_ptr[np.arange(len(lens)), lens] != npair).any():
+        raise ValueError("plan pairs target segments at or past the row's "
+                         "live lanes (len)")
+    chunks = [_pair_chunks(seg_ptr[r], int(lens[r]))
+              for r in range(len(lens))]
+    ck_cap = max(len(c) for c, _, _ in chunks)
+    chunk_a = np.zeros((len(lens), ck_cap, 4), dtype=np.int32)
+    lane_off_a = np.zeros((len(lens), TL), dtype=np.int32)
+    for r, (c, off, _) in enumerate(chunks):
+        chunk_a[r, :len(c)] = c
+        lane_off_a[r, :len(off)] = off
 
     # assembly positions: unit diagonals (identity slot + padding rows)
     # and the four K-embedding positions of every complex entry
@@ -689,14 +787,20 @@ def _device_plan(plan: SpluPlan, device):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    chunk_t = t(chunk_a, torch.int32)
+    lane_off_t = t(lane_off_a, torch.int32)
     dp = {
+        # t0, len, nd, live pairs, fresh inverse used, chunks, multi chunks
         "rows": [(int(pk["t0"][r]), int(pk["len"][r]), int(pk["nd"][r]),
-                  int(npair[r]), bool(fresh[r].any()))
+                  int(npair[r]), bool(fresh[r].any()), len(chunks[r][0]),
+                  chunks[r][2])
                  for r in range(len(pk["t0"]))],
+        "work": [PairWork(chunk_t[r, :len(c)], lane_off_t[r, :len(off)],
+                          n_multi)
+                 for r, (c, off, n_multi) in enumerate(chunks)],
         "pair_l": t(pk["pair_l"], torch.int32),
         "pair_u": t(pk["pair_u"], torch.int32),
         "pair_seg": t(pair_seg, torch.int32),
-        "seg_ptr": t(seg_ptr, torch.int32),
         "dinv": t(pk["dinv"], torch.int32),
         "dloc": t(dloc_r),
         "fresh": t(fresh, torch.bool),
@@ -844,18 +948,18 @@ def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp):
     live range ``blocks[t0:t0+len]`` in place: ``len`` and ``nd`` are host
     ints. The states are updated in place."""
     b = plan.b
-    for r, (t0, ln, nd, npair, has_fresh) in enumerate(dp["rows"]):
+    for r, (t0, ln, nd, npair, has_fresh, _, _) in enumerate(dp["rows"]):
         pl_r = dp["pair_l"][r, :npair]
         pu_r = dp["pair_u"][r, :npair]
         ps_r = dp["pair_seg"][r, :npair]
-        sp_r = dp["seg_ptr"][r]
+        work_r = dp["work"][r]
         dinv_r = dp["dinv"][r, :ln]
         for st, delta, cplx in zip(states, deltas, cplxs):
             blocks = st[0]
             width = blocks.shape[1]
             be = 2 * b if cplx else b
-            acc = splu_pairs(blocks, pl_r, pu_r, ps_r, sp_r, be)
-            vals = (blocks[t0:t0 + ln] - acc[:ln]).view(ln, be, be)
+            acc = splu_pairs(blocks, pl_r, pu_r, ps_r, work_r, ln, be)
+            vals = (blocks[t0:t0 + ln] - acc).view(ln, be, be)
             Dv = gather_rows(blocks, dinv_r).view(ln, be, be)
             if nd:
                 Dinv, ldw, mpw, npw, phw = _inv_block(vals[:nd], delta)

@@ -42,6 +42,12 @@ def _brusselator_plan(npoint):
     return factor.analyze(n, rows, cols, genie=Genie.SPLU), jv
 
 
+def _row_args(dp, blocks, r, be):
+    _, ln, _, npair, *_ = dp["rows"][r]
+    return (blocks, dp["pair_l"][r, :npair], dp["pair_u"][r, :npair],
+            dp["pair_seg"][r, :npair], dp["work"][r], ln, be)
+
+
 @pytest.mark.parametrize("be", [32, 64])
 def test_kernels_match_plain_versions(cuda, be):
     plan, _ = _brusselator_plan(16)
@@ -52,15 +58,27 @@ def test_kernels_match_plain_versions(cuda, be):
     blocks = torch.as_tensor(
         rng.standard_normal((sp.nblk + TL + 1, be * be)), device=cuda)
     blocks[0] = 0.0
-    for r, (_, ln, _, npair, _) in enumerate(dp["rows"]):
-        for n in (npair, dp["pair_l"].shape[1]):   # live pairs; padded row
+    # every row: among them the row with the longest lane and rows whose
+    # len is below TL
+    seg_ptr = splu._seg_ptr(sp.packed["pair_seg"], TL)
+    lens = [row[1] for row in dp["rows"]]
+    longest = max(range(len(lens)), key=lambda r: int(
+        np.diff(seg_ptr[r, :lens[r] + 1]).max()))
+    assert min(lens) < TL and any(row[6] for row in dp["rows"])
+    for r in sorted(range(len(lens)), key=lambda r: r != longest):
+        args = _row_args(dp, blocks, r, be)
+        ln = args[5]
+        # live pairs; and the padded row, whose pads must drop out
+        for n in (args[1].numel(), dp["pair_l"].shape[1]):
             args = (blocks, dp["pair_l"][r, :n], dp["pair_u"][r, :n],
-                    dp["pair_seg"][r, :n], dp["seg_ptr"][r], be)
+                    dp["pair_seg"][r, :n], dp["work"][r], ln, be)
             n0 = splu.splu_pairs.launches
             got = splu.splu_pairs(*args)
             assert splu.splu_pairs.launches == n0 + 1
-            want = splu._splu_pairs_plain(*args[:4], TL, be)
-            # the sum order differs (FMA loop vs bmm + index_add_)
+            assert got.shape == (ln, be * be)
+            want = splu._splu_pairs_plain(*args[:4], ln, be)
+            # the sum order differs (tensor-core tiles and per-chunk
+            # partials vs bmm + index_add_)
             torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-13)
         idx = dp["dinv"][r, :ln]
         n0 = splu.gather_rows.launches
@@ -68,12 +86,84 @@ def test_kernels_match_plain_versions(cuda, be):
         assert splu.gather_rows.launches == n0 + 1
 
 
+@pytest.mark.parametrize("be", [32, 64])
+def test_splu_pairs_is_bit_identical_across_launches(cuda, be):
+    plan, _ = _brusselator_plan(16)
+    sp = plan.splu_plan
+    dp = splu._device_plan(sp, cuda)
+    rng = np.random.default_rng(be + 1)
+    blocks = torch.as_tensor(rng.standard_normal(
+        (sp.nblk + sp.packed["TL"] + 1, be * be)), device=cuda)
+    multi = [r for r, row in enumerate(dp["rows"]) if row[6]]
+    assert multi
+    for r in range(len(dp["rows"])):
+        args = _row_args(dp, blocks, r, be)
+        first = splu.splu_pairs(*args)
+        for _ in range(3 if r in multi else 1):
+            assert torch.equal(splu.splu_pairs(*args), first)
+    # the per-lane tickets are left at zero for the next launch
+    torch.cuda.synchronize()
+    assert splu._tickets and not any(t.any() for t in splu._tickets.values())
+
+
+@pytest.mark.parametrize("be", [32, 64])
+def test_splu_pairs_on_two_streams_is_bit_identical(cuda, be):
+    # the multi-chunk lanes' tickets and partials are per stream and per
+    # call: launches of one plan on two streams, free to overlap, must not
+    # mix them
+    plan, _ = _brusselator_plan(16)
+    sp = plan.splu_plan
+    dp = splu._device_plan(sp, cuda)
+    rng = np.random.default_rng(be + 2)
+    blocks = torch.as_tensor(rng.standard_normal(
+        (sp.nblk + sp.packed["TL"] + 1, be * be)), device=cuda)
+    multi = [r for r, row in enumerate(dp["rows"]) if row[6]]
+    want = {r: splu.splu_pairs(*_row_args(dp, blocks, r, be)) for r in multi}
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        for r in multi:
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append((r, splu.splu_pairs(*_row_args(dp, blocks, r,
+                                                              be))))
+    torch.cuda.synchronize()
+    for r, out in got:
+        assert torch.equal(out, want[r])
+    assert not any(t.any() for t in splu._tickets.values())
+
+
+@pytest.mark.parametrize("width", [1024, 4096])
+def test_gather_rows_is_exact_at_every_size(cuda, width):
+    rng = np.random.default_rng(width)
+    blocks = torch.as_tensor(rng.standard_normal((1100, width)),
+                             device=cuda)
+    for rows in (1, 36, 1024):
+        # few distinct sources, as the factorize rows gather
+        idx = torch.as_tensor(rng.integers(0, 12, rows) * 91,
+                              dtype=torch.int32, device=cuda)
+        assert torch.equal(splu.gather_rows(blocks, idx), blocks[idx])
+        idx = torch.as_tensor(rng.integers(0, 1100, rows),
+                              dtype=torch.int32, device=cuda)
+        assert torch.equal(splu.gather_rows(blocks, idx), blocks[idx])
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     blocks = torch.zeros((4, 48 * 48), dtype=torch.float64, device=cuda)
     i32 = torch.zeros(2, dtype=torch.int32, device=cuda)
-    sp = torch.zeros(3, dtype=torch.int32, device=cuda)
+    chunk = torch.tensor([[0, 0, 1, 1], [1, 1, 1, 1]], dtype=torch.int32,
+                         device=cuda)
+    work = splu.PairWork(chunk, torch.arange(2, dtype=torch.int32,
+                                             device=cuda), 0)
     with pytest.raises(ValueError):     # be 48: no kernel, no fallback
-        splu.splu_pairs(blocks, i32, i32, i32, sp, 48)
+        splu.splu_pairs(blocks, i32, i32, i32, work, 2, 48)
+    with pytest.raises(ValueError):     # the work list on another device
+        splu.splu_pairs(torch.zeros((4, 32 * 32), dtype=torch.float64,
+                                    device=cuda), i32, i32, i32,
+                        splu.PairWork(chunk.cpu(), work.lane_off, 0),
+                        2, 32)
     with pytest.raises(ValueError):     # odd row width
         splu.gather_rows(torch.zeros((4, 3), dtype=torch.float64,
                                      device=cuda), i32)

@@ -6,6 +6,7 @@ versions here (CPU tensors). The kernels themselves are held to those
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import dataclasses
 from functools import partial
 
 import numpy as np
@@ -204,16 +205,21 @@ def test_splu_pairs_plain_matches_pallas_interpret(cplx):
     npair = [r[3] for r in dp["rows"]]
     rows = [int(np.argmax(npair))] if cplx else range(len(npair))
     for r in rows:
-        want = jsplu._pairs_pallas(
+        ln = dp["rows"][r][1]
+        want = np.asarray(jsplu._pairs_pallas(
             jnp.asarray(blocks), jnp.asarray(aug["pair_l"][r]),
             jnp.asarray(aug["pair_u"][r]), jnp.asarray(aug["pair_seg"][r]),
-            jnp.asarray(aug["pair_first"][r]), TL, be, interpret=True)
+            jnp.asarray(aug["pair_first"][r]), TL, be, interpret=True))
+        # the port writes the row's len live lanes only: the reference's
+        # lanes past len are zeros
+        assert not want[ln:].any()
         # the full padded row: pads (segment TL) must drop out
         got = tsplu.splu_pairs(torch.as_tensor(blocks), dp["pair_l"][r],
                                dp["pair_u"][r], dp["pair_seg"][r],
-                               dp["seg_ptr"][r], be)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                   rtol=RTOL, atol=ATOL)
+                               dp["work"][r], ln, be)
+        assert got.shape == (ln, be * be)
+        np.testing.assert_allclose(got.numpy(), want[:ln], rtol=RTOL,
+                                   atol=ATOL)
 
 
 def test_gather_rows_plain_matches_pallas_interpret():
@@ -245,16 +251,131 @@ def test_seg_ptr_brackets_each_lane():
         assert sp[r, TL] == (row < TL).sum()
 
 
+def _port_plan(case):
+    """The port's plan alone: the chunk tests also take the npoint-16
+    Brusselator, whose reference factorization the parity tests skip."""
+    if case == "bru16":
+        n, ii, jj, _ = _brusselator_k(16)
+        return tsplu.splu_analyze(n, ii, jj, block_size=32, ordering="nd")
+    return _plans(case)[-1]
+
+
+CHUNK_CASES = ["lap12", "lap48_b8", "bru5", "bru16"]
+
+
+def _check_chunks(seg_ptr, ln, K, chunk, lane_off, n_multi):
+    lane, p0, npr, cnt = chunk.T.astype(np.int64)
+    counts = np.diff(seg_ptr[:ln + 1].astype(np.int64))
+    ids = np.arange(len(chunk))
+    # each chunk: at most K pairs of its own lane
+    assert ((npr >= 0) & (npr <= K)).all()
+    assert ((p0 >= seg_ptr[lane]) & (p0 + npr <= seg_ptr[lane + 1])).all()
+    # each lane's chunks are consecutive, from lane_off, cnt of them
+    assert (np.bincount(lane, minlength=ln) == cnt[lane_off]).all()
+    assert ((lane_off[lane] <= ids) & (ids < lane_off[lane] + cnt)).all()
+    # lanes ordered by chunk count, most first; multi-chunk lanes a prefix
+    assert (np.diff(cnt) <= 0).all()
+    assert n_multi == int((cnt > 1).sum())
+    # pairless live lanes get one empty chunk; other chunks are not empty
+    assert (cnt[lane_off[counts == 0]] == 1).all()
+    assert ((npr == 0) == (counts[lane] == 0)).all()
+    # every live pair covered once, in order: lanes ascending, each lane's
+    # chunks in list order
+    by_lane = np.lexsort((ids, lane))
+    ends = (p0 + npr)[by_lane]
+    assert p0[by_lane][0] == seg_ptr[0] and ends[-1] == seg_ptr[ln]
+    assert (p0[by_lane][1:] == ends[:-1]).all()
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_pair_chunks_cover_each_live_lane_once(case):
+    tp = _port_plan(case)
+    pk = tp.packed
+    seg_ptr = tsplu._seg_ptr(pk["pair_seg"], pk["TL"])
+    dp = tsplu._device_plan(tp, "cpu")
+    for r, ln in enumerate(pk["len"]):
+        for K in (1, 3, tsplu.CHUNK_PAIRS):
+            _check_chunks(seg_ptr[r], ln, K,
+                          *tsplu._pair_chunks(seg_ptr[r], ln, K))
+        w = dp["work"][r]
+        assert dp["rows"][r][5:] == (w.chunk.shape[0], w.n_multi)
+        _check_chunks(seg_ptr[r], ln, tsplu.CHUNK_PAIRS, w.chunk.numpy(),
+                      w.lane_off.numpy(), w.n_multi)
+
+    # the kernel's arithmetic on the work list: one partial per chunk,
+    # each multi-chunk lane's partials summed in chunk order, against the
+    # plain version (the row with the most multi-chunk lanes, both widths)
+    r = max(range(len(pk["len"])), key=lambda i: dp["rows"][i][6])
+    ln, npair = dp["rows"][r][1], dp["rows"][r][3]
+    w = dp["work"][r]
+    pl_r, pu_r = dp["pair_l"][r, :npair], dp["pair_u"][r, :npair]
+    for be in (tp.b, 2 * tp.b):
+        B = torch.as_tensor(_row_blocks(tp, be, 8)).view(-1, be, be)
+        part = torch.stack([
+            (B[pl_r[p:p + n]] @ B[pu_r[p:p + n]]).sum(0) if n else
+            torch.zeros(be, be, dtype=B.dtype)
+            for _, p, n, _ in w.chunk.tolist()])
+        got = torch.empty((ln, be, be), dtype=B.dtype)
+        for s in range(ln):
+            o = int(w.lane_off[s])
+            acc = part[o]
+            for j in range(1, int(w.chunk[o, 3])):
+                acc = acc + part[o + j]
+            got[s] = acc
+        want = tsplu.splu_pairs(B.view(-1, be * be), pl_r, pu_r,
+                                dp["pair_seg"][r, :npair], w, ln, be)
+        np.testing.assert_allclose(got.view(ln, -1).numpy(), want.numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_used_segments_lie_below_len(case):
+    tp = _port_plan(case)
+    pk = tp.packed
+    TL = pk["TL"]
+    short = None
+    for r, (seg, ln) in enumerate(zip(pk["pair_seg"], pk["len"])):
+        live = seg[seg < TL]
+        assert (live < ln).all()
+        if len(live) and ln < TL and short is None:
+            short = r
+    # a plan that puts a pair on the lane at len is refused
+    assert short is not None
+    bad = {**pk, "pair_seg": pk["pair_seg"].copy()}
+    last = int((pk["pair_seg"][short] < TL).sum()) - 1
+    bad["pair_seg"][short, last] = pk["len"][short]
+    with pytest.raises(ValueError, match="len"):
+        tsplu._device_plan(dataclasses.replace(tp, packed=bad), "cpu")
+
+
 def test_kernel_wrappers_check_their_arguments():
-    blocks = torch.zeros((4, 64), dtype=torch.float64)
+    blocks = torch.ones((4, 64), dtype=torch.float64)
     i32 = torch.zeros(2, dtype=torch.int32)
-    sp = torch.zeros(3, dtype=torch.int32)
+    chunk = torch.tensor([[0, 0, 1, 1], [1, 1, 1, 1]], dtype=torch.int32)
+    work = tsplu.PairWork(chunk, torch.arange(2, dtype=torch.int32), 0)
     with pytest.raises(TypeError):
-        tsplu.splu_pairs(blocks.float(), i32, i32, i32, sp, 8)
+        tsplu.splu_pairs(blocks.float(), i32, i32, i32, work, 2, 8)
     with pytest.raises(ValueError):
-        tsplu.splu_pairs(blocks, i32.long(), i32, i32, sp, 8)
+        tsplu.splu_pairs(blocks, i32.long(), i32, i32, work, 2, 8)
     with pytest.raises(ValueError):
-        tsplu.splu_pairs(blocks, i32, i32, i32, sp, 4)
+        tsplu.splu_pairs(blocks, i32, i32, i32, work, 2, 4)
+    bad_works = [
+        tsplu.PairWork(chunk.view(-1), work.lane_off, 0),   # not (n, 4)
+        tsplu.PairWork(chunk.long(), work.lane_off, 0),
+        tsplu.PairWork(chunk, work.lane_off.long(), 0),
+        tsplu.PairWork(chunk, work.lane_off[:1], 0),   # fewer lanes than n_live
+        tsplu.PairWork(chunk, work.lane_off, 3),   # n_multi > chunks
+    ]
+    for bad in bad_works:
+        with pytest.raises((TypeError, ValueError)):
+            tsplu.splu_pairs(blocks, i32, i32, i32, bad, 2, 8)
+    for n_live in (0, 3):   # no lane, or more lanes than chunks
+        with pytest.raises(ValueError):
+            tsplu.splu_pairs(blocks, i32, i32, i32, work, n_live, 8)
+    # pairs of segment 0 and 1 on two live lanes
+    seg = torch.tensor([0, 1], dtype=torch.int32)
+    out = tsplu.splu_pairs(blocks, i32, i32, seg, work, 2, 8)
+    assert out.shape == (2, 64) and bool((out == 8.0).all())
     with pytest.raises(ValueError):   # no kernel and no plain version
         tsplu.gather_rows(blocks.to("meta"), i32.to("meta"))
     out = tsplu.gather_rows(blocks, i32)
