@@ -32,14 +32,25 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
    kernel's summed device time beside the bound of the same work;
 10. bsr_kernels: each BSR kernel against its plain version on the card on
    the npoint-129 Brusselator Jacobian (8x128 blocks for SpMV and SpMM at
-   m = 16, 16x16 blocks for A·A), with the same numbers;
+   m = 16, 16x16 blocks for A·A): the kernel's, the plain version's and
+   the library call's time with the L2 flushed before each call (``ms``:
+   at npoint 513 SpMV's whole working set fits the 50 MB L2, so only the
+   cold time reads HBM as the bound assumes), the kernel's and library's
+   back-to-back time beside it (``ms_warm_l2``), and the bound; SpMV and
+   SpMM read the matrix's live-entry layout, whose build (``layout_s``,
+   the first bsr_matvec), bytes and pad share are printed, and are held
+   to the least bytes of the work (``bsr_work``: each nonzero once, the
+   layout's slice offsets, x and y once) beside the bound over the stored
+   8x128 blocks they were held to before (``stored_bound_ms``); two more
+   launches must give the same bits;
 11. bsr_path: the BSR path through the public entry points on the
    npoint-513 Brusselator Jacobian J(y0) (n 526,338), with launch counts
    and peak device memory; then each product held against its kernel's
    plain version on the same inputs (every entry) and against scipy on
-   the host, with the kernel, plain and library times, nnz/s, GB/s and
-   roofline share at these shapes. The kernels line reports the BSR
-   kernels from this phase.
+   the host, with the numbers of phase 10, nnz/s, GB/s and roofline share
+   at these shapes. The kernels line reports the BSR kernels from this
+   phase: measured numbers and the bound only (shares, the stored-block
+   bound and the layout stay in the phase's lines).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -47,11 +58,15 @@ before the last is the kernels' JSON; the last is
 
     python3 chip_smoke.py
 
-To compare the SPLU kernels of two trees on one card, unpack the other
-tree (``git archive``) into an ignored directory and run
-``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 9 with
-DIR's package and with this tree's, each in its own process, in turns
-P C C P, ROUNDS times. ``--replay [--tree DIR]`` is one such process.
+To compare the kernels of two trees on one card, unpack the other tree
+(``git archive``) into an ignored directory and run
+``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 9 and
+the npoint-513 ``bsr_matvec`` / ``bsr_matmat`` times (back to back, and
+the first call on a new matrix and after an in-place update of its
+blocks, which builds the live layout) with DIR's package and with this
+tree's, each in its own process, in turns P C C P, ROUNDS times, then the
+ratios and the number of products that pays for one layout build.
+``--replay [--tree DIR]`` is one such process.
 ``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
 plan for each chunk size K of CHUNK_SWEEP, which is how
 ``splu.CHUNK_PAIRS`` was chosen.
@@ -698,13 +713,43 @@ def torch_csr(a, dev):
         torch.as_tensor(a.data), a.shape, device=dev)
 
 
-def bsr_work(bsr, m):
-    """(bytes, flops) of Y = A X with X (n_cols, m): each live block read
-    once (pads are skipped), col ids and mask, X read and Y written once;
-    2 flops per stored block entry and column of X."""
+def bsr_work(lay, m):
+    """(bytes, flops) of the least work of Y = A X with X (n_cols, m), A
+    given by its live layout ``lay``: each live nonzero read once (8-byte
+    value, 4-byte column; pads not counted), the row structure the kernels
+    read (n_slices + 1 int64 slice offsets, 16x less than a CSR row
+    pointer), X read and Y written once; 2 flops per nonzero and column of
+    X."""
+    return (12 * lay.nnz + 8 * (lay.n_slices + 1)
+            + 8 * m * (lay.n_rows + lay.n_cols), 2 * lay.nnz * m)
+
+
+def bsr_stored_work(bsr, m):
+    """(bytes, flops) of Y = A X counted over every entry of the live
+    blocks, zeros included, as a kernel that streams the stored blocks
+    reads them: the bound such kernels were held to, kept for the
+    record."""
     live = int((bsr.mask > 0).sum())
     return (8 * (live * bsr.bm * bsr.bn + (bsr.n_cols + bsr.n_rows) * m)
             + 12 * bsr.col_ids.numel(), 2 * live * bsr.bm * bsr.bn * m)
+
+
+def first_call_s(fn):
+    """Host seconds of ``fn``'s first call up to a synchronize: for
+    bsr_matvec on a new matrix, the build of its live layout and one
+    launch (~0.02 ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bit_identical(name, fn, first):
+    """Raise unless two more launches of ``fn`` give ``first``'s bits."""
+    for _ in range(2):
+        if not torch.equal(fn(), first):
+            raise AssertionError(f"{name}: two launches differ")
 
 
 def spgemm_work(plan, a):
@@ -719,10 +764,37 @@ def spgemm_work(plan, a):
             2 * n_ops * a.bm * a.bn * a.bn)
 
 
+def layout_record(lay, layout_s):
+    """What the smoke prints of a matrix's live layout ``lay`` (built by
+    its first bsr_matvec in ``layout_s`` s)."""
+    return {"layout_s": layout_s, "nnz_live": lay.nnz,
+            "slots": lay.val.numel(), "pad_share": lay.pad_share,
+            "slices": lay.n_slices, "layout_bytes": lay.nbytes}
+
+
+def bsr_timings(kern, plain, lib, work, ms_warm=None):
+    """The numbers of a BSR product that the kernels line takes: ``ms``,
+    ``plain_ms`` and ``library_ms`` with the L2 flushed before each call
+    (``cold_ms``; SpMV's whole working set at npoint 513 fits the 50 MB
+    L2, so back-to-back calls would partly read it from there, not from
+    HBM as the bound assumes), the kernel's and the library's back-to-back
+    times (``time_ms``, L2 warm) beside them, and the bound of ``work``."""
+    ms = cold_ms(kern)
+    if ms_warm is None:
+        ms_warm = time_ms(kern)
+    plain_ms = cold_ms(plain)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(*work)
+    return {"ms": ms, "ms_warm_l2": ms_warm, "plain_ms": plain_ms,
+            "library_ms": cold_ms(lib), "library_ms_warm_l2": time_ms(lib),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_bsr_kernels():
     """Each BSR kernel against its plain version on the npoint-129
-    Jacobian, with its time, the plain version's, the library call's and
-    its bound (printed here; the kernels line takes ``bsr_path``'s)."""
+    Jacobian, with the numbers of ``bsr_timings`` and, for SpMV / SpMM, the
+    live layout's build time and pad share and the earlier stored-block
+    bound (printed here; the kernels line takes ``bsr_path``'s)."""
     from russell_tpu_torch.sparse import kernels
     dev = torch.device("cuda")
     coo = brusselator_jacobian(NPOINT)
@@ -731,6 +803,9 @@ def phase_bsr_kernels():
     x = torch.as_tensor(rng.standard_normal(coo.ncol), device=dev)
     X = torch.as_tensor(rng.standard_normal((coo.ncol, SPMM_M)), device=dev)
     bsr8 = kernels.bsr_from_coo(coo, 8, 128, dev)
+    _, layout_s = first_call_s(lambda: kernels.bsr_matvec(bsr8, x))
+    live = kernels._live_layout(bsr8)
+    lay = layout_record(live, layout_s)
     bsr16 = kernels.bsr_from_coo(coo, 16, 16, dev)
     plan = kernels.spgemm_plan(bsr16, bsr16)
     dp = kernels._device_plan(plan, dev)
@@ -738,31 +813,39 @@ def phase_bsr_kernels():
         bsr8=[bsr8.nbr, bsr8.blocks_per_row, int((bsr8.mask > 0).sum())],
         bsr16=[bsr16.nbr, bsr16.blocks_per_row,
                int((bsr16.mask > 0).sum())],
-        spgemm_ops=len(plan.a_idx), c_blocks=plan.c_blocks)
+        spgemm_ops=len(plan.a_idx), c_blocks=plan.c_blocks, **lay)
     # torch's CUDA BSR product takes square blocks only, so the SpMV and
     # SpMM yardsticks are the CSR products (cuSPARSE SpMV / SpMM)
     cases = {
         "bsr_spmv": (lambda: kernels.bsr_matvec(bsr8, x),
                      lambda: kernels._bsr_matvec_plain(bsr8, x),
-                     lambda: a_csr @ x, bsr_work(bsr8, 1)),
+                     lambda: a_csr @ x, bsr_work(live, 1),
+                     bsr_stored_work(bsr8, 1)),
         "bsr_spmm": (lambda: kernels.bsr_matmat(bsr8, X),
                      lambda: kernels._bsr_matmat_plain(bsr8, X),
-                     lambda: a_csr @ X, bsr_work(bsr8, SPMM_M)),
+                     lambda: a_csr @ X, bsr_work(live, SPMM_M),
+                     bsr_stored_work(bsr8, SPMM_M)),
         "spgemm_blocks": (
             lambda: kernels.spgemm(plan, bsr16, bsr16)[0],
             lambda: kernels._spgemm_plain(dp, bsr16, bsr16, plan.c_blocks),
-            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16)),
+            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16),
+            None),
     }
-    for name, (kern, plain, lib, (nbytes, flops)) in cases.items():
+    for name, (kern, plain, lib, work, stored) in cases.items():
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err, scale = assert_close(name, got, want)
-        b_ms, b_by = bound(nbytes, flops)
+        extra = {}
+        if stored is not None:
+            bit_identical(name, kern, got)
+            extra = {"stored_bound_ms": bound(*stored)[0],
+                     "bit_identical": True}
+        t = bsr_timings(kern, plain, lib, work)
         say("bsr_kernel", name=name, npoint=NPOINT, scale=scale, rtol=RTOL,
-            bytes=nbytes, flops=flops, max_abs_err=err, ms=time_ms(kern),
-            plain_ms=time_ms(plain), library_ms=time_ms(lib), bound_ms=b_ms,
-            bound_by=b_by)
+            bytes=work[0], flops=work[1], max_abs_err=err, **t,
+            share=t["bound_ms"] / t["ms"],
+            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"], **extra)
     torch.cuda.empty_cache()
 
 
@@ -771,7 +854,7 @@ def phase_bsr_path():
     Jacobian. Each result is held against its kernel's plain version on
     the same inputs (every output entry, every C block) and against scipy
     on the host; the kernel, plain and library calls are timed at these
-    shapes."""
+    shapes (``bsr_timings``)."""
     from russell_tpu_torch.sparse import (bsr_from_coo, bsr_matmat,
                                           bsr_matvec, kernels, spgemm,
                                           spgemm_plan)
@@ -793,7 +876,7 @@ def phase_bsr_path():
     bsr8 = bsr_from_coo(coo, 8, 128, dev)
     torch.cuda.synchronize()
     bsr8_s = time.perf_counter() - t0
-    y = bsr_matvec(bsr8, x)
+    y, layout_s = first_call_s(lambda: bsr_matvec(bsr8, x))
     spmv_ms = time_ms(lambda: bsr_matvec(bsr8, x))
     Y = bsr_matmat(bsr8, X)
     spmm_ms = time_ms(lambda: bsr_matmat(bsr8, X))
@@ -815,35 +898,49 @@ def phase_bsr_path():
         if k <= 0:
             raise AssertionError(f"bsr_path: {name} was not launched")
 
-    # each kernel against its plain version on the same inputs, in full
+    # each kernel against its plain version on the same inputs, in full;
+    # two more launches of SpMV and SpMM give the same bits
     dp = kernels._device_plan(plan, dev)
     a_csr = torch_csr(a, dev)
+    live = kernels._live_layout(bsr8)
+    lay = layout_record(live, layout_s)
     # torch's CUDA BSR product takes square blocks only, so the SpMV and
     # SpMM yardsticks are the CSR products (cuSPARSE SpMV / SpMM)
     cases = {
-        "bsr_spmv": (y, spmv_ms, lambda: kernels._bsr_matvec_plain(bsr8, x),
-                     lambda: a_csr @ x, bsr_work(bsr8, 1)),
-        "bsr_spmm": (Y, spmm_ms, lambda: kernels._bsr_matmat_plain(bsr8, X),
-                     lambda: a_csr @ X, bsr_work(bsr8, SPMM_M)),
+        "bsr_spmv": (y, spmv_ms, lambda: bsr_matvec(bsr8, x),
+                     lambda: kernels._bsr_matvec_plain(bsr8, x),
+                     lambda: a_csr @ x, bsr_work(live, 1),
+                     bsr_stored_work(bsr8, 1)),
+        "bsr_spmm": (Y, spmm_ms, lambda: bsr_matmat(bsr8, X),
+                     lambda: kernels._bsr_matmat_plain(bsr8, X),
+                     lambda: a_csr @ X, bsr_work(live, SPMM_M),
+                     bsr_stored_work(bsr8, SPMM_M)),
         "spgemm_blocks": (
-            C, spgemm_ms,
+            C, spgemm_ms, lambda: spgemm(plan, bsr16, bsr16)[0],
             lambda: kernels._spgemm_plain(dp, bsr16, bsr16, plan.c_blocks),
-            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16)),
+            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16),
+            None),
     }
+    # the kernels line takes ``results``: measured numbers and the bound;
+    # the shares, the stored-block bound and the layout go to this phase's
+    # lines only
     results = {}
-    for name, (got, ms, plain, lib, (nbytes, flops)) in cases.items():
+    for name, (got, ms_warm, kern, plain, lib, work,
+               stored) in cases.items():
         want = plain()
         err, scale = assert_close(f"{name} vs plain", got, want)
         del want
-        plain_ms = time_ms(plain)
-        torch.cuda.empty_cache()
-        library_ms = time_ms(lib)
-        b_ms, b_by = bound(nbytes, flops)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
+        extra = {}
+        if stored is not None:
+            bit_identical(name, kern, got)
+            extra = {"stored_bound_ms": bound(*stored)[0],
+                     "layout_s": layout_s, "pad_share": lay["pad_share"]}
+        results[name] = {"max_abs_err": err,
+                         **bsr_timings(kern, plain, lib, work, ms_warm)}
+        t = results[name]
         say("bsr_path_kernel", name=name, npoint=NPOINT_BSR, scale=scale,
-            rtol=RTOL, **results[name])
+            rtol=RTOL, **t, share=t["bound_ms"] / t["ms"],
+            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"], **extra)
     del a_csr
     torch.cuda.empty_cache()
 
@@ -871,8 +968,8 @@ def phase_bsr_path():
     nnz = a.nnz
     metrics = {}
     for name, (nbytes, flops), per in (
-            ("bsr_spmv", bsr_work(bsr8, 1), nnz),
-            ("bsr_spmm", bsr_work(bsr8, SPMM_M), nnz),
+            ("bsr_spmv", bsr_work(live, 1), nnz),
+            ("bsr_spmm", bsr_work(live, SPMM_M), nnz),
             ("spgemm_blocks", spgemm_work(plan, bsr16), None)):
         ms, b_ms = results[name]["ms"], results[name]["bound_ms"]
         metrics[name] = {
@@ -883,16 +980,17 @@ def phase_bsr_path():
             "roofline_share": b_ms / ms}
         if per is not None:
             metrics[name]["nnz_per_s"] = per / ms * 1e3
-    metrics["bsr_spmm"]["nnz_rhs_per_s"] = nnz * SPMM_M / spmm_ms * 1e3
+    metrics["bsr_spmm"]["nnz_rhs_per_s"] = (
+        nnz * SPMM_M / results["bsr_spmm"]["ms"] * 1e3)
     metrics["spgemm_blocks"]["products_per_s"] = (
-        len(plan.a_idx) / spgemm_ms * 1e3)
+        len(plan.a_idx) / results["spgemm_blocks"]["ms"] * 1e3)
     say("bsr_path", npoint=NPOINT_BSR, n=n, nnz=nnz, coo_entries=coo.nnz,
         jacobian_and_scipy_s=setup_s, bsr_from_coo_8x128_s=bsr8_s,
         bsr_from_coo_16x16_s=bsr16_s, spgemm_plan_s=plan_s,
         check_s=check_s,
         bsr8={"nbr": bsr8.nbr, "bpr": bsr8.blocks_per_row,
               "live_blocks": int((bsr8.mask > 0).sum()),
-              "stored_GB": bsr8.blocks.numel() * 8 / 1e9},
+              "stored_GB": bsr8.blocks.numel() * 8 / 1e9, **lay},
         bsr16={"nbr": bsr16.nbr, "bpr": bsr16.blocks_per_row,
                "live_blocks": int((bsr16.mask > 0).sum())},
         spgemm_ops=len(plan.a_idx), c_blocks=plan.c_blocks,
@@ -967,20 +1065,57 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def bsr_ab_times():
+    """bsr_matvec and bsr_matmat (m = SPMM_M) on the npoint-513 Jacobian
+    through the public entry points of this process's package: the host
+    seconds of the first call of each on a new matrix and of the first
+    bsr_matvec after an in-place update of its blocks (each a product plus,
+    in a package that derives a layout from the blocks, its build), after
+    both were called once on the npoint-9 Jacobian so that neither pays for
+    loading the kernels; then each timed back to back (``time_ms``)."""
+    from russell_tpu_torch.sparse import bsr_from_coo, bsr_matmat, bsr_matvec
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    small = bsr_from_coo(brusselator_jacobian(9), 8, 128, dev)
+    bsr_matvec(small, torch.ones(small.n_cols, dtype=torch.float64,
+                                 device=dev))
+    bsr_matmat(small, torch.ones((small.n_cols, SPMM_M), dtype=torch.float64,
+                                 device=dev))
+    coo = brusselator_jacobian(NPOINT_BSR)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=dev)
+    X = torch.as_tensor(rng.standard_normal((coo.ncol, SPMM_M)), device=dev)
+    bsr8 = bsr_from_coo(coo, 8, 128, dev)
+    y, first_matvec_s = first_call_s(lambda: bsr_matvec(bsr8, x))
+    Y, first_matmat_s = first_call_s(lambda: bsr_matmat(bsr8, X))
+    rec = {"bsr_matvec_ms": time_ms(lambda: bsr_matvec(bsr8, x)),
+           "bsr_matmat_ms": time_ms(lambda: bsr_matmat(bsr8, X)),
+           "bsr_first_matvec_s": first_matvec_s,
+           "bsr_first_matmat_s": first_matmat_s,
+           "y_sum": float(y.sum()), "Y_sum": float(Y.sum())}
+    bsr8.blocks.mul_(1.0)
+    _, rec["bsr_updated_matvec_s"] = first_call_s(
+        lambda: bsr_matvec(bsr8, x))
+    return rec
+
+
 def main_replay():
     """--replay [--tree DIR]: one line, the replay of this package (or
-    DIR's) on the npoint-129 factorize pair."""
+    DIR's) on the npoint-129 factorize pair, then its BSR SpMV and SpMM
+    times on the npoint-513 Jacobian."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    print(json.dumps(replay(replay_setup())), flush=True)
+    rec = replay(replay_setup())
+    torch.cuda.empty_cache()
+    print(json.dumps({**rec, **bsr_ab_times()}), flush=True)
 
 
 def main_ab(parent, rounds):
-    """--ab PARENT [ROUNDS]: the replay with the parent tree's package
-    (``git archive`` of the parent commit unpacked at PARENT) and with this
-    tree's, each in its own process, in turns P C C P, ROUNDS times, on
-    one card; then the medians of each kernel's device time per factorize
-    pair."""
+    """--ab PARENT [ROUNDS]: the replay and the BSR SpMV / SpMM times with
+    the parent tree's package (``git archive`` of the parent commit
+    unpacked at PARENT) and with this tree's, each in its own process, in
+    turns P C C P, ROUNDS times, on one card; then the medians of each
+    kernel's device time per factorize pair and per BSR call, and the
+    ratios change / parent."""
     phase_device()
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(parent), "change": here}
@@ -998,14 +1133,24 @@ def main_ab(parent, rounds):
             raise AssertionError(f"{which} ran {rec['package']}")
         say("ab_replay", tree=which, **rec)
         runs[which].append(rec)
-    med = {which: {k: statistics.median(r[k] for r in recs) for k in (
-        "splu_pairs_ms", "gather_rows_ms", "device_busy_ms",
-        "profiled_wall_s")} for which, recs in runs.items()}
+    keys = ("splu_pairs_ms", "gather_rows_ms", "device_busy_ms",
+            "profiled_wall_s", "bsr_matvec_ms", "bsr_matmat_ms",
+            "bsr_first_matvec_s", "bsr_first_matmat_s",
+            "bsr_updated_matvec_s")
+    med = {which: {k: statistics.median(r[k] for r in recs) for k in keys}
+           for which, recs in runs.items()}
+    p, c = med["parent"], med["change"]
+    # bsr_matvec products on one matrix (one layout build) after which the
+    # change has spent less time than the parent
+    saved_ms = p["bsr_matvec_ms"] - c["bsr_matvec_ms"]
+    extra_ms = 1e3 * (c["bsr_first_matvec_s"] - p["bsr_first_matvec_s"])
     say("ab", order="P C C P", rounds=rounds, median=med,
-        splu_pairs_ratio=med["change"]["splu_pairs_ms"]
-        / med["parent"]["splu_pairs_ms"],
-        gather_rows_ratio=med["change"]["gather_rows_ms"]
-        / med["parent"]["gather_rows_ms"])
+        bsr_matvec_break_even_products=(
+            extra_ms / saved_ms if saved_ms > 0 else None),
+        **{f"{k.rsplit('_', 1)[0]}_ratio": c[k] / p[k] for k in (
+            "splu_pairs_ms", "gather_rows_ms", "bsr_matvec_ms",
+            "bsr_matmat_ms", "bsr_first_matvec_s", "bsr_first_matmat_s",
+            "bsr_updated_matvec_s")})
 
 
 if __name__ == "__main__":

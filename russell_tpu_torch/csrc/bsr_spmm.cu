@@ -1,93 +1,134 @@
-// BSR sparse matrix times dense matrix Y = A X, f64.
+// Sparse matrix times dense matrix Y = A X, f64, over the matrix's live
+// entries.
 //
 // Replaces: russell_tpu/sparse/kernels.py, _bsr_matmat_pallas (the Pallas
 // TPU kernel: the grid of _bsr_matvec_pallas with (BN, M) panels of X,
-// the (BM, M) output block zeroed at slot 0 and accumulated across the
-// sequential slot axis).
+// each (8, 128) block times its panel on the MXU, the (BM, M) output block
+// accumulated across the sequential slot axis).
 //
-// A is stored as in bsr_spmv.cu: blocks (nbr*bpr, BM, BN), col_ids and mask
-// (nbr, bpr). X is (n_cols, M) row-major, Y is (n_rows, M). Computes
-// Y[r*BM + i][c] = sum_s mask[r,s] * sum_j blocks[r*bpr+s][i][j] *
-// X[col_ids[r,s]*BN + j][c], with X read as zero past row n_cols and Y
-// written only below row n_rows (the ragged edges are masked here).
+// As bsr_spmv.cu, it reads the matrix's LiveLayout (SELL-32 of the nonzero
+// entries of blocks * mask, russell_tpu_torch/sparse/kernels.py) and never
+// the blocks, which hold about 99 % zeros on a banded matrix. X is
+// (n_cols, M) row-major, Y is (n_rows, M).
 //
-// What bounds it on an H100: each stored block (8 KB at BM 8, BN 128) is
-// read once and does 2*BM*BN*M flops — 32,768 at M 16, 4 flop/byte — while
-// the X panels are shared by every block row that uses them (X is 67 MB at
-// the npoint-513 Brusselator size, mostly served by the 50 MB L2). That is
-// below the f64 ridge (~20 flop/byte at 67 TFLOP/s FP64 tensor core and
-// 3.35 TB/s), so device memory bounds it: live blocks plus X and Y.
+// What bounds it on an H100: each live entry (12 bytes) does 2 M flops
+// against one row of X (8 M bytes) — 0.25 flop per byte of X touched — and
+// X is shared by every row whose entries name its row. Far below the f64
+// ridge (~20 flop/byte), so HBM bytes bound it: 12 per live entry, the row
+// structure, X read once and Y written once. X (67 MB at M 16 on the
+// npoint-513 Brusselator) exceeds the 50 MB L2, but the rows of a banded
+// matrix name a few moving windows of X, so its re-reads come mostly from
+// L1 and L2.
 //
-// Design: the TPU's sequential slot axis becomes a loop inside the CTA.
-// One CTA per block row; thread t < BM*M owns output (t / M, t % M) and
-// keeps it in a register across all slots of the row. Per stored slot
-// (pads skipped, uniformly for the CTA) the CTA copies the block and the
-// X panel it selects into shared memory — both are contiguous runs in
-// device memory, so the copies are coalesced — then every thread does BN
-// FMAs from shared memory. No atomics, a fixed summation order,
-// deterministic output; Y is written once. Storage offsets are 64-bit.
+// Design: a group of G lanes per row, G the power of two at or above
+// min(M, 32) — a half-warp per row at M 16. Lane c of a group keeps
+// Y[row, c + G q] for q < CPL in registers (CPL 1, 2 or 4 from M), and a
+// grid column of CTAs takes each further G CPL columns of Y. At step k
+// the group reads entry k of its row (one value and one column, the same
+// address for all its lanes, cached in L1 for the CTA's other rows) and a
+// coalesced 8 G-byte piece of that row of X through the read-only path.
+// Four steps' loads go out before their FMAs; each Y entry sums its row's
+// entries in column order, fixed, and is written once, coalesced: no
+// atomics, deterministic output. Any M >= 1. Offsets are 64-bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void bsr_spmm_kernel(const double* __restrict__ blocks,
-                                const int* __restrict__ col_ids,
-                                const double* __restrict__ mask,
-                                const double* __restrict__ X, int bpr,
-                                int bm, int bn, int m, int n_rows, int n_cols,
-                                double* __restrict__ Y) {
-  extern __shared__ double smem[];
-  double* as = smem;             // (BM, BN) block
-  double* xs = smem + bm * bn;   // (BN, M) panel of X
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int n_out = bm * m;
-  const int oi = tid / m;
-  const int oc = tid % m;
-  double acc = 0.0;
-  for (int s = 0; s < bpr; ++s) {
-    const size_t slot = (size_t)r * bpr + s;
-    const double w = mask[slot];
-    if (w == 0.0) continue;
-    const double* a = blocks + slot * bm * bn;
-    const long long row0 = (long long)col_ids[slot] * bn;
-    const double* xp = X + row0 * m;
-    const long long live = ((long long)n_cols - row0) * m;  // X entries left
-    for (int e = tid; e < bm * bn; e += nt) as[e] = a[e];
-    for (int e = tid; e < bn * m; e += nt) xs[e] = e < live ? xp[e] : 0.0;
-    __syncthreads();
-    if (tid < n_out) {
-      double part = 0.0;
-      const double* ar = as + oi * bn;
-      for (int j = 0; j < bn; ++j) part = fma(ar[j], xs[j * m + oc], part);
-      acc = fma(w, part, acc);
+constexpr int kSliceRows = 32;
+constexpr int kUnroll = 4;
+constexpr int kThreads = 256;
+
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+    sell_spmm_kernel(const double* __restrict__ val,
+                     const int* __restrict__ col,
+                     const long long* __restrict__ slice_off,
+                     const double* __restrict__ X, int n_rows, int n_slices,
+                     int m, int log2g, double* __restrict__ Y) {
+  const int g = 1 << log2g;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long row = t >> log2g;     // in the ragged slice's padded rows
+  if (row >= (long long)n_slices * kSliceRows) return;
+  const int c0 = (int)(t & (g - 1)) + (int)blockIdx.y * g * CPL;
+  const long long s = row / kSliceRows;
+  const int lane = (int)(row % kSliceRows);
+  const long long off = slice_off[s];
+  const long long width = (slice_off[s + 1] - off) / kSliceRows;
+  const double* v = val + off + lane;
+  const int* c = col + off + lane;
+  double acc[CPL];
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) acc[q] = 0.0;
+  for (long long k = 0; k < width; k += kUnroll) {
+    double a[kUnroll], xv[kUnroll][CPL];
+    int j[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = k + u < width;
+      a[u] = live ? __ldg(v + (k + u) * kSliceRows) : 0.0;
+      j[u] = live ? __ldg(c + (k + u) * kSliceRows) : 0;
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const double* xr = X + (long long)j[u] * m;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        const int cc = c0 + q * g;
+        xv[u][q] = k + u < width && cc < m ? __ldg(xr + cc) : 0.0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (k + u < width) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) acc[q] = fma(a[u], xv[u][q], acc[q]);
+      }
   }
-  const long long row = (long long)r * bm + oi;
-  if (tid < n_out && row < n_rows) Y[row * m + oc] = acc;
+  if (row >= n_rows) return;
+  double* yr = Y + row * m;
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int cc = c0 + q * g;
+    if (cc < m) yr[cc] = acc[q];
+  }
+}
+
+template <int CPL>
+int launch(const double* val, const int* col, const long long* slice_off,
+           const double* X, int n_rows, int n_slices, int m, int log2g,
+           double* Y, cudaStream_t stream) {
+  const long long threads = ((long long)n_slices * kSliceRows) << log2g;
+  const long long bx = (threads + kThreads - 1) / kThreads;
+  const long long by = (m + (CPL << log2g) - 1) / (CPL << log2g);
+  if (bx > 0x7fffffffLL || by > 65535) return (int)cudaErrorInvalidValue;
+  sell_spmm_kernel<CPL><<<dim3((unsigned)bx, (unsigned)by), kThreads, 0,
+                          stream>>>(val, col, slice_off, X, n_rows,
+                                    n_slices, m, log2g, Y);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns `Y` (n_rows, m).
-extern "C" int bsr_spmm_f64(const double* blocks, const int* col_ids,
-                            const double* mask, const double* X, int nbr,
-                            int bpr, int bm, int bn, int m, int n_rows,
-                            int n_cols, double* Y, void* stream) {
-  if (nbr <= 0 || n_rows <= 0 || m <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bn <= 0 || bpr <= 0 || bm * m > 1024)
+// slice_off holds n_slices + 1 offsets; val and col slice_off[n_slices]
+// slots each.
+extern "C" int bsr_spmm_f64(const double* val, const int* col,
+                            const long long* slice_off, const double* X,
+                            int n_rows, int n_slices, int m, double* Y,
+                            void* stream) {
+  if (n_rows <= 0 || m <= 0) return (int)cudaGetLastError();
+  if (n_slices != (n_rows + kSliceRows - 1) / kSliceRows)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * ((size_t)bm * bn + (size_t)bn * m);
-  cudaError_t err = cudaFuncSetAttribute(
-      bsr_spmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((bm * m + 31) / 32) * 32;
-  bsr_spmm_kernel<<<nbr, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      blocks, col_ids, mask, X, bpr, bm, bn, m, n_rows, n_cols, Y);
-  return (int)cudaGetLastError();
+  int log2g = 0;
+  while ((1 << log2g) < m && log2g < 5) ++log2g;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m <= 32)
+    return launch<1>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y,
+                     st);
+  if (m <= 64)
+    return launch<2>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y,
+                     st);
+  return launch<4>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y, st);
 }

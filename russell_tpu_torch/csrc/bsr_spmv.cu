@@ -1,89 +1,117 @@
-// BSR sparse matrix-vector product y = A x, f64.
+// Sparse matrix-vector product y = A x, f64, over the matrix's live
+// entries.
 //
 // Replaces: russell_tpu/sparse/kernels.py, _bsr_matvec_pallas (the Pallas
 // TPU kernel: grid (block row, padded slot), block-column ids scalar-
-// prefetched to select the x panel, pad slots masked, the output block row
-// zeroed at slot 0 and accumulated across the sequential slot axis).
+// prefetched to select the x panel, each (8, 128) block fed to the MXU and
+// the output block row accumulated across the sequential slot axis).
 //
-// A is stored as nbr block rows of bpr slots: blocks (nbr*bpr, BM, BN)
-// row-major f64, col_ids (nbr, bpr) block-column ids, mask (nbr, bpr) the
-// slot weight (1 for a stored block, 0 for a pad; a pad's block is zero and
-// its col id 0). Computes y[r*BM + i] = sum_s mask[r,s] *
-// sum_j blocks[r*bpr+s][i][j] * x[col_ids[r,s]*BN + j] for rows < n_rows,
-// with x read as zero past n_cols (the ragged last panel is masked here,
-// not padded by a copy).
+// The TPU kernel's (8, 128) blocks suit the MXU and VMEM; they mean nothing
+// to an SM, and on a banded matrix they are mostly zeros: the Brusselator
+// Jacobian has about 6 nonzeros a row, so its 8x128 blocks are 1.1 %
+// nonzero. This kernel does not read the blocks. It reads the matrix's
+// LiveLayout (russell_tpu_torch/sparse/kernels.py, derived once per matrix
+// from blocks * mask): sliced ELLPACK of 32 rows a slice (SELL-32), entry
+// k of row 32 s + l at val/col[slice_off[s] + 32 k + l], a slice as wide
+// as its longest row, pads holding value 0 and their row's last column.
 //
-// What bounds it on an H100: each stored f64 entry is read once and used
-// for one FMA — 2 flops per 8 bytes, 0.25 flop/byte, far below the f64
-// ridge (~20 flop/byte at 67 TFLOP/s FP64 tensor core and 3.35 TB/s) — so
-// device memory bounds it: live block bytes plus x and y over 3.35 TB/s.
+// What bounds it on an H100: each live entry (8-byte value, 4-byte column)
+// is read once and used for one FMA with a gathered x entry — 2 flops per
+// 12 bytes, about 0.17 flop/byte, far below the f64 ridge (~20 flop/byte
+// at 67 TFLOP/s FP64 tensor core and 3.35 TB/s). HBM bytes bound it: 12
+// per live entry, the row structure, x read once and y written once.
 //
-// Design: the TPU's sequential slot axis becomes a loop inside the CTA.
-// One CTA per block row, one warp per row of the block (BM warps, BM <= 32).
-// Warp i walks the row's slots in order, skips masked slots (the slot
-// weight is uniform across the CTA), reads its BN-double row of the block
-// with 16-byte (double2) loads — 32 lanes cover 512 contiguous bytes per
-// load — and the matching x entries by col id (x stays in L1/L2: the BM
-// warps of a CTA read the same panel). Each lane keeps a partial sum; one
-// shuffle reduction per row at the end, and lane 0 writes y once. No
-// atomics, a fixed summation order, deterministic output. Storage offsets
-// are computed in 64 bits: at npoint 513 the block storage holds about
-// 470M doubles, and offsets of larger matrices pass 2^31. BN must be even
-// (the double2 loads) and blocks 16-byte aligned; the wrapper checks.
+// Design: one warp per slice, one lane per row. At step k the 32 lanes
+// read entry k of 32 consecutive rows from consecutive addresses: one
+// 256-byte (values) and one 128-byte (columns) transaction. Values and
+// columns are used once, so they are loaded on the non-coherent path
+// without allocating in L1 (ld.global.nc.L1::no_allocate). x is gathered
+// through the read-only path (__ldg): the rows of a slice of a banded
+// matrix touch a few short windows of x, which stay in L1 and L2. Eight
+// steps' loads are issued before their FMAs to keep bytes in flight; the
+// sum still runs over the row's entries in column order, fixed, and y is
+// written once: no atomics, deterministic output. Slice offsets are 64-bit
+// (the slots of a large matrix pass 2^31).
+//
+// What SELL-32 costs where rows differ in length: a slice is as wide as its
+// longest row, so one row of L entries gives its slice 32 L slots (31 L of
+// them pads: bytes of the layout) and its warp L steps with the other 31
+// lanes reading pads (cached, their row's last column). The other slices
+// are untouched. On the Brusselator Jacobian rows hold 5-6 entries and
+// pads are a few percent of the slots.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void bsr_spmv_kernel(const double* __restrict__ blocks,
-                                const int* __restrict__ col_ids,
-                                const double* __restrict__ mask,
-                                const double* __restrict__ x, int bpr,
-                                int bm, int bn, int n_rows, int n_cols,
-                                double* __restrict__ y) {
-  const int r = blockIdx.x;
-  const int i = threadIdx.y;   // row within the block row
-  const int lane = threadIdx.x;
-  const int row = r * bm + i;
-  if (row >= n_rows) return;   // the ragged last block row
-  const int bn2 = bn / 2;
+constexpr int kSliceRows = 32;
+constexpr int kUnroll = 8;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ double load_once(const double* p) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int load_once(const int* p) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sell_spmv_kernel(const double* __restrict__ val,
+                     const int* __restrict__ col,
+                     const long long* __restrict__ slice_off,
+                     const double* __restrict__ x, int n_rows, int n_slices,
+                     double* __restrict__ y) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long s = t / kSliceRows;
+  if (s >= n_slices) return;
+  const int lane = (int)(t % kSliceRows);
+  const long long off = slice_off[s];
+  const long long width = (slice_off[s + 1] - off) / kSliceRows;
+  const double* v = val + off + lane;
+  const int* c = col + off + lane;
   double acc = 0.0;
-  for (int s = 0; s < bpr; ++s) {
-    const size_t slot = (size_t)r * bpr + s;
-    const double m = mask[slot];
-    if (m == 0.0) continue;
-    const double2* a = reinterpret_cast<const double2*>(
-        blocks + (slot * bm + i) * bn);
-    const long long c0 = (long long)col_ids[slot] * bn;
-    double part = 0.0;
-    for (int k = lane; k < bn2; k += 32) {
-      const double2 v = a[k];
-      const long long j = c0 + 2 * k;
-      const double x0 = j < n_cols ? x[j] : 0.0;
-      const double x1 = j + 1 < n_cols ? x[j + 1] : 0.0;
-      part = fma(v.x, x0, part);
-      part = fma(v.y, x1, part);
-    }
-    acc = fma(m, part, acc);
-  }
+  for (long long k = 0; k < width; k += kUnroll) {
+    double a[kUnroll], xv[kUnroll];
+    int j[kUnroll];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) y[row] = acc;
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = k + u < width;
+      a[u] = live ? load_once(v + (k + u) * kSliceRows) : 0.0;
+      j[u] = live ? load_once(c + (k + u) * kSliceRows) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      xv[u] = k + u < width ? __ldg(x + j[u]) : 0.0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (k + u < width) acc = fma(a[u], xv[u], acc);
+  }
+  const long long row = s * kSliceRows + lane;
+  if (row < n_rows) y[row] = acc;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns `y` (n_rows doubles).
-extern "C" int bsr_spmv_f64(const double* blocks, const int* col_ids,
-                            const double* mask, const double* x, int nbr,
-                            int bpr, int bm, int bn, int n_rows, int n_cols,
-                            double* y, void* stream) {
-  if (nbr <= 0 || n_rows <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bm > 32 || bn <= 0 || bn % 2 || bpr <= 0)
+// slice_off holds n_slices + 1 offsets; val and col slice_off[n_slices]
+// slots each.
+extern "C" int bsr_spmv_f64(const double* val, const int* col,
+                            const long long* slice_off, const double* x,
+                            int n_rows, int n_slices, double* y,
+                            void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  if (n_slices != (n_rows + kSliceRows - 1) / kSliceRows)
     return (int)cudaErrorInvalidValue;
-  bsr_spmv_kernel<<<nbr, dim3(32, bm), 0, static_cast<cudaStream_t>(stream)>>>(
-      blocks, col_ids, mask, x, bpr, bm, bn, n_rows, n_cols, y);
+  const long long threads = (long long)n_slices * kSliceRows;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  sell_spmv_kernel<<<blocks, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      val, col, slice_off, x, n_rows, n_slices, y);
   return (int)cudaGetLastError();
 }

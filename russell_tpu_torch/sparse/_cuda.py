@@ -41,10 +41,10 @@ _SIGNATURES = {
     "splu_pairs": ("splu_pairs_f64",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "gather_rows": ("gather_rows_f64", [_P, _P, _I, _I, _P, _P]),
-    "bsr_spmv": ("bsr_spmv_f64",
-                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
-    "bsr_spmm": ("bsr_spmm_f64",
-                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    # val, col, slice_off, x, n_rows, n_slices, y, stream
+    "bsr_spmv": ("bsr_spmv_f64", [_P, _P, _P, _P, _I, _I, _P, _P]),
+    # val, col, slice_off, X, n_rows, n_slices, m, Y, stream
+    "bsr_spmm": ("bsr_spmm_f64", [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "spgemm_blocks": ("spgemm_blocks_f64",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
 }

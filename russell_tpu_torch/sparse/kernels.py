@@ -14,6 +14,13 @@ tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no switch and no fallback. Each wrapper counts its
 launches (``bsr_matvec.launches``, ``bsr_matmat.launches``,
 ``spgemm.launches``; ``reset_launch_counts``).
+
+The SpMV and SpMM kernels do not walk the blocks: a banded matrix in
+8x128 blocks stores about 99 % zeros. They read a ``LiveLayout`` of the
+matrix's nonzero entries (sliced ELLPACK, 32 rows a slice), derived from
+``blocks * mask`` once per matrix on its device by ``_live_layout`` and
+cached on the ``BsrMatrix``; the blocks stay as stored for SpGEMM, the
+plain versions and ``interop``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ from russell_tpu_torch.sparse import _cuda
 __all__ = ["BsrMatrix", "bsr_from_coo", "bsr_from_arrays", "bsr_matvec",
            "bsr_matmat", "SpgemmPlan", "spgemm_plan", "spgemm",
            "reset_launch_counts"]
+
+SLICE_ROWS = 32         # rows of a LiveLayout slice: one warp, a lane a row
+# block-entries of blocks * mask held at once while the layout is derived
+_LAYOUT_CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -149,20 +160,199 @@ def _operand(name, bsr: BsrMatrix, x, ndim):
     return x
 
 
-def _check_kernel_bsr(name, bsr: BsrMatrix):
-    """What every BSR kernel takes: f64 contiguous blocks, int32 col ids and
-    f64 mask, all on the current CUDA device."""
+# ---------------------------------------------------------------------------
+# The live-entry layout the SpMV / SpMM kernels read
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LiveLayout:
+    """The nonzero entries of a ``BsrMatrix``'s ``blocks * mask`` with row
+    < n_rows and column < n_cols, as sliced ELLPACK of SLICE_ROWS rows a
+    slice (SELL-32).
+
+    Slice s holds rows 32 s .. 32 s + 31 and is as wide as its longest row;
+    entry k of row 32 s + l lies at ``slice_off[s] + 32 k + l`` of ``val``
+    and ``col``, so the 32 lanes of a warp read one entry of 32 rows from
+    consecutive addresses. A row's entries come in column order; its slots
+    past its length hold value 0 and the row's last column (column 0 for
+    an empty row), so a pad never reads x out of bounds."""
+
+    n_rows: int
+    n_cols: int
+    nnz: int                   # live entries, the same in any layout
+    slice_off: torch.Tensor    # (n_slices + 1,) int64
+    val: torch.Tensor          # (slice_off[-1],) float64
+    col: torch.Tensor          # (slice_off[-1],) int32 global column
+
+    @property
+    def n_slices(self) -> int:
+        return self.slice_off.numel() - 1
+
+    @property
+    def pad_share(self) -> float:
+        """Share of the slots that are pads."""
+        slots = self.val.numel()
+        return 1.0 - self.nnz / slots if slots else 0.0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.slice_off, self.val, self.col))
+
+
+def _live_entries(bsr: BsrMatrix):
+    """(row, col, val) of the nonzero entries of ``blocks * mask`` with row
+    < n_rows and column < n_cols (x is zero past n_cols in the reference),
+    sorted by (row, column) — stably, so entries of one position held by
+    several slots keep their slot order. Torch ops on the blocks' device,
+    over the live slots only, ``_LAYOUT_CHUNK`` block entries at a time."""
+    bm, bn, bpr = bsr.bm, bsr.bn, bsr.blocks_per_row
+    dev = bsr.blocks.device
+    weight = bsr.mask.reshape(-1)
+    block_col = bsr.col_ids.reshape(-1)
+    slots = torch.nonzero(weight).reshape(-1)
+    step = max(1, _LAYOUT_CHUNK // max(bm * bn, 1))
+    rows, cols, vals = [], [], []
+    for s0 in range(0, slots.numel(), step):
+        sl = slots[s0:s0 + step]
+        blk = bsr.blocks.index_select(0, sl).mul_(weight[sl].view(-1, 1, 1))
+        k, i, j = torch.nonzero(blk, as_tuple=True)
+        vals.append(blk[k, i, j])
+        slot = sl[k]
+        rows.append(torch.div(slot, bpr, rounding_mode="floor") * bm + i)
+        cols.append(block_col[slot].long() * bn + j)
+    if not rows:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, empty, torch.zeros(0, dtype=bsr.blocks.dtype,
+                                         device=dev)
+    row, col, val = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    keep = (row < bsr.n_rows) & (col < bsr.n_cols)
+    row, col, val = row[keep], col[keep], val[keep]
+    order = torch.sort(row * bsr.n_cols + col, stable=True).indices
+    return row[order], col[order], val[order]
+
+
+def _sell_layout(n_rows, n_cols, row, col, val) -> LiveLayout:
+    """SELL-32 of the entries (row, col, val), sorted by (row, column)."""
+    dev = val.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    n_slices = -(-n_rows // SLICE_ROWS)
+    n_lanes = n_slices * SLICE_ROWS             # rows, the ragged slice padded
+    row_len = torch.bincount(row, minlength=n_lanes)
+    width = row_len.view(n_slices, SLICE_ROWS).amax(dim=1) if n_slices \
+        else torch.zeros(0, **i64)
+    slice_off = torch.zeros(n_slices + 1, **i64)
+    slice_off[1:] = torch.cumsum(width * SLICE_ROWS, 0)
+    n_slots = int(slice_off[-1])
+    row_start = torch.cumsum(row_len, 0) - row_len
+    # a pad takes its row's last column; an empty row's pads column 0
+    last = torch.zeros(n_lanes, **i64)
+    has = row_len > 0
+    last[has] = col[(row_start + row_len - 1)[has]]
+    slot_slice = torch.repeat_interleave(
+        torch.arange(n_slices, **i64), width * SLICE_ROWS,
+        output_size=n_slots)
+    lane = (torch.arange(n_slots, **i64) - slice_off[slot_slice]) \
+        % SLICE_ROWS
+    c = last[slot_slice * SLICE_ROWS + lane].to(torch.int32)
+    v = torch.zeros(n_slots, dtype=val.dtype, device=dev)
+    k = torch.arange(row.numel(), **i64) - row_start[row]
+    pos = slice_off[torch.div(row, SLICE_ROWS, rounding_mode="floor")] \
+        + k * SLICE_ROWS + row % SLICE_ROWS
+    c[pos] = col.to(torch.int32)
+    v[pos] = val
+    return LiveLayout(int(n_rows), int(n_cols), int(row.numel()), slice_off,
+                      v, c)
+
+
+def _layout_key(bsr: BsrMatrix):
+    """What the cached layout of ``bsr`` is valid for: the storage and the
+    version counter of ``blocks``, ``mask`` and ``col_ids``; None when one
+    of them is an inference tensor, which has no version counter."""
+    parts = (bsr.blocks, bsr.mask, bsr.col_ids)
+    if any(t.is_inference() for t in parts):
+        return None
+    return tuple((t.data_ptr(), t._version) for t in parts)
+
+
+def _layout_entry(bsr: BsrMatrix):
+    """The cache entry of ``bsr``'s ``LiveLayout``: built on the blocks'
+    device (on the current CUDA stream there) when the matrix has none or
+    its key changed, and kept on the matrix unless the key is None, when
+    it is built anew at each call. On CUDA the entry holds an event
+    recorded after the build and the streams that have waited on it."""
+    if bsr.n_rows >= 2 ** 31 or bsr.n_cols >= 2 ** 31:
+        raise ValueError("the live layout takes fewer than 2^31 rows and "
+                         "columns (int32 columns)")
+    key = _layout_key(bsr)
+    entry = bsr.__dict__.get("_live_layout")
+    if key is not None and entry is not None and entry["key"] == key:
+        return entry
+    entry = {"key": key, "layout": _sell_layout(
+        bsr.n_rows, bsr.n_cols, *_live_entries(bsr))}
+    dev = bsr.blocks.device
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        entry["ready"] = torch.cuda.Event()
+        entry["ready"].record(stream)
+        entry["streams"] = {stream.cuda_stream}
+    if key is not None:
+        bsr.__dict__["_live_layout"] = entry
+    return entry
+
+
+def _live_layout(bsr: BsrMatrix) -> LiveLayout:
+    """The ``LiveLayout`` of ``bsr``, built on the blocks' device at its
+    first use and kept on the matrix. The cache is keyed on the storage
+    and the version counter of ``blocks``, ``mask`` and ``col_ids``, so an
+    in-place torch op on any of them builds it anew; a write that leaves
+    the version counter as it was (through ``.data``, DLPack or a raw
+    pointer) is not seen. Inference tensors have no version counter: their
+    layout is built at every call."""
+    return _layout_entry(bsr)["layout"]
+
+
+def _check_kernel_bsr(name, bsr: BsrMatrix, *, stored=False):
+    """What a BSR kernel takes: float64 blocks on a CUDA device, col ids
+    and mask on the same device. ``stored``: the kernel reads the stored
+    blocks themselves (SpGEMM), so it also wants a float64 mask, int32
+    col ids and contiguous arrays."""
     dev = bsr.blocks.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
-    if bsr.blocks.dtype != torch.float64 or bsr.mask.dtype != torch.float64:
-        raise TypeError(f"{name}: the kernel takes float64 blocks and mask")
-    if bsr.col_ids.dtype != torch.int32:
-        raise TypeError(f"{name}: the kernel takes int32 col_ids")
-    for t in (bsr.blocks, bsr.col_ids, bsr.mask):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: blocks, col_ids and mask must be "
-                             f"contiguous on {dev}")
+    parts = (bsr.blocks, bsr.col_ids, bsr.mask)
+    if any(t.device != dev for t in parts):
+        raise ValueError(f"{name}: blocks, col_ids and mask must lie on "
+                         f"{dev}")
+    if bsr.blocks.dtype != torch.float64:
+        raise TypeError(f"{name}: the kernel takes float64 blocks")
+    if not stored:
+        return
+    if bsr.mask.dtype != torch.float64 or bsr.col_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: the kernel takes a float64 mask and int32 "
+                        f"col_ids")
+    if not all(t.is_contiguous() for t in parts):
+        raise ValueError(f"{name}: blocks, col_ids and mask must be "
+                         f"contiguous")
+
+
+def _kernel_layout(name, bsr: BsrMatrix) -> LiveLayout:
+    """The ``LiveLayout`` the SpMV / SpMM kernels read, ready for a launch
+    on the current CUDA stream: a stream other than the one that built it
+    waits, at its first launch, on the build's event and is recorded on
+    the layout's tensors, so the allocator keeps them until that stream's
+    work is done."""
+    _check_kernel_bsr(name, bsr)
+    entry = _layout_entry(bsr)
+    lay = entry["layout"]
+    stream = torch.cuda.current_stream(bsr.blocks.device)
+    if stream.cuda_stream not in entry["streams"]:
+        stream.wait_event(entry["ready"])
+        for t in (lay.slice_off, lay.val, lay.col):
+            t.record_stream(stream)
+        entry["streams"].add(stream.cuda_stream)
+    return lay
 
 
 # ---------------------------------------------------------------------------
@@ -188,21 +378,24 @@ def bsr_matvec(bsr: BsrMatrix, x):
 
     Replaces the reference package's ``_bsr_matvec_pallas``. A CPU tensor
     takes the plain version; a CUDA tensor launches ``csrc/bsr_spmv.cu``
-    (bm <= 32, even bn) or raises."""
+    over the matrix's ``LiveLayout`` or raises. The layout is built at the
+    first call, which costs more than a product (about 14 products at the
+    npoint-513 Brusselator Jacobian), and kept for later calls until an
+    in-place torch op changes ``blocks``, ``mask`` or ``col_ids``. A write
+    that bypasses torch's version counter (``.data``, DLPack, a raw
+    pointer) is not seen: make a new ``BsrMatrix`` after one."""
     x = _operand("bsr_matvec", bsr, x, 1)
     if bsr.blocks.device.type == "cpu":
         return _bsr_matvec_plain(bsr, x)
-    _check_kernel_bsr("bsr_matvec", bsr)
-    if bsr.bm > 32 or bsr.bn % 2 or bsr.blocks.data_ptr() % 16:
-        raise ValueError(f"bsr_matvec: the kernel takes bm <= 32, even bn "
-                         f"and 16-byte aligned blocks (got {bsr.bm}x{bsr.bn})")
+    lay = _kernel_layout("bsr_matvec", bsr)
     y = torch.empty(bsr.n_rows, dtype=x.dtype, device=x.device)
-    fn = _cuda.library("bsr_spmv").bsr_spmv_f64
-    _cuda.launch_check("bsr_matvec", fn(
-        bsr.blocks.data_ptr(), bsr.col_ids.data_ptr(), bsr.mask.data_ptr(),
-        x.data_ptr(), bsr.nbr, bsr.blocks_per_row, bsr.bm, bsr.bn,
-        bsr.n_rows, bsr.n_cols, y.data_ptr(), _cuda.stream_of(x)))
-    bsr_matvec.launches += 1
+    if bsr.n_rows:
+        fn = _cuda.library("bsr_spmv").bsr_spmv_f64
+        _cuda.launch_check("bsr_matvec", fn(
+            lay.val.data_ptr(), lay.col.data_ptr(), lay.slice_off.data_ptr(),
+            x.data_ptr(), bsr.n_rows, lay.n_slices, y.data_ptr(),
+            _cuda.stream_of(x)))
+        bsr_matvec.launches += 1
     return y
 
 
@@ -224,23 +417,19 @@ def bsr_matmat(bsr: BsrMatrix, X):
 
     Replaces the reference package's ``_bsr_matmat_pallas``. A CPU tensor
     takes the plain version; a CUDA tensor launches ``csrc/bsr_spmm.cu``
-    (bm * m <= 1024, block and X panel within shared memory) or raises."""
+    over the matrix's ``LiveLayout`` (built and kept as in
+    ``bsr_matvec``) or raises."""
     X = _operand("bsr_matmat", bsr, X, 2)
     if bsr.blocks.device.type == "cpu":
         return _bsr_matmat_plain(bsr, X)
-    _check_kernel_bsr("bsr_matmat", bsr)
+    lay = _kernel_layout("bsr_matmat", bsr)
     m = X.shape[1]
-    if bsr.bm * m > 1024 or 8 * bsr.bn * (bsr.bm + m) > 232448:
-        raise ValueError(f"bsr_matmat: the kernel takes bm * m <= 1024 and "
-                         f"(bm + m) * bn doubles of shared memory <= 227 KB "
-                         f"(got bm {bsr.bm}, bn {bsr.bn}, m {m})")
     Y = torch.empty((bsr.n_rows, m), dtype=X.dtype, device=X.device)
-    if m:
+    if bsr.n_rows and m:
         fn = _cuda.library("bsr_spmm").bsr_spmm_f64
         _cuda.launch_check("bsr_matmat", fn(
-            bsr.blocks.data_ptr(), bsr.col_ids.data_ptr(),
-            bsr.mask.data_ptr(), X.data_ptr(), bsr.nbr, bsr.blocks_per_row,
-            bsr.bm, bsr.bn, m, bsr.n_rows, bsr.n_cols, Y.data_ptr(),
+            lay.val.data_ptr(), lay.col.data_ptr(), lay.slice_off.data_ptr(),
+            X.data_ptr(), bsr.n_rows, lay.n_slices, m, Y.data_ptr(),
             _cuda.stream_of(X)))
         bsr_matmat.launches += 1
     return Y
@@ -378,8 +567,8 @@ def spgemm(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
                          "storage (a plan of other matrices?)")
     if dev.type == "cpu":
         return _spgemm_plain(dp, a, b, plan.c_blocks), plan.c_block_ij
-    _check_kernel_bsr("spgemm", a)
-    _check_kernel_bsr("spgemm", b)
+    _check_kernel_bsr("spgemm", a, stored=True)
+    _check_kernel_bsr("spgemm", b, stored=True)
     if a.bm * b.bn > 1024 or 8 * a.bn * (a.bm + b.bn) > 232448:
         raise ValueError(f"spgemm: the kernel takes bm * bn <= 1024 and "
                          f"blocks within shared memory (got {a.bm}x{a.bn} "

@@ -267,16 +267,176 @@ def test_bsr_kernels_match_plain_versions(cuda, case):
 
 
 def test_bsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    # the live-entry kernels take every block shape and width m that the
+    # reference takes (64x64 and 8x7 blocks, bm * m > 1024 no longer
+    # refused); the wrappers still raise on a wrong x shape and on a matrix
+    # whose arrays lie partly on the CPU
     coo = ssamples.laplacian_2d(10)
-    x = torch.ones(coo.ncol, dtype=torch.float64, device=cuda)
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+    X = torch.as_tensor(rng.standard_normal((coo.ncol, 256)), device=cuda)
+    for bm, bn in ((64, 64), (8, 7), (8, 128)):
+        bsr = kernels.bsr_from_coo(coo, bm, bn, device=cuda)
+        n0 = (kernels.bsr_matvec.launches, kernels.bsr_matmat.launches)
+        _assert_kernel_close(kernels.bsr_matvec(bsr, x),
+                             kernels._bsr_matvec_plain(bsr, x))
+        _assert_kernel_close(kernels.bsr_matmat(bsr, X),
+                             kernels._bsr_matmat_plain(bsr, X))
+        assert (kernels.bsr_matvec.launches,
+                kernels.bsr_matmat.launches) == (n0[0] + 1, n0[1] + 1)
+    with pytest.raises(ValueError):     # x too short
+        kernels.bsr_matvec(bsr, x[:-1])
+    with pytest.raises(ValueError):     # X must be 2-D
+        kernels.bsr_matmat(bsr, x)
+    mixed = kernels.BsrMatrix(bsr.n_rows, bsr.n_cols, bsr.bm, bsr.bn,
+                              bsr.nbr, bsr.blocks_per_row, bsr.blocks,
+                              bsr.col_ids.cpu(), bsr.mask)
+    with pytest.raises(ValueError):     # col ids on the CPU, blocks on the card
+        kernels.bsr_matvec(mixed, x)
+    with pytest.raises(ValueError):
+        kernels.bsr_matmat(mixed, X)
     wide = kernels.bsr_from_coo(coo, 64, 64, device=cuda)
-    with pytest.raises(ValueError):     # bm 64 > 32: no kernel, no fallback
-        kernels.bsr_matvec(wide, x)
-    odd = kernels.bsr_from_coo(coo, 8, 7, device=cuda)
-    with pytest.raises(ValueError):     # odd bn
-        kernels.bsr_matvec(odd, x)
-    X = torch.ones((coo.ncol, 256), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):     # bm * m > 1024
-        kernels.bsr_matmat(kernels.bsr_from_coo(coo, 8, 128, device=cuda), X)
-    with pytest.raises(ValueError):     # bm * bn > 1024
+    with pytest.raises(ValueError):     # spgemm: bm * bn > 1024
         kernels.spgemm(kernels.spgemm_plan(wide, wide), wide, wide)
+
+
+def _triplets_coo(nrow, ncol, ii, jj, vv):
+    return CooMatrix.from_arrays(nrow, ncol, np.asarray(ii),
+                                 np.asarray(jj), np.asarray(vv))
+
+
+def _long_row_coo():
+    lap = ssamples.laplacian_2d(40)
+    ii, jj, vv = (np.asarray(a) for a in lap.triplets())
+    n = lap.nrow
+    return _triplets_coo(n, n, np.concatenate([ii, np.full(n, 77)]),
+                         np.concatenate([jj, np.arange(n)]),
+                         np.concatenate([vv, np.linspace(-1.0, 1.0, n)]))
+
+
+def _stored_zeros_coo():
+    coo = _random_coo(70, 70, 300, 70, 31)
+    ii, jj, vv = (np.asarray(a) for a in coo.triplets())
+    return _triplets_coo(70, 70, np.concatenate([ii, ii[:50], [3, 9]]),
+                         np.concatenate([jj, jj[:50], [4, 9]]),
+                         np.concatenate([vv, -vv[:50], [0.0, 0.0]]))
+
+
+# the live layout's edge cases: a ragged last slice, empty rows, a matrix
+# with no live block, one row much longer than the others (a 1,600-wide
+# slice), stored entries that are zero
+LAYOUT_CASES = {
+    "ragged37x300_8x128": (lambda: _random_coo(37, 300, 400, 37, 21), 8, 128),
+    "empty_rows_16x16": (lambda: _random_coo(100, 100, 300, 40, 22), 16, 16),
+    "all_empty_8x128": (lambda: _triplets_coo(45, 45, [], [], np.zeros(0)),
+                        8, 128),
+    "long_row_8x128": (_long_row_coo, 8, 128),
+    "stored_zeros_8x16": (_stored_zeros_coo, 8, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_bsr_kernels_on_the_layout_edge_cases(cuda, case):
+    make, bm, bn = LAYOUT_CASES[case]
+    coo = make()
+    bsr = kernels.bsr_from_coo(coo, bm, bn, device=cuda)
+    lay = kernels._live_layout(bsr)
+    assert lay.val.device.type == "cuda"
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+    y = kernels.bsr_matvec(bsr, x)
+    _assert_kernel_close(y, kernels._bsr_matvec_plain(bsr, x))
+    _assert_kernel_close(y.cpu(), torch.as_tensor(coo.as_dense()
+                                                  @ x.cpu().numpy()))
+    for m in (1, 16, 33, 200):
+        X = torch.as_tensor(rng.standard_normal((coo.ncol, m)), device=cuda)
+        _assert_kernel_close(kernels.bsr_matmat(bsr, X),
+                             kernels._bsr_matmat_plain(bsr, X))
+
+
+def test_bsr_kernels_drop_entries_past_n_rows_and_n_cols(cuda):
+    # block row 2 holds rows 8-11 of a 10-row matrix and block column 1
+    # columns 8-15 of 13; block row 2 holds block column 1 twice
+    rng = np.random.default_rng(11)
+    blocks = rng.standard_normal((3 * 2, 4, 8))
+    col_ids = np.array([[0, 1], [1, 0], [1, 1]])
+    mask = np.array([[1.0, 1.0], [1.0, 0.0], [1.0, 0.5]])
+    bsr = kernels.bsr_from_arrays(10, 13, 4, 8, blocks, col_ids, mask, cuda)
+    x = torch.as_tensor(rng.standard_normal(13), device=cuda)
+    X = torch.as_tensor(rng.standard_normal((13, 5)), device=cuda)
+    _assert_kernel_close(kernels.bsr_matvec(bsr, x),
+                         kernels._bsr_matvec_plain(bsr, x))
+    _assert_kernel_close(kernels.bsr_matmat(bsr, X),
+                         kernels._bsr_matmat_plain(bsr, X))
+
+
+def test_bsr_kernels_are_bit_identical_across_launches(cuda):
+    _, jv = _brusselator_plan(16)
+    system, *_ = samples.brusselator_pde(2e-3, 16)
+    ii, jj = system.jac_structure
+    coo = CooMatrix.from_arrays(system.ndim, system.ndim, ii, jj, jv)
+    bsr = kernels.bsr_from_coo(coo, 8, 128, device=cuda)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+    X = torch.as_tensor(rng.standard_normal((coo.ncol, 16)), device=cuda)
+    y, Y = kernels.bsr_matvec(bsr, x), kernels.bsr_matmat(bsr, X)
+    for _ in range(3):
+        assert torch.equal(kernels.bsr_matvec(bsr, x), y)
+        assert torch.equal(kernels.bsr_matmat(bsr, X), Y)
+    # an in-place change of the blocks reaches the kernels
+    bsr.blocks.mul_(2.0)
+    assert torch.equal(kernels.bsr_matvec(bsr, x), 2.0 * y)
+    assert torch.equal(kernels.bsr_matmat(bsr, X), 2.0 * Y)
+
+
+def test_bsr_kernels_under_inference_mode(cuda):
+    # tensors made under torch.inference_mode() have no version counter:
+    # the wrappers build the layout at each call and see in-place changes
+    coo = ssamples.laplacian_2d(12)
+    rng = np.random.default_rng(6)
+    with torch.inference_mode():
+        bsr = kernels.bsr_from_coo(coo, 8, 128, device=cuda)
+        x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+        X = torch.as_tensor(rng.standard_normal((coo.ncol, 16)), device=cuda)
+        y = kernels.bsr_matvec(bsr, x)
+        _assert_kernel_close(y, kernels._bsr_matvec_plain(bsr, x))
+        _assert_kernel_close(kernels.bsr_matmat(bsr, X),
+                             kernels._bsr_matmat_plain(bsr, X))
+        bsr.blocks.mul_(2.0)
+        assert torch.equal(kernels.bsr_matvec(bsr, x), 2.0 * y)
+    assert "_live_layout" not in bsr.__dict__
+
+
+def test_bsr_layout_serves_launches_on_other_streams(cuda):
+    # the layout is built on one stream and read, then rebuilt, from
+    # another: every stream waits on the build it reads
+    coo = ssamples.laplacian_2d(40)
+    bsr = kernels.bsr_from_coo(coo, 8, 128, device=cuda)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
+    X = torch.as_tensor(rng.standard_normal((coo.ncol, 16)), device=cuda)
+    want = kernels._bsr_matvec_plain(bsr, x)
+    want_X = kernels._bsr_matmat_plain(bsr, X)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        y1 = kernels.bsr_matvec(bsr, x)
+    with torch.cuda.stream(s2):
+        y2 = kernels.bsr_matvec(bsr, x)
+        Y2 = kernels.bsr_matmat(bsr, X)
+    torch.cuda.synchronize()
+    _assert_kernel_close(y1, want)
+    _assert_kernel_close(Y2, want_X)
+    assert torch.equal(y1, y2)
+    assert bsr.__dict__["_live_layout"]["streams"] == {s1.cuda_stream,
+                                                       s2.cuda_stream}
+    with torch.cuda.stream(s2):
+        bsr.blocks.mul_(2.0)
+        y3 = kernels.bsr_matvec(bsr, x)
+    s1.wait_stream(s2)
+    with torch.cuda.stream(s1):
+        Y4 = kernels.bsr_matmat(bsr, X)
+    torch.cuda.synchronize()
+    assert torch.equal(y3, 2.0 * y1)
+    _assert_kernel_close(Y4, 2.0 * want_X)
