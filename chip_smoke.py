@@ -41,8 +41,13 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
    the first bsr_matvec), bytes and pad share are printed, and are held
    to the least bytes of the work (``bsr_work``: each nonzero once, the
    layout's slice offsets, x and y once) beside the bound over the stored
-   8x128 blocks they were held to before (``stored_bound_ms``); two more
-   launches must give the same bits;
+   8x128 blocks they were held to before (``stored_bound_ms``); SpGEMM
+   reads its operands' live entries (a RowLayout built by the first
+   spgemm on a matrix: ``first_call_s``, and ``updated_call_s`` after an
+   in-place update of the blocks) and is held to the least bytes of its
+   output form (``spgemm_work``: the live entries once, C written once)
+   beside the bound over stored blocks (``stored_bound_ms``); two more
+   launches of each kernel must give the same bits;
 11. bsr_path: the BSR path through the public entry points on the
    npoint-513 Brusselator Jacobian J(y0) (n 526,338), with launch counts
    and peak device memory; then each product held against its kernel's
@@ -50,7 +55,7 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
    the host, with the numbers of phase 10, nnz/s, GB/s and roofline share
    at these shapes. The kernels line reports the BSR kernels from this
    phase: measured numbers and the bound only (shares, the stored-block
-   bound and the layout stay in the phase's lines).
+   bounds, the layouts and first calls stay in the phase's lines).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -61,15 +66,17 @@ before the last is the kernels' JSON; the last is
 To compare the kernels of two trees on one card, unpack the other tree
 (``git archive``) into an ignored directory and run
 ``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 9 and
-the npoint-513 ``bsr_matvec`` / ``bsr_matmat`` times (back to back, and
-the first call on a new matrix and after an in-place update of its
-blocks, which builds the live layout) with DIR's package and with this
-tree's, each in its own process, in turns P C C P, ROUNDS times, then the
-ratios and the number of products that pays for one layout build.
+the npoint-513 ``bsr_matvec`` / ``bsr_matmat`` / ``spgemm`` times (back to
+back, and the first call on a new matrix and after an in-place update of
+its blocks, which builds the live layout) with DIR's package and with
+this tree's, each in its own process, in turns P C C P, ROUNDS times,
+then the ratios and the number of calls that pays for one layout build.
 ``--replay [--tree DIR]`` is one such process.
 ``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
 plan for each chunk size K of CHUNK_SWEEP, which is how
-``splu.CHUNK_PAIRS`` was chosen.
+``splu.CHUNK_PAIRS`` was chosen; ``--strip-sweep`` times ``spgemm`` at
+npoint 513 for each strip budget of STRIP_SWEEP, which is how
+``kernels.SPGEMM_STRIP_BYTES`` was chosen.
 """
 
 from __future__ import annotations
@@ -110,6 +117,8 @@ GAMMA = 3.6378342527444957 / H_REPLAY
 ALPHA_BETA = complex(2.6810828736277521, 3.0504301992474105) / H_REPLAY
 WARM_S = 1.0          # the card is kept busy this long before timing
 CHUNK_SWEEP = (2, 4, 8, 16)
+# spgemm_blocks' strip budgets in bytes (--strip-sweep)
+STRIP_SWEEP = (16 << 10, 32 << 10, 64 << 10, 96 << 10)
 # read before each call that cold_ms times: over twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
 
@@ -752,16 +761,60 @@ def bit_identical(name, fn, first):
             raise AssertionError(f"{name}: two launches differ")
 
 
-def spgemm_work(plan, a):
-    """(bytes, flops) of A·A over ``plan`` (A and B are one input): each
-    distinct block the products use read once, the index arrays the kernel
-    reads, each C block written once; 2 bm bk bn flops per product."""
+def spgemm_products(a, b):
+    """Live scalar products of C = A B over the matrices' SpGEMM layouts
+    (built by their first ``spgemm``): for each entry of A whose column k
+    is a row of B, the entries of B's row k."""
+    from russell_tpu_torch.sparse import kernels
+    ra, rb = kernels._spgemm_layout(a), kernels._spgemm_layout(b)
+    k = ra.col.long()
+    return int(torch.diff(rb.row_ptr)[k[k < rb.n_rows]].sum())
+
+
+def spgemm_work(plan, a, b):
+    """(bytes, flops) of the least work of C = A B in the reference's output
+    form: the live entries of each distinct operand once (8-byte value,
+    4-byte column) with its row structure (int64 row pointer), the C block
+    columns (int32) and block-row pointer (int64), C written once (8 bm bn
+    bytes a C block); 2 flops per live scalar product."""
+    from russell_tpu_torch.sparse import kernels
+    lays = {id(m): kernels._spgemm_layout(m) for m in (a, b)}
+    nbr = int(plan.c_block_ij[-1, 0]) + 1
+    return (sum(12 * lay.nnz + 8 * (lay.n_rows + 1) for lay in lays.values())
+            + 4 * plan.c_blocks + 8 * (nbr + 1)
+            + 8 * a.bm * b.bn * plan.c_blocks, 2 * spgemm_products(a, b))
+
+
+def spgemm_stored_work(plan, a):
+    """(bytes, flops) of A·A over ``plan`` counted over whole stored blocks,
+    as a kernel of block products reads them: each distinct block the
+    products use read once, the plan's index arrays, each C block written
+    once; 2 bm bk bn flops per block product. The bound the earlier
+    block-product kernel was held to, kept for the record."""
     n_ops = len(plan.a_idx)
     tiles = np.unique(np.concatenate([plan.a_idx, plan.b_idx])).size
     blk = a.bm * a.bn
     return (8 * blk * (tiles + plan.c_blocks)
             + 4 * (2 * n_ops + plan.c_blocks + 1),
             2 * n_ops * a.bm * a.bn * a.bn)
+
+
+def spgemm_record(plan, a, first_s):
+    """What the phases print of A·A beyond ``bsr_timings``: the stored-block
+    bound, the live products and layout, the first call on the new matrix
+    (layout build, plan upload and one launch; ``first_s``) and the first
+    after an in-place update of its blocks, which rebuilds the layout."""
+    from russell_tpu_torch.sparse import kernels
+    lay = kernels._spgemm_layout(a)
+    a.blocks.mul_(1.0)
+    _, updated_s = first_call_s(lambda: kernels.spgemm(plan, a, a))
+    return {"stored_bound_ms": bound(*spgemm_stored_work(plan, a))[0],
+            "first_call_s": first_s, "updated_call_s": updated_s,
+            "live_products": spgemm_products(a, a), "nnz_live": lay.nnz,
+            "layout_bytes": lay.nbytes, "block_products": len(plan.a_idx),
+            "c_blocks": plan.c_blocks,
+            "strip": kernels._strip_chunks(a.bm, a.bn, kernels._device_plan(
+                plan, a.blocks.device)["max_row_blocks"])}
 
 
 def layout_record(lay, layout_s):
@@ -808,7 +861,8 @@ def phase_bsr_kernels():
     lay = layout_record(live, layout_s)
     bsr16 = kernels.bsr_from_coo(coo, 16, 16, dev)
     plan = kernels.spgemm_plan(bsr16, bsr16)
-    dp = kernels._device_plan(plan, dev)
+    _, spgemm_first_s = first_call_s(
+        lambda: kernels.spgemm(plan, bsr16, bsr16))
     say("bsr_shapes", npoint=NPOINT, n=coo.nrow, coo_entries=coo.nnz,
         bsr8=[bsr8.nbr, bsr8.blocks_per_row, int((bsr8.mask > 0).sum())],
         bsr16=[bsr16.nbr, bsr16.blocks_per_row,
@@ -827,25 +881,24 @@ def phase_bsr_kernels():
                      bsr_stored_work(bsr8, SPMM_M)),
         "spgemm_blocks": (
             lambda: kernels.spgemm(plan, bsr16, bsr16)[0],
-            lambda: kernels._spgemm_plain(dp, bsr16, bsr16, plan.c_blocks),
-            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16),
-            None),
+            lambda: kernels._spgemm_plain(plan, bsr16, bsr16),
+            lambda: torch.sparse.mm(a_csr, a_csr),
+            spgemm_work(plan, bsr16, bsr16), None),
     }
     for name, (kern, plain, lib, work, stored) in cases.items():
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err, scale = assert_close(name, got, want)
-        extra = {}
-        if stored is not None:
-            bit_identical(name, kern, got)
-            extra = {"stored_bound_ms": bound(*stored)[0],
-                     "bit_identical": True}
+        bit_identical(name, kern, got)
         t = bsr_timings(kern, plain, lib, work)
+        extra = ({"stored_bound_ms": bound(*stored)[0]} if stored else
+                 spgemm_record(plan, bsr16, spgemm_first_s))
         say("bsr_kernel", name=name, npoint=NPOINT, scale=scale, rtol=RTOL,
             bytes=work[0], flops=work[1], max_abs_err=err, **t,
             share=t["bound_ms"] / t["ms"],
-            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"], **extra)
+            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"],
+            bit_identical=True, **extra)
     torch.cuda.empty_cache()
 
 
@@ -887,7 +940,8 @@ def phase_bsr_path():
     t0 = time.perf_counter()
     plan = spgemm_plan(bsr16, bsr16)
     plan_s = time.perf_counter() - t0
-    C, cij = spgemm(plan, bsr16, bsr16)
+    (C, cij), spgemm_first_s = first_call_s(
+        lambda: spgemm(plan, bsr16, bsr16))
     spgemm_ms = time_ms(lambda: spgemm(plan, bsr16, bsr16))
     torch.cuda.synchronize()
     launches = {"bsr_spmv": bsr_matvec.launches,
@@ -899,8 +953,7 @@ def phase_bsr_path():
             raise AssertionError(f"bsr_path: {name} was not launched")
 
     # each kernel against its plain version on the same inputs, in full;
-    # two more launches of SpMV and SpMM give the same bits
-    dp = kernels._device_plan(plan, dev)
+    # two more launches give the same bits
     a_csr = torch_csr(a, dev)
     live = kernels._live_layout(bsr8)
     lay = layout_record(live, layout_s)
@@ -917,30 +970,31 @@ def phase_bsr_path():
                      bsr_stored_work(bsr8, SPMM_M)),
         "spgemm_blocks": (
             C, spgemm_ms, lambda: spgemm(plan, bsr16, bsr16)[0],
-            lambda: kernels._spgemm_plain(dp, bsr16, bsr16, plan.c_blocks),
-            lambda: torch.sparse.mm(a_csr, a_csr), spgemm_work(plan, bsr16),
-            None),
+            lambda: kernels._spgemm_plain(plan, bsr16, bsr16),
+            lambda: torch.sparse.mm(a_csr, a_csr),
+            spgemm_work(plan, bsr16, bsr16), None),
     }
     # the kernels line takes ``results``: measured numbers and the bound;
-    # the shares, the stored-block bound and the layout go to this phase's
-    # lines only
+    # the shares, the stored-block bound, the layouts and first calls go to
+    # this phase's lines only
     results = {}
     for name, (got, ms_warm, kern, plain, lib, work,
                stored) in cases.items():
         want = plain()
         err, scale = assert_close(f"{name} vs plain", got, want)
         del want
-        extra = {}
-        if stored is not None:
-            bit_identical(name, kern, got)
-            extra = {"stored_bound_ms": bound(*stored)[0],
-                     "layout_s": layout_s, "pad_share": lay["pad_share"]}
+        torch.cuda.empty_cache()
+        bit_identical(name, kern, got)
         results[name] = {"max_abs_err": err,
                          **bsr_timings(kern, plain, lib, work, ms_warm)}
         t = results[name]
+        extra = ({"stored_bound_ms": bound(*stored)[0],
+                  "layout_s": layout_s, "pad_share": lay["pad_share"]}
+                 if stored else spgemm_record(plan, bsr16, spgemm_first_s))
         say("bsr_path_kernel", name=name, npoint=NPOINT_BSR, scale=scale,
             rtol=RTOL, **t, share=t["bound_ms"] / t["ms"],
-            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"], **extra)
+            share_warm_l2=t["bound_ms"] / t["ms_warm_l2"],
+            bit_identical=True, **extra)
     del a_csr
     torch.cuda.empty_cache()
 
@@ -970,7 +1024,7 @@ def phase_bsr_path():
     for name, (nbytes, flops), per in (
             ("bsr_spmv", bsr_work(live, 1), nnz),
             ("bsr_spmm", bsr_work(live, SPMM_M), nnz),
-            ("spgemm_blocks", spgemm_work(plan, bsr16), None)):
+            ("spgemm_blocks", spgemm_work(plan, bsr16, bsr16), None)):
         ms, b_ms = results[name]["ms"], results[name]["bound_ms"]
         metrics[name] = {
             "ms": ms, "launches": launches[name], "bytes": nbytes,
@@ -982,8 +1036,8 @@ def phase_bsr_path():
             metrics[name]["nnz_per_s"] = per / ms * 1e3
     metrics["bsr_spmm"]["nnz_rhs_per_s"] = (
         nnz * SPMM_M / results["bsr_spmm"]["ms"] * 1e3)
-    metrics["spgemm_blocks"]["products_per_s"] = (
-        len(plan.a_idx) / results["spgemm_blocks"]["ms"] * 1e3)
+    metrics["spgemm_blocks"]["live_products_per_s"] = (
+        spgemm_products(bsr16, bsr16) / results["spgemm_blocks"]["ms"] * 1e3)
     say("bsr_path", npoint=NPOINT_BSR, n=n, nnz=nnz, coo_entries=coo.nnz,
         jacobian_and_scipy_s=setup_s, bsr_from_coo_8x128_s=bsr8_s,
         bsr_from_coo_16x16_s=bsr16_s, spgemm_plan_s=plan_s,
@@ -1066,21 +1120,27 @@ def main():
 
 
 def bsr_ab_times():
-    """bsr_matvec and bsr_matmat (m = SPMM_M) on the npoint-513 Jacobian
-    through the public entry points of this process's package: the host
-    seconds of the first call of each on a new matrix and of the first
-    bsr_matvec after an in-place update of its blocks (each a product plus,
-    in a package that derives a layout from the blocks, its build), after
-    both were called once on the npoint-9 Jacobian so that neither pays for
-    loading the kernels; then each timed back to back (``time_ms``)."""
-    from russell_tpu_torch.sparse import bsr_from_coo, bsr_matmat, bsr_matvec
+    """bsr_matvec and bsr_matmat (m = SPMM_M) at 8x128 and spgemm (A·A) at
+    16x16 on the npoint-513 Jacobian through the public entry points of
+    this process's package: the host seconds of the first call of each on a
+    new matrix (for spgemm after its spgemm_plan) and of the first
+    bsr_matvec and spgemm after an in-place update of the blocks (each a
+    product plus, in a package that derives a layout from the blocks, its
+    build), after each was called once on the npoint-9 Jacobian so that
+    none pays for loading the kernels; then each timed back to back
+    (``time_ms``)."""
+    from russell_tpu_torch.sparse import (bsr_from_coo, bsr_matmat,
+                                          bsr_matvec, spgemm, spgemm_plan)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    small = bsr_from_coo(brusselator_jacobian(9), 8, 128, dev)
+    small_coo = brusselator_jacobian(9)
+    small = bsr_from_coo(small_coo, 8, 128, dev)
     bsr_matvec(small, torch.ones(small.n_cols, dtype=torch.float64,
                                  device=dev))
     bsr_matmat(small, torch.ones((small.n_cols, SPMM_M), dtype=torch.float64,
                                  device=dev))
+    small = bsr_from_coo(small_coo, 16, 16, dev)
+    spgemm(spgemm_plan(small, small), small, small)
     coo = brusselator_jacobian(NPOINT_BSR)
     x = torch.as_tensor(rng.standard_normal(coo.ncol), device=dev)
     X = torch.as_tensor(rng.standard_normal((coo.ncol, SPMM_M)), device=dev)
@@ -1095,13 +1155,25 @@ def bsr_ab_times():
     bsr8.blocks.mul_(1.0)
     _, rec["bsr_updated_matvec_s"] = first_call_s(
         lambda: bsr_matvec(bsr8, x))
+    del bsr8
+    torch.cuda.empty_cache()
+    bsr16 = bsr_from_coo(coo, 16, 16, dev)
+    plan = spgemm_plan(bsr16, bsr16)
+    (C, _), rec["spgemm_first_s"] = first_call_s(
+        lambda: spgemm(plan, bsr16, bsr16))
+    rec["C_sum"] = float(C.sum())
+    del C
+    rec["spgemm_ms"] = time_ms(lambda: spgemm(plan, bsr16, bsr16))
+    bsr16.blocks.mul_(1.0)
+    _, rec["spgemm_updated_s"] = first_call_s(
+        lambda: spgemm(plan, bsr16, bsr16))
     return rec
 
 
 def main_replay():
     """--replay [--tree DIR]: one line, the replay of this package (or
-    DIR's) on the npoint-129 factorize pair, then its BSR SpMV and SpMM
-    times on the npoint-513 Jacobian."""
+    DIR's) on the npoint-129 factorize pair, then its BSR SpMV, SpMM and
+    SpGEMM times on the npoint-513 Jacobian."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     rec = replay(replay_setup())
@@ -1110,8 +1182,8 @@ def main_replay():
 
 
 def main_ab(parent, rounds):
-    """--ab PARENT [ROUNDS]: the replay and the BSR SpMV / SpMM times with
-    the parent tree's package (``git archive`` of the parent commit
+    """--ab PARENT [ROUNDS]: the replay and the BSR SpMV / SpMM / SpGEMM
+    times with the parent tree's package (``git archive`` of the parent commit
     unpacked at PARENT) and with this tree's, each in its own process, in
     turns P C C P, ROUNDS times, on one card; then the medians of each
     kernel's device time per factorize pair and per BSR call, and the
@@ -1136,21 +1208,66 @@ def main_ab(parent, rounds):
     keys = ("splu_pairs_ms", "gather_rows_ms", "device_busy_ms",
             "profiled_wall_s", "bsr_matvec_ms", "bsr_matmat_ms",
             "bsr_first_matvec_s", "bsr_first_matmat_s",
-            "bsr_updated_matvec_s")
+            "bsr_updated_matvec_s", "spgemm_ms", "spgemm_first_s",
+            "spgemm_updated_s")
     med = {which: {k: statistics.median(r[k] for r in recs) for k in keys}
            for which, recs in runs.items()}
     p, c = med["parent"], med["change"]
-    # bsr_matvec products on one matrix (one layout build) after which the
-    # change has spent less time than the parent
-    saved_ms = p["bsr_matvec_ms"] - c["bsr_matvec_ms"]
-    extra_ms = 1e3 * (c["bsr_first_matvec_s"] - p["bsr_first_matvec_s"])
+
+    def break_even(ms, first_s):
+        """Calls on one matrix (one layout build, whose cost is in the
+        first call ``first_s``) after which the change has spent less time
+        than the parent: 0 if its first call is no dearer."""
+        saved_ms = p[ms] - c[ms]
+        extra_ms = 1e3 * (c[first_s] - p[first_s])
+        if extra_ms <= 0:
+            return 0.0
+        return extra_ms / saved_ms if saved_ms > 0 else None
+
     say("ab", order="P C C P", rounds=rounds, median=med,
-        bsr_matvec_break_even_products=(
-            extra_ms / saved_ms if saved_ms > 0 else None),
+        bsr_matvec_break_even_products=break_even("bsr_matvec_ms",
+                                                  "bsr_first_matvec_s"),
+        bsr_matvec_break_even_after_update=break_even(
+            "bsr_matvec_ms", "bsr_updated_matvec_s"),
+        spgemm_break_even_calls=break_even("spgemm_ms", "spgemm_first_s"),
+        spgemm_break_even_after_update=break_even("spgemm_ms",
+                                                  "spgemm_updated_s"),
         **{f"{k.rsplit('_', 1)[0]}_ratio": c[k] / p[k] for k in (
             "splu_pairs_ms", "gather_rows_ms", "bsr_matvec_ms",
             "bsr_matmat_ms", "bsr_first_matvec_s", "bsr_first_matmat_s",
-            "bsr_updated_matvec_s")})
+            "bsr_updated_matvec_s")},
+        **{f"{k}_ratio": c[k] / p[k] for k in (
+            "spgemm_ms", "spgemm_first_s", "spgemm_updated_s")})
+
+
+def strip_sweep():
+    """spgemm on the npoint-513 Jacobian (16x16, A·A) for each strip budget
+    of STRIP_SWEEP (``kernels.SPGEMM_STRIP_BYTES``): the L2-cold and
+    back-to-back times and the bits against the default budget's, which is
+    how the budget was chosen."""
+    from russell_tpu_torch.sparse import (bsr_from_coo, kernels, spgemm,
+                                          spgemm_plan)
+    bsr16 = bsr_from_coo(brusselator_jacobian(NPOINT_BSR), 16, 16,
+                         torch.device("cuda"))
+    plan = spgemm_plan(bsr16, bsr16)
+    want = spgemm(plan, bsr16, bsr16)[0]
+    most = kernels._device_plan(plan, want.device)["max_row_blocks"]
+    b_ms = bound(*spgemm_work(plan, bsr16, bsr16))[0]
+    default = kernels.SPGEMM_STRIP_BYTES
+    try:
+        for budget in STRIP_SWEEP:
+            kernels.SPGEMM_STRIP_BYTES = budget
+            same = torch.equal(spgemm(plan, bsr16, bsr16)[0], want)
+            ms = cold_ms(lambda: spgemm(plan, bsr16, bsr16))
+            say("strip_sweep", budget=budget, strip=kernels._strip_chunks(
+                16, 16, most), ms=ms,
+                ms_warm_l2=time_ms(lambda: spgemm(plan, bsr16, bsr16)),
+                share=b_ms / ms, bit_identical=same)
+            if not same:
+                raise AssertionError(f"spgemm: budget {budget} changes the "
+                                     "bits")
+    finally:
+        kernels.SPGEMM_STRIP_BYTES = default
 
 
 if __name__ == "__main__":
@@ -1160,6 +1277,10 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         chunk_sweep(brusselator_plan(NPOINT))
+    elif "--strip-sweep" in sys.argv:
+        phase_device()
+        phase_build()
+        strip_sweep()
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

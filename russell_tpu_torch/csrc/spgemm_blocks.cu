@@ -1,91 +1,376 @@
-// Numeric phase of the block SpGEMM C = A B, f64.
+// Numeric phase of the block SpGEMM C = A B, f64, over the operands' live
+// entries: a row-wise (Gustavson) product, each block row of C summed in
+// shared memory and written once.
 //
 // Replaces: russell_tpu/sparse/kernels.py, _spgemm_pallas (the Pallas TPU
 // kernel: one sequential grid step per block product, the output block
 // selected by the scalar-prefetched c_idx, zeroed at c_first and
 // accumulated across consecutive steps).
 //
-// The host plan (spgemm_plan) lists the block products sorted by their
-// destination C block; c_ptr[c] .. c_ptr[c+1] is block c's range. Computes
-//     C[c] = sum_{p in [c_ptr[c], c_ptr[c+1])} A[a_idx[p]] @ B[b_idx[p]]
-// with A (·, BM, BK) and B (·, BK, BN) row-major f64 block storage and C
-// (n_c, BM, BN). A block without products gets zeros.
+// The output is the reference's: dense (c_blocks, BM, BN) blocks in the
+// order of the plan's c_block_ij, sorted by (block row i, block column j),
+// so the C blocks of one block row are contiguous in C. Blocks that no
+// live product reaches are zeros.
 //
-// What bounds it on an H100: per product it reads two blocks (4 KB at
-// 16x16x16) and does 2*BM*BK*BN flops (8,192): 2 flop/byte if every block
-// came from device memory. Counting each distinct input block once, the
-// npoint-513 Brusselator A·A (about 2.7M products) needs about 22 GFLOP
-// (0.33 ms at 67 TFLOP/s FP64 tensor core) against about 2.5 GB of live
-// A blocks and C output (0.75 ms at 3.35 TB/s): device memory bounds it.
-// Blocks of A reused by neighbouring C blocks of one block row are served
-// by L2.
+// What bounds it on an H100: writing C. The TPU kernel multiplies whole
+// blocks, but the blocks of a banded matrix are mostly zeros: at 16x16 the
+// npoint-513 Brusselator Jacobian's live blocks are about 1 % nonzero, and
+// its A·A issues 21.8 GFLOP of block FMAs for 18.9 M live scalar products
+// (37.8 MFLOP). The least bytes of the function are each live entry of A
+// once (8-byte value, 4-byte column), the row structure, the C block
+// columns, and C written once: 1.99 GB at npoint 513, of which C is 1.95 GB,
+// about 0.6 ms at 3.35 TB/s. Live flops are 37.8 MFLOP against those bytes
+// (0.02 flop/byte): this kernel moves bytes and needs no tensor cores.
 //
-// Design: Hopper runs blocks in no order, so the TPU's sequential grid
-// becomes one CTA per C block that loops over its own product range (the
-// design of splu_pairs.cu): no atomics, no zeroing pass, a fixed summation
-// order, deterministic output. Per product the CTA copies both operand
-// blocks (contiguous runs) into shared memory with coalesced loads; thread
-// t < BM*BN owns C entry (t / BN, t % BN) in a register and does BK FMAs.
-// C is written once. Storage offsets are computed in 64 bits: a block
-// index times the block size can pass 2^31 elements.
+// Operands: each matrix's entries as SpGEMM sees them (RowLayout,
+// russell_tpu_torch/sparse/kernels.py): CSR over every row of every block
+// row, the nonzero entries of the stored blocks of the slots with mask > 0,
+// unscaled, a row's entries in column order (entries of one position from
+// several slots side by side, in slot order). A's entries whose column k
+// is past B's rows (block columns at or past B's block rows, which the
+// plan drops) are skipped here.
+//
+// Design: the C blocks of block row i are c_row_ptr[i] .. c_row_ptr[i+1],
+// with block columns c_col. A strip of them is zeroed in shared memory,
+// laid out as C is (block, row, column), summed into, and written to C once
+// as one contiguous run of 16-byte streaming stores (C is not read back),
+// which leave the strip zero again. A group of 8 lanes walks one row r of
+// A: lane e holds A entry e (a_rk) and B's row range for k, and for each A
+// entry in column order the lanes take the entries b_kj of B's row k, each
+// adding a_rk * b_kj to the strip at (slot of j / BN, r, j % BN); the slot
+// is a binary search over the chunk's block columns in shared memory.
+// Control flow is warp-uniform: the four groups of a warp walk rows of
+// other lengths side by side, so none waits on another's branch. One A
+// entry's B row puts each lane on its own position, so a position's sum
+// runs over the row's A entries in column order, the same at every launch:
+// no float atomics, bit-identical output. Where a B row holds one column
+// twice (duplicated block columns), the lanes of that pass add one after
+// the other in entry order. Products are rounded as __dmul_rn then
+// __dadd_rn (no FMA contraction), so a sequential walk in that order gives
+// the same bits.
+//
+// What the time goes to, and the answer: a row's loads are a dependent
+// chain (row pointer, A entries, B row pointers, B entries), about as long
+// as writing its strip, and a strip (59 KB at 16x16) leaves room for three
+// CTAs an SM. So a CTA has two warp sets and one strip and walks kTurns
+// block rows, blockIdx.x + turn * gridDim.x (the CTAs on the card at one
+// time write neighbouring runs of C); the sets take turns. Each set loads
+// its next block row's A entries and first B entries into registers before
+// it takes the strip, so that chain overlaps the other set's sums and
+// stores; then it sums from registers, stores, and hands the strip on
+// (named barriers). On an H100 at npoint 513 this took A·A from 1.14 ms
+// (one CTA per block row, loads after the strip was ready) to 0.71 ms,
+// against 0.60 ms for the bytes and 0.59 ms for C.zero_() alone.
+//
+// Fit: a block row whose strip exceeds the shared memory the wrapper
+// budgets is cut into chunks of chunk_blocks C blocks, each re-walking the
+// row's entries and skipping columns outside it; a block too large for the
+// budget is cut into runs of chunk_rows rows (one block a chunk). Either
+// way a chunk is one contiguous run of C. Offsets into C are 64-bit.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void spgemm_blocks_kernel(const double* __restrict__ A,
-                                     const double* __restrict__ B,
-                                     const int* __restrict__ a_idx,
-                                     const int* __restrict__ b_idx,
-                                     const int* __restrict__ c_ptr, int bm,
-                                     int bk, int bn, double* __restrict__ C) {
-  extern __shared__ double smem[];
-  double* as = smem;             // (BM, BK)
-  double* bs = smem + bm * bk;   // (BK, BN)
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int n_out = bm * bn;
-  const int oi = tid / bn;
-  const int oj = tid % bn;
-  const size_t a_sz = (size_t)bm * bk;
-  const size_t b_sz = (size_t)bk * bn;
-  double acc = 0.0;
-  const int p1 = c_ptr[c + 1];
-  for (int p = c_ptr[c]; p < p1; ++p) {
-    const double* ag = A + (size_t)a_idx[p] * a_sz;
-    const double* bg = B + (size_t)b_idx[p] * b_sz;
-    for (int e = tid; e < (int)a_sz; e += nt) as[e] = ag[e];
-    for (int e = tid; e < (int)b_sz; e += nt) bs[e] = bg[e];
-    __syncthreads();
-    if (tid < n_out) {
-      const double* ar = as + oi * bk;
-      for (int k = 0; k < bk; ++k) acc = fma(ar[k], bs[k * bn + oj], acc);
-    }
-    __syncthreads();
+constexpr int kThreads = 256;
+constexpr int kSets = 2;                      // warp sets taking turns
+constexpr int kSetThreads = kThreads / kSets;
+constexpr int kGroup = 8;                     // lanes that walk one row of A
+constexpr int kGroups = kSetThreads / kGroup; // rows a set walks at once
+constexpr int kTurns = 4;                     // block rows of one CTA
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kGroup <= 32 && (kGroup & (kGroup - 1)) == 0, "kGroup");
+static_assert(kSetThreads % 32 == 0, "whole warps a set");
+
+// Barriers: 1 + set among the set's threads; 1 + kSets + set where the
+// set hands the strip to the next (it arrives, the next set waits). The
+// hand-over counts the threads of both sets.
+static_assert(2 * kSets < 16, "named barriers");
+__device__ __forceinline__ void set_sync(int set) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + set), "n"(kSetThreads)
+               : "memory");
+}
+__device__ __forceinline__ void strip_release(int set) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(1 + kSets + set),
+               "n"(2 * kSetThreads)
+               : "memory");
+}
+__device__ __forceinline__ void strip_acquire(int set) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + kSets + (set + kSets - 1) %
+                                                          kSets),
+               "n"(2 * kSetThreads)
+               : "memory");
+}
+
+// Slot of block column jb among the chunk's sorted block columns, or -1.
+__device__ __forceinline__ int find_slot(const int* cols, int nb, int jb) {
+  int lo = 0, hi = nb;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cols[mid] < jb) lo = mid + 1;
+    else hi = mid;
   }
-  if (tid < n_out) C[(size_t)c * n_out + tid] = acc;
+  return lo < nb && cols[lo] == jb ? lo : -1;
+}
+
+// Strip position of (row rr of the chunk, global column j), or -1 when j
+// is no column (j < 0) or its block is outside the chunk.
+__device__ __forceinline__ int strip_pos(const int* cols, int nb, int nr,
+                                         int rr, int bn, int j) {
+  const int jb = max(j, 0) / bn;
+  const int s = find_slot(cols, nb, jb);
+  return s < 0 || j < 0 ? -1 : (s * nr + rr) * bn + (j - jb * bn);
+}
+
+// One pass of a warp: each lane with a product (pos >= 0) adds v to the
+// strip. Lanes of a group that share a column (a B row holding it twice)
+// add one after the other in lane order.
+__device__ __forceinline__ void add_pass(double* strip, int pos, int j,
+                                         double v, int lane) {
+  const int prev = __shfl_up_sync(kFull, j, 1, kGroup);
+  const bool dup = lane > 0 && j >= 0 && prev == j;
+  if (__any_sync(kFull, dup)) {
+    for (int l = 0; l < kGroup; ++l) {
+      if (lane == l && pos >= 0) strip[pos] = __dadd_rn(strip[pos], v);
+      __syncwarp();
+    }
+  } else if (pos >= 0) {
+    strip[pos] = __dadd_rn(strip[pos], v);
+  }
+  __syncwarp();
+}
+
+// A batch of a group: A entries e0 .. e0 + ne - 1 of its row (0 <= ne <=
+// kGroup), lane e holding entry e: B's row range (bs, bl) for its column
+// k (none when k is past B's rows), its value, and the first kGroup
+// entries of each of those B rows, lane l holding entry l of the row of A
+// entry t in (jv[t], bv[t]) (column -1: none). The products are formed at
+// the adds, so that nothing waits on these loads before the strip is
+// ready.
+struct Batch {
+  long long bs;
+  double av;
+  int bl, ne;
+  int jv[kGroup];
+  double bv[kGroup];
+};
+
+__device__ __forceinline__ void load_batch(
+    const int* __restrict__ a_col, const double* __restrict__ a_val,
+    const long long* __restrict__ b_ptr, const int* __restrict__ b_col,
+    const double* __restrict__ b_val, int b_rows, long long e0, long long hi,
+    int lane, Batch& x) {
+  x.ne = (int)max(0LL, min((long long)kGroup, hi - e0));
+  x.bs = 0;
+  x.av = 0.0;
+  x.bl = 0;
+  if (lane < x.ne) {
+    const int k = a_col[e0 + lane];
+    x.av = a_val[e0 + lane];
+    if (k < b_rows) {
+      x.bs = b_ptr[k];
+      x.bl = (int)(b_ptr[k + 1] - x.bs);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    const int len = __shfl_sync(kFull, x.bl, t, kGroup);
+    const long long st = __shfl_sync(kFull, x.bs, t, kGroup);
+    const bool live = lane < len;
+    x.jv[t] = live ? __ldg(b_col + st + lane) : -1;
+    x.bv[t] = live ? __ldg(b_val + st + lane) : 0.0;
+  }
+}
+
+// The batch's products into strip row rr, A entry by A entry in column
+// order: the loaded first kGroup entries of its B row, then the rest of a
+// longer row, before the next A entry. Control flow is the same for the
+// whole warp (its groups walk rows of other lengths side by side).
+__device__ __forceinline__ void add_batch(const int* __restrict__ b_col,
+                                          const double* __restrict__ b_val,
+                                          const Batch& x, double* strip,
+                                          const int* cols, int nb, int nr,
+                                          int rr, int bn, int lane) {
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    if (!__any_sync(kFull, t < x.ne)) break;
+    const double a = __shfl_sync(kFull, x.av, t, kGroup);
+    add_pass(strip, strip_pos(cols, nb, nr, rr, bn, x.jv[t]), x.jv[t],
+             __dmul_rn(a, x.bv[t]), lane);
+    const int len = __shfl_sync(kFull, x.bl, t, kGroup);
+    if (!__any_sync(kFull, len > kGroup)) continue;
+    const long long st = __shfl_sync(kFull, x.bs, t, kGroup);
+    for (int off = kGroup; __any_sync(kFull, off < len); off += kGroup) {
+      const bool live = off + lane < len;
+      const int j = live ? __ldg(b_col + st + off + lane) : -1;
+      const double v =
+          live ? __dmul_rn(a, __ldg(b_val + st + off + lane)) : 0.0;
+      add_pass(strip, strip_pos(cols, nb, nr, rr, bn, j), j, v, lane);
+    }
+  }
+}
+
+// n doubles from the shared strip to C by the set's threads, with 16-byte
+// streaming stores (a lone leading or trailing double where C's run is not
+// 16-byte aligned), leaving zeros in the strip: the next turn finds it
+// clear.
+__device__ __forceinline__ void store_run(double* __restrict__ dst,
+                                          double* src, int n, int stid) {
+  const int head = ((reinterpret_cast<uintptr_t>(dst) & 15) && n > 0) ? 1 : 0;
+  if (stid == 0 && head) {
+    __stcs(dst, src[0]);
+    src[0] = 0.0;
+  }
+  dst += head;
+  src += head;
+  n -= head;
+  const int n2 = n >> 1;
+  double2* d2 = reinterpret_cast<double2*>(dst);
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    double2* s2 = reinterpret_cast<double2*>(src);
+    for (int e = stid; e < n2; e += kSetThreads) {
+      const double2 v = s2[e];
+      s2[e] = make_double2(0.0, 0.0);
+      __stcs(d2 + e, v);
+    }
+  } else {
+    for (int e = stid; e < n2; e += kSetThreads) {
+      __stcs(d2 + e, make_double2(src[2 * e], src[2 * e + 1]));
+      src[2 * e] = src[2 * e + 1] = 0.0;
+    }
+  }
+  if (stid == 0 && (n & 1)) {
+    __stcs(dst + n - 1, src[n - 1]);
+    src[n - 1] = 0.0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    spgemm_rows_kernel(const long long* __restrict__ a_ptr,
+                       const int* __restrict__ a_col,
+                       const double* __restrict__ a_val,
+                       const long long* __restrict__ b_ptr,
+                       const int* __restrict__ b_col,
+                       const double* __restrict__ b_val, int b_rows,
+                       const long long* __restrict__ c_row_ptr,
+                       const int* __restrict__ c_col, int n_block_rows,
+                       int bm, int bn, int chunk_rows, int chunk_blocks,
+                       double* __restrict__ C) {
+  extern __shared__ __align__(16) double strip[];
+  int* cols = reinterpret_cast<int*>(strip + (size_t)chunk_rows *
+                                                 chunk_blocks * bn);
+  const int tid = threadIdx.x;
+  const int set = tid / kSetThreads;
+  const int stid = tid % kSetThreads;
+  const int lane = stid % kGroup;
+  const int grp = stid / kGroup;
+  // block rows blockIdx.x + turn * gridDim.x: the CTAs on the card at one
+  // time write neighbouring runs of C
+  const int turns = (int)min(
+      (long long)kTurns, ((long long)n_block_rows - blockIdx.x + gridDim.x -
+                          1) / (long long)gridDim.x);
+  // the strip starts zero and every turn leaves it so (store_run)
+  const int n_strip = chunk_rows * chunk_blocks * bn;
+  double2* z = reinterpret_cast<double2*>(strip);
+  for (int e = tid; e < (n_strip >> 1); e += kThreads)
+    z[e] = make_double2(0.0, 0.0);
+  if (tid == 0 && (n_strip & 1)) strip[n_strip - 1] = 0.0;
+  __syncthreads();
+  // set s takes turns s, s + kSets, ...; the strip is handed over between
+  // turns
+  for (int turn = set; turn < turns; turn += kSets) {
+    const long long i = blockIdx.x + (long long)turn * gridDim.x;
+    const long long c_lo = c_row_ptr[i], c_hi = c_row_ptr[i + 1];
+    bool held = false;
+    for (long long c0 = c_lo; c0 < c_hi; c0 += chunk_blocks) {
+      const int nb = (int)min((long long)chunk_blocks, c_hi - c0);
+      for (int r0 = 0; r0 < bm; r0 += chunk_rows) {
+        const int nr = min(chunk_rows, bm - r0);
+        const int n = nb * nr * bn;
+        // the group's first row: its first A entries and their B rows are
+        // loaded before the strip is this set's, so the loads' latency
+        // overlaps the other sets' sums and stores
+        long long e0 = 0, hi = 0;
+        if (grp < nr) {
+          e0 = a_ptr[i * bm + r0 + grp];
+          hi = a_ptr[i * bm + r0 + grp + 1];
+        }
+        Batch x;
+        load_batch(a_col, a_val, b_ptr, b_col, b_val, b_rows, e0, hi, lane,
+                   x);
+        const int cv = stid < nb ? c_col[c0 + stid] : 0;
+        if (held) set_sync(set);  // the previous chunk's stores read it
+        else if (turn > 0) strip_acquire(set);
+        held = true;
+        if (stid < nb) cols[stid] = cv;
+        for (int e = stid + kSetThreads; e < nb; e += kSetThreads)
+          cols[e] = c_col[c0 + e];
+        set_sync(set);
+        // the chunk's rows, kGroups at a time; each row's A entries in
+        // column order, kGroup at a time
+        for (int rb = 0; rb < nr; rb += kGroups) {
+          const int rr = rb + grp;
+          if (rb > 0) {
+            e0 = hi = 0;
+            if (rr < nr) {
+              e0 = a_ptr[i * bm + r0 + rr];
+              hi = a_ptr[i * bm + r0 + rr + 1];
+            }
+            load_batch(a_col, a_val, b_ptr, b_col, b_val, b_rows, e0, hi,
+                       lane, x);
+          }
+          while (true) {
+            add_batch(b_col, b_val, x, strip, cols, nb, nr, rr, bn, lane);
+            e0 += kGroup;
+            if (!__any_sync(kFull, e0 < hi)) break;
+            load_batch(a_col, a_val, b_ptr, b_col, b_val, b_rows, e0, hi,
+                       lane, x);
+          }
+        }
+        set_sync(set);
+        // blocks c0 .. c0 + nb - 1 whole, or rows r0 .. r0 + nr - 1 of
+        // block c0 alone: one run of C either way
+        double* dst = C + ((size_t)c0 * bm + r0) * bn;
+        store_run(dst, strip, n, stid);
+      }
+    }
+    // a block row without C blocks still takes the strip and hands it on,
+    // so that every hand-over barrier completes
+    if (!held && turn > 0) strip_acquire(set);
+    if (turn + 1 < turns) strip_release(set);
+  }
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns `C` (n_c, bm, bn).
-extern "C" int spgemm_blocks_f64(const double* A, const double* B,
-                                 const int* a_idx, const int* b_idx,
-                                 const int* c_ptr, int n_c, int bm, int bk,
-                                 int bn, double* C, void* stream) {
-  if (n_c <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bk <= 0 || bn <= 0 || bm * bn > 1024)
+// synchronise and allocates nothing: the caller owns `C` (c_blocks, bm,
+// bn). a_* and b_* are the operands' RowLayouts (row pointers of a.nbr * bm
+// + 1 and b_rows + 1 entries); c_row_ptr holds n_block_rows + 1 offsets
+// into c_col and C. A chunk is chunk_blocks whole blocks (chunk_rows = bm)
+// or chunk_rows < bm rows of one block (chunk_blocks = 1).
+extern "C" int spgemm_blocks_f64(const long long* a_ptr, const int* a_col,
+                                 const double* a_val, const long long* b_ptr,
+                                 const int* b_col, const double* b_val,
+                                 int b_rows, const long long* c_row_ptr,
+                                 const int* c_col, int n_block_rows, int bm,
+                                 int bn, int chunk_rows, int chunk_blocks,
+                                 double* C, void* stream) {
+  if (n_block_rows <= 0) return (int)cudaGetLastError();
+  if (bm <= 0 || bn <= 0 || chunk_rows <= 0 || chunk_rows > bm ||
+      chunk_blocks <= 0 || (chunk_rows < bm && chunk_blocks != 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * ((size_t)bm * bk + (size_t)bk * bn);
+  const size_t smem = sizeof(double) * (size_t)chunk_rows * chunk_blocks * bn +
+                      sizeof(int) * (size_t)chunk_blocks;
   cudaError_t err = cudaFuncSetAttribute(
-      spgemm_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      spgemm_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = ((bm * bn + 31) / 32) * 32;
-  spgemm_blocks_kernel<<<n_c, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      A, B, a_idx, b_idx, c_ptr, bm, bk, bn, C);
+  const unsigned grid = (unsigned)((n_block_rows + kTurns - 1) / kTurns);
+  spgemm_rows_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr, c_col,
+      n_block_rows, bm, bn, chunk_rows, chunk_blocks, C);
   return (int)cudaGetLastError();
 }

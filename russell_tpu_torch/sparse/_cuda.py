@@ -45,8 +45,11 @@ _SIGNATURES = {
     "bsr_spmv": ("bsr_spmv_f64", [_P, _P, _P, _P, _I, _I, _P, _P]),
     # val, col, slice_off, X, n_rows, n_slices, m, Y, stream
     "bsr_spmm": ("bsr_spmm_f64", [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    # a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr, c_col,
+    # n_block_rows, bm, bn, chunk_rows, chunk_blocks, C, stream
     "spgemm_blocks": ("spgemm_blocks_f64",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+                      [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                       _I, _P, _P]),
 }
 KERNELS = tuple(_SIGNATURES)
 

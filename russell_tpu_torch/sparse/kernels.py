@@ -15,12 +15,14 @@ raises — there is no switch and no fallback. Each wrapper counts its
 launches (``bsr_matvec.launches``, ``bsr_matmat.launches``,
 ``spgemm.launches``; ``reset_launch_counts``).
 
-The SpMV and SpMM kernels do not walk the blocks: a banded matrix in
-8x128 blocks stores about 99 % zeros. They read a ``LiveLayout`` of the
+No kernel walks the blocks: a banded matrix in 8x128 (or 16x16) blocks
+stores about 99 % zeros. SpMV and SpMM read a ``LiveLayout`` of the
 matrix's nonzero entries (sliced ELLPACK, 32 rows a slice), derived from
-``blocks * mask`` once per matrix on its device by ``_live_layout`` and
-cached on the ``BsrMatrix``; the blocks stay as stored for SpGEMM, the
-plain versions and ``interop``.
+``blocks * mask`` by ``_live_layout``; SpGEMM reads a ``RowLayout`` (CSR
+of the entries its reference multiplies), derived by ``_spgemm_layout``.
+Each is built once per matrix on its device and cached on the
+``BsrMatrix``; the blocks stay as stored for the plain versions and
+``interop``.
 """
 
 from __future__ import annotations
@@ -38,8 +40,13 @@ __all__ = ["BsrMatrix", "bsr_from_coo", "bsr_from_arrays", "bsr_matvec",
            "reset_launch_counts"]
 
 SLICE_ROWS = 32         # rows of a LiveLayout slice: one warp, a lane a row
-# block-entries of blocks * mask held at once while the layout is derived
+# block-entries of the blocks held at once while a layout is derived
 _LAYOUT_CHUNK = 1 << 26
+# shared memory one spgemm_blocks CTA gives its strip of C (whole blocks of
+# one block row; a block row of more is walked in chunks): 64 KB holds the
+# 29 16x16 C blocks of a Brusselator block row, three CTAs an SM
+SPGEMM_STRIP_BYTES = 64 << 10
+_SMEM_MAX = 232448      # shared memory one CTA can have on an H100
 
 
 @dataclass(frozen=True)
@@ -161,7 +168,7 @@ def _operand(name, bsr: BsrMatrix, x, ndim):
 
 
 # ---------------------------------------------------------------------------
-# The live-entry layout the SpMV / SpMM kernels read
+# The live-entry layouts the kernels read
 # ---------------------------------------------------------------------------
 
 
@@ -196,27 +203,59 @@ class LiveLayout:
         return 1.0 - self.nnz / slots if slots else 0.0
 
     @property
+    def tensors(self):
+        return self.slice_off, self.val, self.col
+
+    @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.slice_off, self.val, self.col))
+        return sum(t.numel() * t.element_size() for t in self.tensors)
 
 
-def _live_entries(bsr: BsrMatrix):
+@dataclass(frozen=True)
+class RowLayout:
+    """The entries SpGEMM multiplies, as CSR: the nonzero entries of the
+    stored blocks of every slot with mask > 0, unscaled, over every row of
+    every block row (``nbr * bm`` rows) and the blocks' full width.
+
+    Row r's entries are ``row_ptr[r] .. row_ptr[r + 1]`` of ``col`` and
+    ``val``, in column order; a position held by several slots (duplicated
+    block columns) has one entry per slot, side by side in slot order."""
+
+    n_rows: int                # nbr * bm
+    nnz: int
+    row_ptr: torch.Tensor      # (n_rows + 1,) int64
+    col: torch.Tensor          # (nnz,) int32 global column
+    val: torch.Tensor          # (nnz,) float64
+
+    @property
+    def tensors(self):
+        return self.row_ptr, self.val, self.col
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors)
+
+
+def _live_entries(bsr: BsrMatrix, spgemm: bool = False):
     """(row, col, val) of the nonzero entries of ``blocks * mask`` with row
-    < n_rows and column < n_cols (x is zero past n_cols in the reference),
-    sorted by (row, column) — stably, so entries of one position held by
-    several slots keep their slot order. Torch ops on the blocks' device,
-    over the live slots only, ``_LAYOUT_CHUNK`` block entries at a time."""
+    < n_rows and column < n_cols (x is zero past n_cols in the reference);
+    with ``spgemm``, of the unscaled blocks of the slots with mask > 0, all
+    rows and columns of each block (the reference's SpGEMM terms). Sorted
+    by (row, column) — stably, so entries of one position held by several
+    slots keep their slot order. Torch ops on the blocks' device, over the
+    live slots only, ``_LAYOUT_CHUNK`` block entries at a time."""
     bm, bn, bpr = bsr.bm, bsr.bn, bsr.blocks_per_row
     dev = bsr.blocks.device
     weight = bsr.mask.reshape(-1)
     block_col = bsr.col_ids.reshape(-1)
-    slots = torch.nonzero(weight).reshape(-1)
+    slots = torch.nonzero(weight > 0 if spgemm else weight).reshape(-1)
     step = max(1, _LAYOUT_CHUNK // max(bm * bn, 1))
     rows, cols, vals = [], [], []
     for s0 in range(0, slots.numel(), step):
         sl = slots[s0:s0 + step]
-        blk = bsr.blocks.index_select(0, sl).mul_(weight[sl].view(-1, 1, 1))
+        blk = bsr.blocks.index_select(0, sl)
+        if not spgemm:
+            blk.mul_(weight[sl].view(-1, 1, 1))
         k, i, j = torch.nonzero(blk, as_tuple=True)
         vals.append(blk[k, i, j])
         slot = sl[k]
@@ -227,9 +266,13 @@ def _live_entries(bsr: BsrMatrix):
         return empty, empty, torch.zeros(0, dtype=bsr.blocks.dtype,
                                          device=dev)
     row, col, val = torch.cat(rows), torch.cat(cols), torch.cat(vals)
-    keep = (row < bsr.n_rows) & (col < bsr.n_cols)
-    row, col, val = row[keep], col[keep], val[keep]
-    order = torch.sort(row * bsr.n_cols + col, stable=True).indices
+    if spgemm:
+        width = bsr.n_cols_pad
+    else:
+        keep = (row < bsr.n_rows) & (col < bsr.n_cols)
+        row, col, val = row[keep], col[keep], val[keep]
+        width = bsr.n_cols
+    order = torch.sort(row * width + col, stable=True).indices
     return row[order], col[order], val[order]
 
 
@@ -266,8 +309,34 @@ def _sell_layout(n_rows, n_cols, row, col, val) -> LiveLayout:
                       v, c)
 
 
+def _csr_layout(n_rows, row, col, val) -> RowLayout:
+    """CSR of the entries (row, col, val), sorted by (row, column)."""
+    row_ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=val.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(row, minlength=n_rows), 0)
+    return RowLayout(int(n_rows), int(row.numel()), row_ptr,
+                     col.to(torch.int32), val)
+
+
+# Each cached layout: the attribute it is kept under on the BsrMatrix, and
+# how it is built. SpGEMM gets its own: the reference multiplies the stored
+# blocks of every slot with mask > 0, unscaled, over their padded extent,
+# where SpMV / SpMM take blocks * mask cut to n_rows x n_cols. The two
+# agree on every matrix bsr_from_coo builds (0/1 mask, zeros in the
+# padding), not on one from bsr_from_arrays with a mask of 0.5, values
+# past n_rows / n_cols or in a mask-0 slot; so neither can stand in for
+# the other. The RowLayout holds no operand-specific cut: A's entries past
+# B's rows (block columns the plan drops) are skipped by the kernel, so
+# one RowLayout serves a matrix as A and as B, and A·A builds it once.
+_LAYOUTS = {
+    "_live_layout": lambda bsr: _sell_layout(bsr.n_rows, bsr.n_cols,
+                                             *_live_entries(bsr)),
+    "_spgemm_layout": lambda bsr: _csr_layout(bsr.n_rows_pad,
+                                              *_live_entries(bsr, True)),
+}
+
+
 def _layout_key(bsr: BsrMatrix):
-    """What the cached layout of ``bsr`` is valid for: the storage and the
+    """What a cached layout of ``bsr`` is valid for: the storage and the
     version counter of ``blocks``, ``mask`` and ``col_ids``; None when one
     of them is an inference tensor, which has no version counter."""
     parts = (bsr.blocks, bsr.mask, bsr.col_ids)
@@ -276,21 +345,22 @@ def _layout_key(bsr: BsrMatrix):
     return tuple((t.data_ptr(), t._version) for t in parts)
 
 
-def _layout_entry(bsr: BsrMatrix):
-    """The cache entry of ``bsr``'s ``LiveLayout``: built on the blocks'
-    device (on the current CUDA stream there) when the matrix has none or
-    its key changed, and kept on the matrix unless the key is None, when
-    it is built anew at each call. On CUDA the entry holds an event
-    recorded after the build and the streams that have waited on it."""
-    if bsr.n_rows >= 2 ** 31 or bsr.n_cols >= 2 ** 31:
-        raise ValueError("the live layout takes fewer than 2^31 rows and "
-                         "columns (int32 columns)")
+def _layout_entry(bsr: BsrMatrix, name: str = "_live_layout"):
+    """The cache entry of ``bsr``'s layout ``name`` (a key of _LAYOUTS):
+    built on the blocks' device (on the current CUDA stream there) when the
+    matrix has none or its key changed, and kept on the matrix unless the
+    key is None, when it is built anew at each call. On CUDA the entry
+    holds an event recorded after the build and the streams that have
+    waited on it."""
+    if bsr.n_rows_pad >= 2 ** 31 or -(-bsr.n_cols // bsr.bn) * bsr.bn \
+            >= 2 ** 31:
+        raise ValueError("the live layouts take fewer than 2^31 rows and "
+                         "columns, padded to whole blocks (int32 columns)")
     key = _layout_key(bsr)
-    entry = bsr.__dict__.get("_live_layout")
+    entry = bsr.__dict__.get(name)
     if key is not None and entry is not None and entry["key"] == key:
         return entry
-    entry = {"key": key, "layout": _sell_layout(
-        bsr.n_rows, bsr.n_cols, *_live_entries(bsr))}
+    entry = {"key": key, "layout": _LAYOUTS[name](bsr)}
     dev = bsr.blocks.device
     if dev.type == "cuda":
         stream = torch.cuda.current_stream(dev)
@@ -298,7 +368,7 @@ def _layout_entry(bsr: BsrMatrix):
         entry["ready"].record(stream)
         entry["streams"] = {stream.cuda_stream}
     if key is not None:
-        bsr.__dict__["_live_layout"] = entry
+        bsr.__dict__[name] = entry
     return entry
 
 
@@ -313,11 +383,15 @@ def _live_layout(bsr: BsrMatrix) -> LiveLayout:
     return _layout_entry(bsr)["layout"]
 
 
-def _check_kernel_bsr(name, bsr: BsrMatrix, *, stored=False):
+def _spgemm_layout(bsr: BsrMatrix) -> RowLayout:
+    """The ``RowLayout`` of ``bsr`` that SpGEMM reads, built and kept as
+    ``_live_layout``."""
+    return _layout_entry(bsr, "_spgemm_layout")["layout"]
+
+
+def _check_kernel_bsr(name, bsr: BsrMatrix):
     """What a BSR kernel takes: float64 blocks on a CUDA device, col ids
-    and mask on the same device. ``stored``: the kernel reads the stored
-    blocks themselves (SpGEMM), so it also wants a float64 mask, int32
-    col ids and contiguous arrays."""
+    and mask on the same device."""
     dev = bsr.blocks.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
@@ -327,29 +401,21 @@ def _check_kernel_bsr(name, bsr: BsrMatrix, *, stored=False):
                          f"{dev}")
     if bsr.blocks.dtype != torch.float64:
         raise TypeError(f"{name}: the kernel takes float64 blocks")
-    if not stored:
-        return
-    if bsr.mask.dtype != torch.float64 or bsr.col_ids.dtype != torch.int32:
-        raise TypeError(f"{name}: the kernel takes a float64 mask and int32 "
-                        f"col_ids")
-    if not all(t.is_contiguous() for t in parts):
-        raise ValueError(f"{name}: blocks, col_ids and mask must be "
-                         f"contiguous")
 
 
-def _kernel_layout(name, bsr: BsrMatrix) -> LiveLayout:
-    """The ``LiveLayout`` the SpMV / SpMM kernels read, ready for a launch
-    on the current CUDA stream: a stream other than the one that built it
-    waits, at its first launch, on the build's event and is recorded on
-    the layout's tensors, so the allocator keeps them until that stream's
-    work is done."""
+def _kernel_layout(name, bsr: BsrMatrix, layout: str = "_live_layout"):
+    """The layout ``layout`` of ``bsr`` that a kernel reads, ready for a
+    launch on the current CUDA stream: a stream other than the one that
+    built it waits, at its first launch, on the build's event and is
+    recorded on the layout's tensors, so the allocator keeps them until
+    that stream's work is done."""
     _check_kernel_bsr(name, bsr)
-    entry = _layout_entry(bsr)
+    entry = _layout_entry(bsr, layout)
     lay = entry["layout"]
     stream = torch.cuda.current_stream(bsr.blocks.device)
     if stream.cuda_stream not in entry["streams"]:
         stream.wait_event(entry["ready"])
-        for t in (lay.slice_off, lay.val, lay.col):
+        for t in lay.tensors:
             t.record_stream(stream)
         entry["streams"].add(stream.cuda_stream)
     return lay
@@ -461,9 +527,11 @@ def _c_ptr(c_idx, c_blocks):
 def spgemm_plan(a: BsrMatrix, b: BsrMatrix) -> SpgemmPlan:
     """Symbolic product pattern (host). Fully vectorized: ops are the
     expansion (A block, matching B block) via repeat/searchsorted; C
-    blocks come from np.unique of the (i, j) keys. Ops are sorted by
-    destination, and ``c_ptr`` gives each C block its op range, so the
-    numeric phase streams each C block's products in one CTA."""
+    blocks come from np.unique of the (i, j) keys, so ``c_block_ij`` is
+    sorted by (block row, block column) and a block row's C blocks are
+    contiguous in C. Ops are sorted by destination, and ``c_ptr`` gives
+    each C block its op range (the plain version's products; the kernel
+    reads the operands' live entries instead)."""
     if a.bn != b.bm:
         raise ValueError("inner block dims must agree")
     a_cols = a.col_ids.cpu().numpy()
@@ -500,49 +568,95 @@ def spgemm_plan(a: BsrMatrix, b: BsrMatrix) -> SpgemmPlan:
                       c_blocks=c_blocks, c_block_ij=cij)
 
 
+def _upload(a, dtype, device):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
 def _device_plan(plan: SpgemmPlan, device):
-    """The plan's index arrays on ``device`` (int32 for the kernel, the
-    destinations int64 for the plain version's ``index_add_``), uploaded
-    once per (plan, device) and kept on the plan, with the storage sizes
-    the indices need; checked here once."""
+    """What the kernel reads of the plan, on ``device``: the C block-row
+    pointer over ``c_block_ij[:, 0]`` (int64, ``nbr + 1``) and each C
+    block's block column (int32), with the number of C block rows and the
+    most C blocks of one. Uploaded once per (plan, device), kept on the
+    plan, checked here once: the C blocks sorted by (i, j) without repeats,
+    which makes each block row's C blocks one contiguous run of C."""
     cache = plan.__dict__.setdefault("_device_cache", {})
     key = str(torch.device(device))
     dp = cache.get(key)
     if dp is not None:
         return dp
+    cij = np.asarray(plan.c_block_ij, dtype=np.int64)
+    if cij.shape != (plan.c_blocks, 2) or int(cij.min()) < 0 \
+            or int(cij[:, 1].max()) >= 2 ** 31:
+        raise ValueError("spgemm: c_block_ij must be (c_blocks, 2) block "
+                         "coordinates in [0, 2^31)")
+    di, dj = np.diff(cij[:, 0]), np.diff(cij[:, 1])
+    if ((di < 0) | ((di == 0) & (dj <= 0))).any():
+        raise ValueError("spgemm: plan C blocks are not sorted by (i, j)")
+    nbr = int(cij[-1, 0]) + 1
+    row_ptr = np.searchsorted(cij[:, 0], np.arange(nbr + 1))
+    dp = cache[key] = {
+        "c_row_ptr": _upload(row_ptr, torch.int64, device),
+        "c_col": _upload(cij[:, 1], torch.int32, device),
+        "nbr": nbr,
+        "max_row_blocks": int(np.diff(row_ptr).max()),
+    }
+    return dp
+
+
+def _plan_ops(plan: SpgemmPlan, device):
+    """The plan's block products on ``device`` (int64 indices) with the
+    storage sizes they index, for the plain version only: checked (the
+    destinations sorted, ``c_ptr`` matching them) and uploaded at its
+    first call, and kept with ``_device_plan``'s arrays."""
+    dp = _device_plan(plan, device)
+    if "a_idx" in dp:
+        return dp
     n_ops = len(plan.a_idx)
-    if n_ops >= 2 ** 31:
-        raise ValueError("spgemm: more than 2^31 block products")
     c_idx = np.asarray(plan.c_idx)
     if n_ops and (int(c_idx.min()) < 0 or int(c_idx.max()) >= plan.c_blocks
                   or (np.diff(c_idx) < 0).any()):
         raise ValueError("spgemm: plan destinations are not sorted C blocks")
     if not np.array_equal(plan.c_ptr, _c_ptr(c_idx, plan.c_blocks)):
         raise ValueError("spgemm: plan c_ptr does not match c_idx")
-
-    def t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
-
-    dp = cache[key] = {
-        "a_idx": t(plan.a_idx, torch.int32),
-        "b_idx": t(plan.b_idx, torch.int32),
-        "c_ptr": t(plan.c_ptr, torch.int32),
-        "c_idx": t(c_idx, torch.int64),
-        "a_need": int(np.max(plan.a_idx)) + 1 if n_ops else 0,
-        "b_need": int(np.max(plan.b_idx)) + 1 if n_ops else 0,
-    }
+    dp["a_need"] = int(np.max(plan.a_idx)) + 1 if n_ops else 0
+    dp["b_need"] = int(np.max(plan.b_idx)) + 1 if n_ops else 0
+    for name in ("a_idx", "b_idx", "c_idx"):
+        dp[name] = _upload(getattr(plan, name), torch.int64, device)
     return dp
 
 
-def _spgemm_plain(dp, a: BsrMatrix, b: BsrMatrix, c_blocks):
+def _strip_chunks(bm, bn, max_blocks, budget=None):
+    """(rows, blocks) of the strip of C that one CTA of spgemm_blocks holds
+    in shared memory: as many whole C blocks of its block row as fit in
+    ``budget`` bytes (SPGEMM_STRIP_BYTES; at most ``max_blocks``, at least
+    one) with their int32 block columns; or, when one block does not fit,
+    runs of rows of one block. A budget below one row of a block is raised
+    to it."""
+    budget = SPGEMM_STRIP_BYTES if budget is None else budget
+    row = 8 * bn + 4
+    if row > _SMEM_MAX:
+        raise ValueError(f"spgemm: one row of a C block ({bn} doubles) "
+                         f"exceeds the card's shared memory")
+    budget = max(budget, row)
+    per_block = 8 * bm * bn + 4
+    if per_block <= budget:
+        return bm, max(1, min(max_blocks, budget // per_block))
+    return min(bm, (budget - 4) // (8 * bn)), 1
+
+
+def _spgemm_plain(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
     """Plain PyTorch version of ``spgemm`` (kernels.py:366-372 of the
     reference package): batched block products, scatter-added into C."""
-    A = a.blocks[dp["a_idx"].long()]
-    B = b.blocks[dp["b_idx"].long()]
-    C = torch.zeros((c_blocks, a.bm, b.bn), dtype=a.blocks.dtype,
+    ops = _plan_ops(plan, a.blocks.device)
+    if ops["a_need"] > a.blocks.shape[0] or ops["b_need"] > b.blocks.shape[0]:
+        raise ValueError("spgemm: the plan indexes past the A or B block "
+                         "storage (a plan of other matrices?)")
+    A = a.blocks[ops["a_idx"]]
+    B = b.blocks[ops["b_idx"]]
+    C = torch.zeros((plan.c_blocks, a.bm, b.bn), dtype=a.blocks.dtype,
                     device=a.blocks.device)
-    return C.index_add_(0, dp["c_idx"], torch.bmm(A, B))
+    return C.index_add_(0, ops["c_idx"], torch.bmm(A, B))
 
 
 def spgemm(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
@@ -552,34 +666,38 @@ def spgemm(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
     the block coordinates of each C block — a BSR-like block list.
 
     Replaces the reference package's ``_spgemm_pallas``. A CPU tensor takes
-    the plain version; a CUDA tensor launches ``csrc/spgemm_blocks.cu``
-    (one CTA per C block over its ``c_ptr`` range; bm * bn <= 1024) or
-    raises."""
+    the plain version; a CUDA tensor launches ``csrc/spgemm_blocks.cu`` or
+    raises: each block row of C is summed from the products of A's and B's
+    live entries (their ``RowLayout``s, built at the first call on each
+    matrix and kept as ``bsr_matvec``'s layout is) into a strip in shared
+    memory that is written to C once. Any bm; a row of a C block up to the
+    card's shared memory (bn <= 29,055)."""
     if a.bn != b.bm:
         raise ValueError("inner block dims must agree")
     dev = a.blocks.device
     if b.blocks.device != dev or a.blocks.dtype != b.blocks.dtype:
         raise ValueError("spgemm: A and B blocks must share device and dtype")
-    dp = _device_plan(plan, dev)
-    if (dp["a_need"] > a.blocks.shape[0]
-            or dp["b_need"] > b.blocks.shape[0]):
-        raise ValueError("spgemm: the plan indexes past the A or B block "
-                         "storage (a plan of other matrices?)")
+    if plan.n != a.n_rows or plan.b != a.bm:
+        raise ValueError("spgemm: the plan is of a matrix of other rows or "
+                         "blocks (a plan of other matrices?)")
     if dev.type == "cpu":
-        return _spgemm_plain(dp, a, b, plan.c_blocks), plan.c_block_ij
-    _check_kernel_bsr("spgemm", a, stored=True)
-    _check_kernel_bsr("spgemm", b, stored=True)
-    if a.bm * b.bn > 1024 or 8 * a.bn * (a.bm + b.bn) > 232448:
-        raise ValueError(f"spgemm: the kernel takes bm * bn <= 1024 and "
-                         f"blocks within shared memory (got {a.bm}x{a.bn} "
-                         f"@ {b.bm}x{b.bn})")
+        return _spgemm_plain(plan, a, b), plan.c_block_ij
+    dp = _device_plan(plan, dev)
+    if dp["nbr"] > a.nbr:
+        raise ValueError("spgemm: the plan has C block rows past A's (a "
+                         "plan of other matrices?)")
+    rows, blocks = _strip_chunks(a.bm, b.bn, dp["max_row_blocks"])
+    ra = _kernel_layout("spgemm", a, "_spgemm_layout")
+    rb = ra if b is a else _kernel_layout("spgemm", b, "_spgemm_layout")
     C = torch.empty((plan.c_blocks, a.bm, b.bn), dtype=a.blocks.dtype,
                     device=dev)
     fn = _cuda.library("spgemm_blocks").spgemm_blocks_f64
     _cuda.launch_check("spgemm", fn(
-        a.blocks.data_ptr(), b.blocks.data_ptr(), dp["a_idx"].data_ptr(),
-        dp["b_idx"].data_ptr(), dp["c_ptr"].data_ptr(), plan.c_blocks,
-        a.bm, a.bn, b.bn, C.data_ptr(), _cuda.stream_of(C)))
+        ra.row_ptr.data_ptr(), ra.col.data_ptr(), ra.val.data_ptr(),
+        rb.row_ptr.data_ptr(), rb.col.data_ptr(), rb.val.data_ptr(),
+        rb.n_rows, dp["c_row_ptr"].data_ptr(), dp["c_col"].data_ptr(),
+        dp["nbr"], a.bm, b.bn, rows, blocks, C.data_ptr(),
+        _cuda.stream_of(C)))
     spgemm.launches += 1
     return C, plan.c_block_ij
 

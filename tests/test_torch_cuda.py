@@ -257,9 +257,7 @@ def test_bsr_kernels_match_plain_versions(cuda, case):
         n0 = kernels.spgemm.launches
         C, cij = kernels.spgemm(plan, bsr, bsr)
         assert kernels.spgemm.launches == n0 + 1
-        dp = kernels._device_plan(plan, cuda)
-        _assert_kernel_close(C, kernels._spgemm_plain(dp, bsr, bsr,
-                                                      plan.c_blocks))
+        _assert_kernel_close(C, kernels._spgemm_plain(plan, bsr, bsr))
         # and against the CPU run of the same plan
         cpu = kernels.bsr_from_coo(coo, bm, bn, device="cpu")
         C_cpu, _ = kernels.spgemm(plan, cpu, cpu)
@@ -269,8 +267,10 @@ def test_bsr_kernels_match_plain_versions(cuda, case):
 def test_bsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     # the live-entry kernels take every block shape and width m that the
     # reference takes (64x64 and 8x7 blocks, bm * m > 1024 no longer
-    # refused); the wrappers still raise on a wrong x shape and on a matrix
-    # whose arrays lie partly on the CPU
+    # refused; SpGEMM 64x64 and 128x128 blocks, bm * bn > 1024 no longer
+    # refused); the wrappers still raise on a wrong x shape, on a matrix
+    # whose arrays lie partly on the CPU, and (SpGEMM) on C blocks whose
+    # one row exceeds the card's shared memory
     coo = ssamples.laplacian_2d(10)
     rng = np.random.default_rng(9)
     x = torch.as_tensor(rng.standard_normal(coo.ncol), device=cuda)
@@ -295,9 +295,15 @@ def test_bsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kernels.bsr_matvec(mixed, x)
     with pytest.raises(ValueError):
         kernels.bsr_matmat(mixed, X)
-    wide = kernels.bsr_from_coo(coo, 64, 64, device=cuda)
-    with pytest.raises(ValueError):     # spgemm: bm * bn > 1024
-        kernels.spgemm(kernels.spgemm_plan(wide, wide), wide, wide)
+    for b in (64, 128):     # 128: a block past the strip, cut into rows
+        wide = kernels.bsr_from_coo(coo, b, b, device=cuda)
+        plan = kernels.spgemm_plan(wide, wide)
+        _assert_kernel_close(kernels.spgemm(plan, wide, wide)[0],
+                             kernels._spgemm_plain(plan, wide, wide))
+    a16 = kernels.bsr_from_coo(coo, 16, 16, device=cuda)
+    b_wide = kernels.bsr_from_coo(coo, 16, 30000, device=cuda)
+    with pytest.raises(ValueError):     # one C block row of 30,000 doubles
+        kernels.spgemm(kernels.spgemm_plan(a16, b_wide), a16, b_wide)
 
 
 def _triplets_coo(nrow, ncol, ii, jj, vv):
@@ -440,3 +446,105 @@ def test_bsr_layout_serves_launches_on_other_streams(cuda):
     torch.cuda.synchronize()
     assert torch.equal(y3, 2.0 * y1)
     _assert_kernel_close(Y4, 2.0 * want_X)
+
+
+# SpGEMM over the operands' live entries: matrices from bsr_from_arrays
+# with a 0.5 mask, values past n_rows / n_cols and in a mask-0 slot,
+# duplicated block columns in A and in B, an empty block row, a plan with
+# no products and one that drops A's block columns past B's rows (the same
+# cases as tests/test_torch_spgemm_live.py, which also holds them against
+# the reference package)
+def _edge_a():
+    rng = np.random.default_rng(11)
+    return (10, 13, 4, 8, rng.standard_normal((3 * 3, 4, 8)),
+            np.array([[0, 1, 1], [1, 0, 0], [0, 1, 0]]),
+            np.array([[1.0, 0.5, 1.0], [1.0, 0.0, 0.0], [0.0, 0.0, 0.0]]))
+
+
+def _edge_b(live=True):
+    rng = np.random.default_rng(12)
+    mask = np.array([[1.0, 1.0], [1.0, 0.5]]) if live else np.zeros((2, 2))
+    return (13, 11, 8, 4, rng.standard_normal((2 * 2, 8, 4)),
+            np.array([[0, 2], [2, 2]]), mask)
+
+
+def _b_short():
+    rng = np.random.default_rng(13)
+    return (8, 11, 8, 4, rng.standard_normal((1 * 2, 8, 4)),
+            np.array([[0, 2]]), np.array([[1.0, 1.0]]))
+
+
+def _brusselator_coo(npoint):
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, npoint)
+    ii, jj = system.jac_structure
+    jv = system.jacobian(t0, torch.as_tensor(y0), None).numpy()
+    return CooMatrix.from_arrays(system.ndim, system.ndim, ii, jj, jv)
+
+
+SPGEMM_CASES = {
+    "brusselator9_16x16": lambda dev: 2 * (kernels.bsr_from_coo(
+        _brusselator_coo(9), 16, 16, device=dev),),
+    "lap10_8x8": lambda dev: 2 * (kernels.bsr_from_coo(
+        ssamples.laplacian_2d(10), 8, 8, device=dev),),
+    # 25 doubles a C block: runs of C that start off 16-byte alignment
+    "lap10_5x5": lambda dev: 2 * (kernels.bsr_from_coo(
+        ssamples.laplacian_2d(10), 5, 5, device=dev),),
+    "lap10_4x16_by_random_16x4": lambda dev: (
+        kernels.bsr_from_coo(ssamples.laplacian_2d(10), 4, 16, device=dev),
+        kernels.bsr_from_coo(_random_coo(100, 70, 400, 100, 14), 16, 4,
+                             device=dev)),
+    "edge_arrays": lambda dev: (kernels.bsr_from_arrays(*_edge_a(), dev),
+                                kernels.bsr_from_arrays(*_edge_b(), dev)),
+    "edge_no_products": lambda dev: (
+        kernels.bsr_from_arrays(*_edge_a(), dev),
+        kernels.bsr_from_arrays(*_edge_b(False), dev)),
+    "edge_a_past_b": lambda dev: (kernels.bsr_from_arrays(*_edge_a(), dev),
+                                  kernels.bsr_from_arrays(*_b_short(), dev)),
+}
+
+
+@pytest.mark.parametrize("case", list(SPGEMM_CASES))
+def test_spgemm_kernel_on_the_edge_cases(cuda, case, monkeypatch):
+    a, b = SPGEMM_CASES[case](cuda)
+    plan = kernels.spgemm_plan(a, b)
+    n0 = kernels.spgemm.launches
+    C, cij = kernels.spgemm(plan, a, b)
+    assert kernels.spgemm.launches == n0 + 1
+    assert np.array_equal(cij, plan.c_block_ij)
+    _assert_kernel_close(C, kernels._spgemm_plain(plan, a, b))
+    a_cpu, b_cpu = SPGEMM_CASES[case]("cpu")
+    _assert_kernel_close(C.cpu(), kernels.spgemm(plan, a_cpu, b_cpu)[0])
+    for _ in range(2):      # two more launches: the same bits
+        assert torch.equal(kernels.spgemm(plan, a, b)[0], C)
+    # strips cut into chunks of one block, and into runs of two rows of one
+    # block: the sum order of every entry is the same, so are the bits
+    for budget in (8 * a.bm * b.bn + 4, 2 * (8 * b.bn + 4)):
+        monkeypatch.setattr(kernels, "SPGEMM_STRIP_BYTES", budget)
+        assert torch.equal(kernels.spgemm(plan, a, b)[0], C)
+
+
+def test_spgemm_layout_on_other_streams_and_after_an_update(cuda):
+    # the RowLayout is built on one stream and read from another; an
+    # in-place update of the blocks rebuilds it (A·A: every product 4x)
+    a = kernels.bsr_from_coo(_brusselator_coo(17), 16, 16, device=cuda)
+    plan = kernels.spgemm_plan(a, a)
+    want = kernels._spgemm_plain(plan, a, a)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        C1 = kernels.spgemm(plan, a, a)[0]
+    with torch.cuda.stream(s2):
+        C2 = kernels.spgemm(plan, a, a)[0]
+    torch.cuda.synchronize()
+    _assert_kernel_close(C1, want)
+    assert torch.equal(C1, C2)
+    entry = a.__dict__["_spgemm_layout"]
+    assert entry["streams"] == {s1.cuda_stream, s2.cuda_stream}
+    assert "_live_layout" not in a.__dict__
+    with torch.cuda.stream(s2):
+        a.blocks.mul_(2.0)
+        C3 = kernels.spgemm(plan, a, a)[0]
+    torch.cuda.synchronize()
+    assert a.__dict__["_spgemm_layout"] is not entry
+    assert torch.equal(C3, 4.0 * C1)
