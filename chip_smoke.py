@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of russell_tpu_torch on one NVIDIA GPU.
 
-Drives the port's two paths and checks them. The main path is Radau5 on
-the 2-D Brusselator PDE through the SPLU solver, whose factorize rows run
-the CUDA kernels ``splu_pairs`` and ``gather_rows``. The BSR path is the
-sparse products of ``russell_tpu_torch.sparse`` — ``bsr_from_coo`` →
-``bsr_matvec`` / ``bsr_matmat`` and ``spgemm_plan`` → ``spgemm`` — whose
-CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
+Drives the port's paths and checks them. The main path is Radau5 on the
+2-D Brusselator PDE: with default Params (genie AUTO), which routes it to
+GRIDMF, whose pivot-block inverses run the CUDA kernel ``gj_inv``; and
+through the SPLU solver, whose factorize rows run ``splu_pairs``,
+``gather_rows`` and ``gj_inv``. The BSR path is the sparse products of
+``russell_tpu_torch.sparse`` — ``bsr_from_coo`` → ``bsr_matvec`` /
+``bsr_matmat`` and ``spgemm_plan`` → ``spgemm`` — whose CUDA kernels are
+``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``, in float64 and
+complex128.
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: all five kernels compiled from ``russell_tpu_torch/csrc``, one
+2. build: all six kernels compiled from ``russell_tpu_torch/csrc``, one
    nvcc per source, all at once, with ptxas' register and spill lines;
 3. warmup: factorize pairs back to back for WARM_S seconds, so that no
    timing below is the card's first work;
@@ -23,14 +26,33 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
    timings in both orders, one call at a time (``call_ms``) and back to
    back;
 5. the van der Pol oracle: all nine radau5.f counters, exactly;
-6. the npoint-16 Brusselator: the reference package's counters, exactly;
-7. the main path: npoint 129, tolerances 1e-4, t in [0, 1], cold and warm,
-   with each kernel's launch count from that run;
-8. layers: one factorize pair, one solve pair and the diagonal-block
+6. the npoint-16 Brusselator: the reference package's counters, exactly,
+   through SPLU (``brusselator_16``) and through GRIDMF (``gridmf_16``);
+7. the SPLU main path: npoint 129, tolerances 1e-4, t in [0, 1], cold and
+   warm, with each kernel's launch count from that run and its counters
+   held to 237/21/27/70/27/25/1;
+8. layers: one SPLU factorize pair, one solve pair and the diagonal-block
    inversion of one row, timed per call on the npoint-129 matrix;
-9. replay: one whole factorize pair under torch.profiler: each SPLU
-   kernel's summed device time beside the bound of the same work;
-10. bsr_kernels: each BSR kernel against its plain version on the card on
+9. gridmf_main_path: the same integration with default Params (AUTO →
+   GRIDMF), cold and three warm runs (median and spread), gj_inv's
+   launches counted from 0 in each run, counters held to the SPLU run's
+   (or, where they differ, y to rtol 1e-6 of its y);
+10. gridmf_layers: at npoint 129 and 513 one GRIDMF factorize pair and one
+   solve pair: walls, device time and device launches under the profiler,
+   GFLOP/s, peak memory, residuals max|A x - b| / max|b| <= 1e-10 of the
+   real and the complex system; then the leaf sweep (16, 32, 64 cells);
+11. gj_inv: the kernel against its plain version at every (w, m) of its
+   base calls in an npoint-129 SPLU pair and npoint-129 and 513 GRIDMF
+   pairs (513 also at leaf 16: up to 4,096 lanes), with zero pivots to
+   clamp (Dinv, exact n_perturbed and
+   min|pivot|, log|det| at rtol 1e-12); its time alone and with the
+   wrapper's reductions, L2 warm and cold, beside the bound, the plain
+   version's and torch.linalg.inv_ex's, summed over an npoint-129 GRIDMF
+   pair;
+12. replay: one whole SPLU factorize pair under torch.profiler: each SPLU
+   kernel's summed device time beside the bound of the same work, and
+   the pair's device launches;
+13. bsr_kernels: each BSR kernel against its plain version on the card on
    the npoint-129 Brusselator Jacobian (8x128 blocks for SpMV and SpMM at
    m = 16, 16x16 blocks for A·A): the kernel's, the plain version's and
    the library call's time with the L2 flushed before each call (``ms``:
@@ -48,14 +70,18 @@ CUDA kernels are ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``.
    output form (``spgemm_work``: the live entries once, C written once)
    beside the bound over stored blocks (``stored_bound_ms``); two more
    launches of each kernel must give the same bits;
-11. bsr_path: the BSR path through the public entry points on the
+14. bsr_path: the BSR path through the public entry points on the
    npoint-513 Brusselator Jacobian J(y0) (n 526,338), with launch counts
    and peak device memory; then each product held against its kernel's
    plain version on the same inputs (every entry) and against scipy on
-   the host, with the numbers of phase 10, nnz/s, GB/s and roofline share
+   the host, with the numbers of phase 13, nnz/s, GB/s and roofline share
    at these shapes. The kernels line reports the BSR kernels from this
    phase: measured numbers and the bound only (shares, the stored-block
-   bounds, the layouts and first calls stay in the phase's lines).
+   bounds, the layouts and first calls stay in the phase's lines);
+15. bsr_complex: the three BSR products on complex128 matrices (J(y0) +
+   0.3 i noise at npoint 129 and 513), each against its plain version and
+   scipy, launched twice more for bit identity, timed as in phase 13; the
+   kernels line carries the npoint-513 numbers under ``complex128``.
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -65,7 +91,8 @@ before the last is the kernels' JSON; the last is
 
 To compare the kernels of two trees on one card, unpack the other tree
 (``git archive``) into an ignored directory and run
-``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 9 and
+``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 12
+(with its device launches per factorize pair) and
 the npoint-513 ``bsr_matvec`` / ``bsr_matmat`` / ``spgemm`` times (back to
 back, and the first call on a new matrix and after an in-place update of
 its blocks, which builds the live layout) with DIR's package and with
@@ -81,6 +108,7 @@ npoint 513 for each strip budget of STRIP_SWEEP, which is how
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -136,6 +164,13 @@ def reset_launch_counts():
     from russell_tpu_torch.sparse import kernels, splu
     splu.reset_launch_counts()
     kernels.reset_launch_counts()
+
+
+def gj_inv_launches():
+    """The gj_inv wrapper's launch count (0 in a tree without it, which
+    --ab replays too)."""
+    from russell_tpu_torch.sparse import splu
+    return getattr(getattr(splu, "_gj_inv", None), "launches", 0)
 
 
 def assert_close(name, got, want):
@@ -228,21 +263,23 @@ def call_ms(fn, reps=REPS, warmup=3):
 def kernel_device_ms(fn):
     """Run ``fn`` once under torch.profiler (CUDA activity) and return
     ({kernel name: summed device ms} of every kernel it ran, the host wall
-    of the run in s)."""
+    of the run in s, the number of device events it ran: kernels, copies
+    and fills)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = {}
+    out, launches = {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
         if t > 0:
             out[e.key] = out.get(e.key, 0.0) + t / 1e3
-    return out, wall
+            launches += e.count
+    return out, wall, launches
 
 
 def summed(ms_by_name, pattern):
@@ -334,14 +371,18 @@ def warm_up(setup):
 
 def replay(setup):
     """After ``warm_up``, one factorize pair under torch.profiler: each SPLU
-    kernel's summed device time per factorize pair, all device time, and
-    the host wall of the profiled pair."""
+    kernel's summed device time per factorize pair (gj_inv's 0 in a tree
+    without it), all device time and device launches, and the host wall
+    of the profiled pair."""
     from russell_tpu_torch.sparse import factor
     warm, warm_wall = warm_up(setup)
-    ms, wall = kernel_device_ms(lambda: factor.numeric_factorize_pair(*setup))
+    ms, wall, launches = kernel_device_ms(
+        lambda: factor.numeric_factorize_pair(*setup))
     return {"splu_pairs_ms": summed(ms, "splu_pairs"),
             "gather_rows_ms": summed(ms, "gather_rows"),
+            "gj_inv_ms": summed(ms, "gj_inv"),
             "device_busy_ms": sum(ms.values()),
+            "device_launches": launches,
             "profiled_wall_s": wall, "warm_pairs": warm,
             "warm_wall_s": warm_wall,
             "package": os.path.dirname(russell_tpu_torch.__file__)}
@@ -631,7 +672,8 @@ def phase_main_path(plan_rows):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
         launches = {"splu_pairs": splu.splu_pairs.launches,
-                    "gather_rows": splu.gather_rows.launches}
+                    "gather_rows": splu.gather_rows.launches,
+                    "gj_inv": splu._gj_inv.launches}
         st = sol.stats()
         got = counters(st)
         runs[run] = {"wall_s": wall, "counters": got, "launches": launches,
@@ -647,11 +689,19 @@ def phase_main_path(plan_rows):
             raise AssertionError("main path: y is not finite of shape "
                                  f"({system.ndim},)")
         need = got["n_factor"] * plan_rows
-        for name, n in launches.items():
-            if n < need:
-                raise AssertionError(f"main path: {name} launched {n} "
-                                     f"times, fewer than n_factor x rows "
-                                     f"= {need}")
+        for name in ("splu_pairs", "gather_rows"):
+            if launches[name] < need:
+                raise AssertionError(f"main path: {name} launched "
+                                     f"{launches[name]} times, fewer than "
+                                     f"n_factor x rows = {need}")
+        if launches["gj_inv"] <= 0:
+            raise AssertionError("main path: gj_inv was not launched")
+        # the counters of PR 1-5's runs of this path
+        want = {"n_function": 237, "n_jacobian": 21, "n_factor": 27,
+                "n_lin_sol": 70, "n_steps": 27, "n_accepted": 25,
+                "n_rejected": 1}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"main path counters {got} != {want}")
     return sol, y, runs
 
 
@@ -693,6 +743,436 @@ def phase_layers(sol, y):
         inv_block_b64_ms=inv64_ms)
 
 
+def inv_block_bases(m, w, out):
+    """Append the (w, m) of each Gauss-Jordan base call that
+    ``splu._inv_block`` makes on a (w, m, m) batch (its 2x2 Schur
+    recursion down to m <= 32)."""
+    if m <= 32:
+        out.append((w, m))
+        return
+    h = m // 2
+    inv_block_bases(h, w, out)
+    inv_block_bases(m - h, w, out)
+
+
+def gridmf_base_calls(gplan):
+    """{(w, m): calls} of gj_inv in one GRIDMF factorize pair: per depth the
+    real plane's pivot blocks (e) and the complex one's K embedding (2e)."""
+    calls = []
+    for lv in gplan.levels:
+        inv_block_bases(lv.e, lv.n_nodes, calls)
+        inv_block_bases(2 * lv.e, lv.n_nodes, calls)
+    return collections.Counter(calls)
+
+
+def splu_base_calls(plan):
+    """{(w, m): calls} of gj_inv in one SPLU factorize pair: per row with
+    diagonal lanes, the real state's (nd, b) and the K state's (nd, 2b)."""
+    from russell_tpu_torch.sparse import splu
+    sp = plan.splu_plan
+    calls = []
+    for row in splu._device_plan(sp, torch.device("cuda"))["rows"]:
+        if row[2]:
+            inv_block_bases(sp.b, row[2], calls)
+            inv_block_bases(2 * sp.b, row[2], calls)
+    return collections.Counter(calls)
+
+
+def gj_inputs(w, m, seed):
+    """(w, m, m) f64 blocks on the card, diagonally dominant, with exact
+    zero pivots that the clamp must catch: lane 0 at step 0, and (w > 1)
+    lane w // 2 at the last step (its last row and column zero)."""
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((w, m, m)) + 2.0 * m * np.eye(m)
+    D[0, 0, 0] = 0.0
+    if w > 1:
+        D[w // 2, -1, :] = 0.0
+        D[w // 2, :, -1] = 0.0
+    return torch.as_tensor(D, device="cuda")
+
+
+def gj_work(w, m):
+    """(bytes, flops) of the batched clamped inverse: D read once, Dinv and
+    the two pivot records written once; ~4 m^3 flops a lane (the rank-1
+    updates of [D | I])."""
+    return 8 * w * m * m + 8 * w * (m * m + 2 * m), 4 * m ** 3 * w
+
+
+def gj_kernel_only(D, delta):
+    """A launch of gj_inv's C entry point on D alone, outputs allocated
+    once: the kernel's time without the wrapper's torch reductions of the
+    pivot records (which its plain version shares)."""
+    from russell_tpu_torch.sparse import _cuda
+    w, m = D.shape[0], D.shape[-1]
+    Dinv = torch.empty_like(D)
+    ap = torch.empty((w, m), dtype=D.dtype, device=D.device)
+    piv = torch.empty_like(ap)
+    fn = _cuda.library("gj_inv").gj_inv_f64
+
+    def launch():
+        _cuda.launch_check("gj_inv", fn(
+            D.data_ptr(), delta.data_ptr(), w, m, Dinv.data_ptr(),
+            ap.data_ptr(), piv.data_ptr(), _cuda.stream_of(D)))
+    return launch
+
+
+def check_gj_inv(w, m, seed, delta):
+    """gj_inv against its plain version at (w, m): Dinv, the pivot records'
+    statistics (n_perturbed and min|pivot| exactly, log|det| at rtol
+    1e-12). Returns (max |Dinv - plain|, bit identical, n_perturbed)."""
+    from russell_tpu_torch.sparse import splu
+    D = gj_inputs(w, m, seed)
+    got = splu._gj_inv(D, delta)
+    want = splu._gj_inv_plain(D, delta)
+    err = float((got[0] - want[0]).abs().max())
+    assert_close(f"gj_inv ({w}, {m}) Dinv", got[0], want[0])
+    assert_close(f"gj_inv ({w}, {m}) log|det|", got[1], want[1])
+    for name, g, p in (("min|pivot|", got[2], want[2]),
+                       ("n_perturbed", got[3], want[3]),
+                       ("phase", got[4], want[4])):
+        if not torch.equal(g, p):
+            raise AssertionError(f"gj_inv ({w}, {m}): {name} differs from "
+                                 "the plain version")
+    npert = int(got[3].sum())
+    if npert != (1 if w == 1 else 2) or float(got[2].min()) != 0.0:
+        raise AssertionError(f"gj_inv ({w}, {m}): the zero pivots were not "
+                             f"clamped ({npert} perturbed)")
+    return err, bool(torch.equal(got[0], want[0])), npert
+
+
+def phase_gj_inv(splu_plan, gplans):
+    """gj_inv against its plain version on the card at every (w, m) of its
+    base calls in one npoint-129 SPLU factorize pair and in one GRIDMF
+    factorize pair at npoint 129 and 513 (and 513 at leaf 16), with clamped
+    lanes; then, at the
+    npoint-129 GRIDMF pair's shapes, its device time (L2 warm and cold)
+    beside the bound, the wrapper's (the kernel and its torch reductions of
+    the pivot records), the plain version's (elimination and the same
+    reductions) and torch.linalg.inv_ex's (the unclamped inverse), each
+    summed over the pair's calls. Returns the kernels line's numbers."""
+    from russell_tpu_torch.sparse import splu
+    delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
+    shapes = {"splu_129": splu_base_calls(splu_plan)}
+    for key, gp in gplans.items():
+        shapes[f"gridmf_{key}"] = gridmf_base_calls(gp)
+    max_err, bits, checked = 0.0, True, set()
+    for name, calls in shapes.items():
+        for (w, m) in sorted(calls):
+            if (w, m) in checked:
+                continue
+            checked.add((w, m))
+            err, same, _ = check_gj_inv(w, m, w * 100 + m, delta)
+            max_err, bits = max(max_err, err), bits and same
+        say("gj_inv_shapes", plan=name, calls=sum(calls.values()),
+            shapes=[[w, m, c] for (w, m), c in sorted(calls.items())])
+    say("gj_inv_check", shapes=len(checked), max_abs_err=max_err,
+        bit_identical=bits)
+    # the npoint-129 GRIDMF pair's calls, each shape timed and weighted by
+    # its calls
+    tot = collections.Counter()
+    rows = []
+    for (w, m), c in sorted(shapes["gridmf_129"].items()):
+        D = gj_inputs(w, m, w + m)
+        kern = gj_kernel_only(D, delta)
+        t = {"ms": time_ms(kern), "cold_ms": cold_ms(kern),
+             "wrapper_ms": time_ms(lambda: splu._gj_inv(D, delta)),
+             "plain_ms": time_ms(lambda: splu._gj_inv_plain(D, delta),
+                                 reps=5),
+             "library_ms": time_ms(lambda: torch.linalg.inv_ex(D))}
+        b_ms, _ = bound(*gj_work(w, m))
+        rows.append([w, m, c, t["ms"], t["cold_ms"], t["wrapper_ms"],
+                     t["plain_ms"], t["library_ms"], b_ms])
+        for k, v in t.items():
+            tot[k] += c * v
+        tot["bound_ms"] += c * b_ms
+        nbytes, flops = gj_work(w, m)
+        tot["bytes"] += c * nbytes
+        tot["flops"] += c * flops
+    b_ms, b_by = bound(tot["bytes"], tot["flops"])
+    # one SPLU row's diagonal lanes: the real state (b) and, through
+    # _inv_block, the K state (2b)
+    nd = max(w for (w, m) in shapes["splu_129"])
+    D = gj_inputs(nd, 64, 7)
+    splu_row = {"lanes": nd,
+                "b32_ms": time_ms(lambda: splu._gj_inv(D[:, :32, :32], delta)),
+                "inv_block_2b64_ms": time_ms(lambda: splu._inv_block(D,
+                                                                     delta))}
+    res = {"max_abs_err": max_err, "ms": tot["ms"],
+           "ms_cold_l2": tot["cold_ms"], "wrapper_ms": tot["wrapper_ms"],
+           "plain_ms": tot["plain_ms"],
+           "library_ms": tot["library_ms"], "bound_ms": b_ms,
+           "bound_by": b_by}
+    say("gj_inv", per="npoint-129 GRIDMF factorize pair",
+        calls=sum(shapes["gridmf_129"].values()), bytes=tot["bytes"],
+        flops=tot["flops"], **res, share=b_ms / tot["ms"],
+        share_cold_l2=b_ms / tot["cold_ms"], bit_identical=bits,
+        rows_w_m_calls_ms_cold_wrapper_plain_library_bound=rows,
+        splu_row=splu_row)
+    torch.cuda.empty_cache()
+    return res
+
+
+def brusselator_system(npoint):
+    """The Brusselator at ``npoint``: (system, t0, y0, rows, cols) with
+    Radau5's K pattern (Jacobian entries, then the mass diagonal)."""
+    from russell_tpu_torch.ode import samples
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, npoint)
+    ii, jj = system.jac_structure
+    n = system.ndim
+    return (system, t0, y0, np.concatenate([ii, np.arange(n)]),
+            np.concatenate([jj, np.arange(n)]))
+
+
+def gridmf_setup(npoint, leaf=None):
+    """The GRIDMF plan that AUTO picks for the npoint Brusselator (or the
+    one at ``leaf`` cells a leaf), with the replay's real and complex
+    values on the card."""
+    from russell_tpu_torch.sparse import factor
+    from russell_tpu_torch.sparse.enums import Genie
+    system, t0, y0, rows, cols = brusselator_system(npoint)
+    n = system.ndim
+    leaves = factor.GRIDMF_LEAVES
+    try:
+        if leaf is not None:
+            factor.GRIDMF_LEAVES = (leaf,)
+        t_a = time.perf_counter()
+        plan = factor.analyze(n, rows, cols, grid=system.grid)
+        analyze_s = time.perf_counter() - t_a
+    finally:
+        factor.GRIDMF_LEAVES = leaves
+    if plan.genie != Genie.GRIDMF:
+        raise AssertionError(f"AUTO picked {plan.genie} at npoint {npoint}")
+    jv = system.jacobian(t0, torch.as_tensor(y0), None).numpy()
+    dev = torch.device("cuda")
+    vr = torch.as_tensor(np.concatenate([-jv, np.full(n, GAMMA)]),
+                         device=dev)
+    vc = torch.as_tensor(np.concatenate([-jv + 0j, np.full(n, ALPHA_BETA)]),
+                         device=dev)
+    return plan, vr, vc, analyze_s
+
+
+def gridmf_pair_flops(gplan):
+    """Flops of one GRIDMF factorize pair: the real plane's
+    (``gridmf_flops``) and the complex one's (the pivot inverse on the K
+    embedding, 2 (2e)^3; panel and Schur products as 3 real products
+    each)."""
+    from russell_tpu_torch.sparse import gridmf
+    cplx = sum(lv.n_nodes * (16 * lv.e ** 3 + 6 * lv.r * lv.e * lv.e
+                             + 6 * lv.r * lv.r * lv.e)
+               for lv in gplan.levels)
+    return gridmf.gridmf_flops(gplan), gridmf.gridmf_flops(gplan) + cplx
+
+
+def residual(plan, vals, x, b):
+    """max |A x - b| / max |b| with A the entries ``vals`` at the plan's
+    (rows, cols), on the card."""
+    rows = torch.as_tensor(plan.rows, device=x.device)
+    cols = torch.as_tensor(plan.cols, device=x.device)
+    ax = torch.zeros(plan.n, dtype=x.dtype, device=x.device).index_add_(
+        0, rows, vals * x[cols])
+    return float((ax - b).abs().max() / b.abs().max())
+
+
+def gridmf_pair_record(plan, vr, vc, pairs=3):
+    """One GRIDMF factorize pair and one solve pair on the card, after a
+    warm-up pair: wall (median of ``pairs``), device time and device
+    launches per pair under the profiler, gj_inv launches per pair, peak
+    memory, the residuals of both systems."""
+    from russell_tpu_torch.sparse import factor, gridmf
+    gp = plan.gridmf_plan
+    rng = np.random.default_rng(SEED)
+    n = plan.n
+    br = torch.as_tensor(rng.standard_normal(n), device=vr.device)
+    bc = torch.complex(br, torch.as_tensor(rng.standard_normal(n),
+                                           device=vr.device))
+
+    def fact():
+        return factor.numeric_factorize_pair(plan, vr, vc)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr, fc = fact()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(pairs):
+        del fr, fc
+        t0 = time.perf_counter()
+        fr, fc = fact()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    n0 = gj_inv_launches()
+    fact()
+    torch.cuda.synchronize()
+    gj_per_pair = gj_inv_launches() - n0
+    ms, prof_wall, launches = kernel_device_ms(fact)
+
+    def solve():
+        return factor.factor_solve_pair(plan, fr, fc, br, bc, refine_steps=0)
+
+    xr, xc = solve()
+    torch.cuda.synchronize()
+    s_walls = []
+    for _ in range(pairs):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        s_walls.append(time.perf_counter() - t0)
+    s_ms, _, s_launches = kernel_device_ms(solve)
+    res = {"real": residual(plan, vr, xr, br),
+           "complex": residual(plan, vc, xc, bc)}
+    for k, v in res.items():
+        if not v <= 1e-10:
+            raise AssertionError(f"GRIDMF {k} residual {v} > 1e-10")
+    real_flops, pair_flops = gridmf_pair_flops(gp)
+    dev_ms = sum(ms.values())
+    return {"leaf_e": gp.levels[-1].e, "depths": len(gp.levels),
+            "factorize_pair_wall_ms": [1e3 * w for w in walls],
+            "factorize_pair_wall_median_ms": 1e3 * statistics.median(walls),
+            "factorize_pair_device_ms": dev_ms,
+            "factorize_pair_device_busy_share": dev_ms / (1e3 * prof_wall),
+            "factorize_pair_device_launches": launches,
+            "gj_inv_launches_per_pair": gj_per_pair,
+            "gj_inv_device_ms": summed(ms, "gj_inv"),
+            "gemm_device_ms": sum(v for k, v in ms.items()
+                                  if "gemm" in k.lower()),
+            "top_kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])
+                                   [:6]),
+            "solve_pair_wall_median_ms": 1e3 * statistics.median(s_walls),
+            "solve_pair_device_ms": sum(s_ms.values()),
+            "solve_pair_device_launches": s_launches,
+            "real_plane_flops": real_flops, "pair_flops": pair_flops,
+            "pair_GFLOP_per_s_device": pair_flops / dev_ms / 1e6,
+            "pair_GFLOP_per_s_wall": pair_flops / statistics.median(walls)
+            / 1e9,
+            "store_GB_per_plane": gridmf.gridmf_store_gb(gp, 8),
+            "peak_mem_bytes": peak, "residual": res}
+
+
+def phase_gridmf_small():
+    """Radau5 through GRIDMF on the npoint-16 Brusselator: the reference
+    package's counters (its GRIDMF run equals its BANDED one there,
+    tests/test_ode.py:476)."""
+    from russell_tpu_torch.ode import Method, Params, samples
+    from russell_tpu_torch.sparse.enums import Genie
+    system, _, y0, _ = samples.brusselator_pde(ALPHA, 16)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie.GRIDMF
+    n0 = gj_inv_launches()
+    t0 = time.perf_counter()
+    sol, y = solve_radau5(system, y0, 1.0, params, "cuda")
+    wall = time.perf_counter() - t0
+    got = counters(sol.stats())
+    say("gridmf_16", wall_s=wall, counters=got,
+        gj_inv_launches=gj_inv_launches() - n0,
+        y_min=float(y.min()), y_max=float(y.max()))
+    want = {"n_accepted": 25, "n_rejected": 1, "n_factor": 26,
+            "n_lin_sol": 68, "n_jacobian": 22}
+    if sol.actual.plan.genie != Genie.GRIDMF or {
+            k: got[k] for k in want} != want or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"npoint-16 GRIDMF counters {got} != {want} "
+                             "(or y not finite, or not GRIDMF)")
+
+
+def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
+    """The reference's default path: Radau5 with default Params (genie
+    AUTO) on the npoint-129 Brusselator, which AUTO routes to GRIDMF;
+    tolerances 1e-4, t in [0, 1]. A cold run (host analysis included),
+    then ``warm_runs`` fresh solvers whose analysis is untimed; the
+    counters held to the SPLU run's (or, where they differ, y to rtol 1e-6
+    of its y), gj_inv's launches counted from 0 in each run."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+    from russell_tpu_torch.sparse.enums import Genie
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    dev = torch.device("cuda")
+    runs = []
+    for i in range(1 + warm_runs):
+        run = "cold" if i == 0 else "warm"
+        if run == "warm":
+            sol = OdeSolver(params, system, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_start = time.perf_counter()
+        if run == "cold":
+            sol = OdeSolver(params, system, dev)
+        y = sol.solve(y0, t0, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = gj_inv_launches()
+        st = sol.stats()
+        got = counters(st)
+        rec = {"run": run, "wall_s": wall, "counters": got,
+               "gj_inv_launches": launches,
+               "gj_inv_launches_per_factorization": launches / max(
+                   got["n_factor"], 1),
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "nanos_factor_max": st.nanos_factor_max,
+               "nanos_lin_sol_max": st.nanos_lin_sol_max}
+        runs.append(rec)
+        say("gridmf_main_path", npoint=NPOINT, ndim=system.ndim,
+            genie=str(sol.actual.plan.genie), **rec,
+            y_min=float(y.min()), y_max=float(y.max()))
+        if sol.actual.plan.genie != Genie.GRIDMF:
+            raise AssertionError("default Params did not route to GRIDMF")
+        if tuple(y.shape) != (system.ndim,) or not bool(
+                torch.isfinite(y).all()):
+            raise AssertionError("GRIDMF main path: y is not finite of "
+                                 f"shape ({system.ndim},)")
+        if launches <= 0:
+            raise AssertionError("GRIDMF main path: gj_inv was not launched")
+        y_err = float(((y - splu_y).abs() / splu_y.abs()).max())
+        if got != splu_counters:
+            say("gridmf_vs_splu_counters", gridmf=got, splu=splu_counters,
+                y_max_rel_err=y_err)
+            if not y_err <= 1e-6:
+                raise AssertionError(f"GRIDMF y differs from SPLU's by "
+                                     f"{y_err} (rtol 1e-6)")
+    warm = [r["wall_s"] for r in runs[1:]]
+    say("gridmf_main_path_summary", npoint=NPOINT, cold_wall_s=runs[0][
+        "wall_s"], warm_walls_s=warm, warm_median_s=statistics.median(warm),
+        warm_spread_s=max(warm) - min(warm), counters=runs[-1]["counters"],
+        splu_counters=splu_counters, counters_equal=runs[-1][
+            "counters"] == splu_counters,
+        y_max_rel_err_vs_splu=y_err, gj_inv_launches=runs[-1][
+            "gj_inv_launches"])
+    return runs
+
+
+def phase_gridmf_layers(leaves=(16, 32, 64)):
+    """At npoint 129 and 513: one GRIDMF factorize pair and one solve pair
+    (``gridmf_pair_record``) at the leaf AUTO picks, then the leaf sweep:
+    the same at each leaf of ``leaves``. Returns the GRIDMF plans AUTO
+    picked, by npoint, and the npoint-513 leaf-16 plan (its base calls
+    reach 4,096 lanes) as "513_leaf16"."""
+    plans = {}
+    for npoint in (NPOINT, NPOINT_BSR):
+        plan, vr, vc, analyze_s = gridmf_setup(npoint)
+        plans[npoint] = plan.gridmf_plan
+        rec = gridmf_pair_record(plan, vr, vc)
+        say("gridmf_layers", npoint=npoint, ndim=plan.n,
+            analyze_s=analyze_s, **rec)
+        del plan, vr, vc
+        torch.cuda.empty_cache()
+        for leaf in leaves:
+            plan, vr, vc, analyze_s = gridmf_setup(npoint, leaf)
+            if npoint == NPOINT_BSR and leaf == 16:
+                plans["513_leaf16"] = plan.gridmf_plan
+            rec = gridmf_pair_record(plan, vr, vc, pairs=2)
+            say("gridmf_leaf_sweep", npoint=npoint, leaf_cells=leaf,
+                analyze_s=analyze_s, **{k: rec[k] for k in (
+                    "leaf_e", "depths", "factorize_pair_wall_median_ms",
+                    "factorize_pair_device_ms", "solve_pair_wall_median_ms",
+                    "store_GB_per_plane", "peak_mem_bytes",
+                    "pair_GFLOP_per_s_device", "residual")})
+            del plan, vr, vc
+            torch.cuda.empty_cache()
+    return plans
+
+
 def brusselator_jacobian(npoint):
     """J(y0) of the Brusselator at ``npoint`` as a host COO: the matrix
     whose BSR products the reference's yardstick names (BASELINE.json,
@@ -722,15 +1202,22 @@ def torch_csr(a, dev):
         torch.as_tensor(a.data), a.shape, device=dev)
 
 
+def value_cost(t):
+    """(bytes, flops of a product-add) of one value of ``t``'s dtype: 8
+    and 2 for float64, 16 and 8 for complex128."""
+    return t.element_size(), 8 if t.is_complex() else 2
+
+
 def bsr_work(lay, m):
     """(bytes, flops) of the least work of Y = A X with X (n_cols, m), A
-    given by its live layout ``lay``: each live nonzero read once (8-byte
-    value, 4-byte column; pads not counted), the row structure the kernels
-    read (n_slices + 1 int64 slice offsets, 16x less than a CSR row
-    pointer), X read and Y written once; 2 flops per nonzero and column of
-    X."""
-    return (12 * lay.nnz + 8 * (lay.n_slices + 1)
-            + 8 * m * (lay.n_rows + lay.n_cols), 2 * lay.nnz * m)
+    given by its live layout ``lay``: each live nonzero read once (value,
+    4-byte column; pads not counted), the row structure the kernels read
+    (n_slices + 1 int64 slice offsets, 16x less than a CSR row pointer), X
+    read and Y written once; a product-add per nonzero and column of X (2
+    flops real, 8 complex)."""
+    vb, fl = value_cost(lay.val)
+    return ((vb + 4) * lay.nnz + 8 * (lay.n_slices + 1)
+            + vb * m * (lay.n_rows + lay.n_cols), fl * lay.nnz * m)
 
 
 def bsr_stored_work(bsr, m):
@@ -773,16 +1260,19 @@ def spgemm_products(a, b):
 
 def spgemm_work(plan, a, b):
     """(bytes, flops) of the least work of C = A B in the reference's output
-    form: the live entries of each distinct operand once (8-byte value,
-    4-byte column) with its row structure (int64 row pointer), the C block
-    columns (int32) and block-row pointer (int64), C written once (8 bm bn
-    bytes a C block); 2 flops per live scalar product."""
+    form: the live entries of each distinct operand once (value, 4-byte
+    column) with its row structure (int64 row pointer), the C block columns
+    (int32) and block-row pointer (int64), C written once (bm bn values a C
+    block); a product-add per live scalar product (2 flops real, 8
+    complex)."""
     from russell_tpu_torch.sparse import kernels
     lays = {id(m): kernels._spgemm_layout(m) for m in (a, b)}
     nbr = int(plan.c_block_ij[-1, 0]) + 1
-    return (sum(12 * lay.nnz + 8 * (lay.n_rows + 1) for lay in lays.values())
+    vb, fl = value_cost(a.blocks)
+    return (sum((vb + 4) * lay.nnz + 8 * (lay.n_rows + 1)
+                for lay in lays.values())
             + 4 * plan.c_blocks + 8 * (nbr + 1)
-            + 8 * a.bm * b.bn * plan.c_blocks, 2 * spgemm_products(a, b))
+            + vb * a.bm * b.bn * plan.c_blocks, fl * spgemm_products(a, b))
 
 
 def spgemm_stored_work(plan, a):
@@ -825,6 +1315,18 @@ def layout_record(lay, layout_s):
             "slices": lay.n_slices, "layout_bytes": lay.nbytes}
 
 
+def library_or_none(lib):
+    """``lib`` if one call of it runs on this card's PyTorch, else None
+    (a yardstick only: a complex sparse product may not be implemented)."""
+    try:
+        lib()
+        torch.cuda.synchronize()
+        return lib
+    except (RuntimeError, NotImplementedError) as exc:
+        say("library_unavailable", error=str(exc)[:300])
+        return None
+
+
 def bsr_timings(kern, plain, lib, work, ms_warm=None):
     """The numbers of a BSR product that the kernels line takes: ``ms``,
     ``plain_ms`` and ``library_ms`` with the L2 flushed before each call
@@ -838,8 +1340,10 @@ def bsr_timings(kern, plain, lib, work, ms_warm=None):
     plain_ms = cold_ms(plain)
     torch.cuda.empty_cache()
     b_ms, b_by = bound(*work)
+    lib = library_or_none(lib)
     return {"ms": ms, "ms_warm_l2": ms_warm, "plain_ms": plain_ms,
-            "library_ms": cold_ms(lib), "library_ms_warm_l2": time_ms(lib),
+            "library_ms": None if lib is None else cold_ms(lib),
+            "library_ms_warm_l2": None if lib is None else time_ms(lib),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1056,6 +1560,107 @@ def phase_bsr_path():
     return launches, results
 
 
+def complex_jacobian(npoint):
+    """J(y0) + i 0.3 noise (seeded) as a host COO: a complex128 matrix of
+    the Jacobian's pattern, as Radau5's (alpha + i beta) M - J is."""
+    from russell_tpu_torch.sparse import CooMatrix
+    coo = brusselator_jacobian(npoint)
+    ii, jj, vv = (np.asarray(v) for v in coo.triplets())
+    rng = np.random.default_rng(SEED + npoint)
+    return CooMatrix.from_arrays(coo.nrow, coo.ncol, ii, jj,
+                                 vv + 0.3j * rng.standard_normal(len(vv)))
+
+
+def phase_bsr_complex():
+    """The three BSR products on complex128 matrices (``complex_jacobian``
+    at npoint 129 and 513) through the public entry points: each held to
+    its plain version on the card (every entry) and to scipy on the host
+    (y and Y in full, 8 block rows of C), launched twice more for bit
+    identity, and timed L2-cold beside the bound and the library call
+    (``bsr_timings``). Returns the npoint-513 numbers for the kernels
+    line."""
+    from russell_tpu_torch.sparse import (bsr_from_coo, bsr_matmat,
+                                          bsr_matvec, kernels, spgemm,
+                                          spgemm_plan)
+    dev = torch.device("cuda")
+    out = {}
+    for npoint in (NPOINT, NPOINT_BSR):
+        coo = complex_jacobian(npoint)
+        a = scipy_csr(coo)
+        rng = np.random.default_rng(SEED)
+        x_h = rng.standard_normal(coo.ncol) + 1j * rng.standard_normal(
+            coo.ncol)
+        X_h = (rng.standard_normal((coo.ncol, SPMM_M))
+               + 1j * rng.standard_normal((coo.ncol, SPMM_M)))
+        x = torch.as_tensor(x_h, device=dev)
+        X = torch.as_tensor(X_h, device=dev)
+        reset_launch_counts()
+        bsr8 = bsr_from_coo(coo, 8, 128, dev)
+        y = bsr_matvec(bsr8, x)
+        Y = bsr_matmat(bsr8, X)
+        live = kernels._live_layout(bsr8)
+        if live.val.dtype != torch.complex128:
+            raise AssertionError("the live layout lost the complex values")
+        a_csr = torch_csr(a, dev)
+        results = {}
+        for name, got, kern, plain, lib, work, want_h in (
+                ("bsr_spmv", y, lambda: bsr_matvec(bsr8, x),
+                 lambda: kernels._bsr_matvec_plain(bsr8, x),
+                 lambda: a_csr @ x, bsr_work(live, 1), a @ x_h),
+                ("bsr_spmm", Y, lambda: bsr_matmat(bsr8, X),
+                 lambda: kernels._bsr_matmat_plain(bsr8, X),
+                 lambda: a_csr @ X, bsr_work(live, SPMM_M), a @ X_h)):
+            err, scale = assert_close(f"c128 {name} vs plain", got, plain())
+            torch.cuda.empty_cache()
+            err_s, _ = assert_close(f"c128 {name} vs scipy", got, want_h)
+            bit_identical(f"c128 {name}", kern, got)
+            results[name] = {"max_abs_err": err, "err_vs_scipy": err_s,
+                             "scale": scale,
+                             **bsr_timings(kern, plain, lib, work)}
+        del bsr8, y, Y, live
+        torch.cuda.empty_cache()
+        bsr16 = bsr_from_coo(coo, 16, 16, dev)
+        plan = spgemm_plan(bsr16, bsr16)
+        C, cij = spgemm(plan, bsr16, bsr16)
+        err, scale = assert_close("c128 spgemm vs plain", C,
+                                  kernels._spgemm_plain(plan, bsr16, bsr16))
+        torch.cuda.empty_cache()
+        bit_identical("c128 spgemm", lambda: spgemm(plan, bsr16, bsr16)[0],
+                      C)
+        a2 = (a @ a).tocsr()
+        b, n = bsr16.bm, coo.nrow
+        err_s = 0.0
+        for i in sorted({0, bsr16.nbr - 1, *rng.choice(
+                bsr16.nbr, 6, replace=False).tolist()}):
+            lo, hi = np.searchsorted(cij[:, 0], [i, i + 1])
+            r0, r1 = i * b, min((i + 1) * b, n)
+            got = np.zeros((b, -(-n // b) * b), np.complex128)
+            for q, blk in zip(cij[lo:hi, 1], C[lo:hi].cpu().numpy()):
+                got[:, q * b:(q + 1) * b] = blk
+            err_s = max(err_s, assert_close(
+                f"c128 spgemm block row {i} vs scipy", got[: r1 - r0, :n],
+                a2[r0:r1].toarray())[0])
+        del C
+        results["spgemm_blocks"] = {
+            "max_abs_err": err, "err_vs_scipy": err_s, "scale": scale,
+            **bsr_timings(lambda: spgemm(plan, bsr16, bsr16)[0],
+                          lambda: kernels._spgemm_plain(plan, bsr16, bsr16),
+                          lambda: torch.sparse.mm(a_csr, a_csr),
+                          spgemm_work(plan, bsr16, bsr16))}
+        launches = {"bsr_spmv": bsr_matvec.launches,
+                    "bsr_spmm": bsr_matmat.launches,
+                    "spgemm_blocks": spgemm.launches}
+        for name, t in results.items():
+            say("bsr_complex", name=name, npoint=npoint, n=coo.nrow,
+                nnz=a.nnz, dtype="complex128", rtol=RTOL, **t,
+                share=t["bound_ms"] / t["ms"], launches=launches[name],
+                bit_identical=True)
+        out[npoint] = results
+        del bsr16, plan, a_csr
+        torch.cuda.empty_cache()
+    return out[NPOINT_BSR]
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -1069,13 +1674,22 @@ def main():
     kres = phase_kernels(plan)
     phase_van_der_pol()
     phase_brusselator_small()
+    phase_gridmf_small()
     sol, y, runs = phase_main_path(plan_rows)
+    splu_y = y.clone()
     phase_layers(sol, y)
     del sol, y
     torch.cuda.empty_cache()
+    gruns = phase_gridmf_main_path(runs["warm"]["counters"], splu_y)
+    del splu_y
+    torch.cuda.empty_cache()
+    gplans = phase_gridmf_layers()
+    gres = phase_gj_inv(plan, gplans)
+    del gplans
     rep = phase_replay(plan)
     phase_bsr_kernels()
     bsr_launches, bres = phase_bsr_path()
+    cres = phase_bsr_complex()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -1085,7 +1699,9 @@ def main():
            "bsr_spmm": ("russell_tpu_torch/csrc/bsr_spmm.cu",
                         "russell_tpu/sparse/kernels.py:186"),
            "spgemm_blocks": ("russell_tpu_torch/csrc/spgemm_blocks.cu",
-                             "russell_tpu/sparse/kernels.py:306")}
+                             "russell_tpu/sparse/kernels.py:306"),
+           "gj_inv": ("russell_tpu_torch/csrc/gj_inv.cu",
+                      "russell_tpu/sparse/splu.py:476 (plain XLA)")}
     kernels = []
     b = plan.splu_plan.b
     for name, row in (("splu_pairs", "argmax_pairs"),
@@ -1111,7 +1727,17 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": bsr_launches[name],
-            **res, "shapes": f"npoint-{NPOINT_BSR} Brusselator Jacobian"})
+            **res, "shapes": f"npoint-{NPOINT_BSR} Brusselator Jacobian",
+            "complex128": {k: cres[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}})
+    kernels.append({
+        "name": "gj_inv", "route": "cuda", "source": src["gj_inv"][0],
+        "replaces": src["gj_inv"][1],
+        "launches": gruns[-1]["gj_inv_launches"], **gres,
+        "launches_splu_main_path": runs["warm"]["launches"]["gj_inv"],
+        "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
+                  "pair, summed"})
     say("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1205,8 +1831,9 @@ def main_ab(parent, rounds):
             raise AssertionError(f"{which} ran {rec['package']}")
         say("ab_replay", tree=which, **rec)
         runs[which].append(rec)
-    keys = ("splu_pairs_ms", "gather_rows_ms", "device_busy_ms",
-            "profiled_wall_s", "bsr_matvec_ms", "bsr_matmat_ms",
+    keys = ("splu_pairs_ms", "gather_rows_ms", "gj_inv_ms",
+            "device_busy_ms", "device_launches", "profiled_wall_s",
+            "bsr_matvec_ms", "bsr_matmat_ms",
             "bsr_first_matvec_s", "bsr_first_matmat_s",
             "bsr_updated_matvec_s", "spgemm_ms", "spgemm_first_s",
             "spgemm_updated_s")
@@ -1232,6 +1859,9 @@ def main_ab(parent, rounds):
         spgemm_break_even_calls=break_even("spgemm_ms", "spgemm_first_s"),
         spgemm_break_even_after_update=break_even("spgemm_ms",
                                                   "spgemm_updated_s"),
+        device_launches_ratio=c["device_launches"] / p["device_launches"],
+        device_busy_ratio=c["device_busy_ms"] / p["device_busy_ms"],
+        profiled_wall_ratio=c["profiled_wall_s"] / p["profiled_wall_s"],
         **{f"{k.rsplit('_', 1)[0]}_ratio": c[k] / p[k] for k in (
             "splu_pairs_ms", "gather_rows_ms", "bsr_matvec_ms",
             "bsr_matmat_ms", "bsr_first_matvec_s", "bsr_first_matmat_s",

@@ -1,5 +1,5 @@
-// Sparse matrix times dense matrix Y = A X, f64, over the matrix's live
-// entries.
+// Sparse matrix times dense matrix Y = A X, f64 or complex128, over the
+// matrix's live entries.
 //
 // Replaces: russell_tpu/sparse/kernels.py, _bsr_matmat_pallas (the Pallas
 // TPU kernel: the grid of _bsr_matvec_pallas with (BN, M) panels of X,
@@ -30,8 +30,13 @@
 // Four steps' loads go out before their FMAs; each Y entry sums its row's
 // entries in column order, fixed, and is written once, coalesced: no
 // atomics, deterministic output. Any M >= 1. Offsets are 64-bit.
+//
+// complex128 (value.cuh): the same kernel over 16-byte values, each
+// product written out with four FMAs into the accumulator.
 
 #include <cuda_runtime.h>
+
+#include "value.cuh"
 
 namespace {
 
@@ -39,13 +44,12 @@ constexpr int kSliceRows = 32;
 constexpr int kUnroll = 4;
 constexpr int kThreads = 256;
 
-template <int CPL>
+template <typename T, int CPL>
 __global__ void __launch_bounds__(kThreads)
-    sell_spmm_kernel(const double* __restrict__ val,
-                     const int* __restrict__ col,
+    sell_spmm_kernel(const T* __restrict__ val, const int* __restrict__ col,
                      const long long* __restrict__ slice_off,
-                     const double* __restrict__ X, int n_rows, int n_slices,
-                     int m, int log2g, double* __restrict__ Y) {
+                     const T* __restrict__ X, int n_rows, int n_slices, int m,
+                     int log2g, T* __restrict__ Y) {
   const int g = 1 << log2g;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long row = t >> log2g;     // in the ragged slice's padded rows
@@ -55,38 +59,38 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = (int)(row % kSliceRows);
   const long long off = slice_off[s];
   const long long width = (slice_off[s + 1] - off) / kSliceRows;
-  const double* v = val + off + lane;
+  const T* v = val + off + lane;
   const int* c = col + off + lane;
-  double acc[CPL];
+  T acc[CPL];
 #pragma unroll
-  for (int q = 0; q < CPL; ++q) acc[q] = 0.0;
+  for (int q = 0; q < CPL; ++q) acc[q] = vzero<T>();
   for (long long k = 0; k < width; k += kUnroll) {
-    double a[kUnroll], xv[kUnroll][CPL];
+    T a[kUnroll], xv[kUnroll][CPL];
     int j[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = k + u < width;
-      a[u] = live ? __ldg(v + (k + u) * kSliceRows) : 0.0;
+      a[u] = live ? vldg(v + (k + u) * kSliceRows) : vzero<T>();
       j[u] = live ? __ldg(c + (k + u) * kSliceRows) : 0;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const double* xr = X + (long long)j[u] * m;
+      const T* xr = X + (long long)j[u] * m;
 #pragma unroll
       for (int q = 0; q < CPL; ++q) {
         const int cc = c0 + q * g;
-        xv[u][q] = k + u < width && cc < m ? __ldg(xr + cc) : 0.0;
+        xv[u][q] = k + u < width && cc < m ? vldg(xr + cc) : vzero<T>();
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
       if (k + u < width) {
 #pragma unroll
-        for (int q = 0; q < CPL; ++q) acc[q] = fma(a[u], xv[u][q], acc[q]);
+        for (int q = 0; q < CPL; ++q) acc[q] = vfma(a[u], xv[u][q], acc[q]);
       }
   }
   if (row >= n_rows) return;
-  double* yr = Y + row * m;
+  T* yr = Y + row * m;
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
     const int cc = c0 + q * g;
@@ -94,30 +98,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int CPL>
-int launch(const double* val, const int* col, const long long* slice_off,
-           const double* X, int n_rows, int n_slices, int m, int log2g,
-           double* Y, cudaStream_t stream) {
+template <typename T, int CPL>
+int launch_cpl(const T* val, const int* col, const long long* slice_off,
+               const T* X, int n_rows, int n_slices, int m, int log2g, T* Y,
+               cudaStream_t stream) {
   const long long threads = ((long long)n_slices * kSliceRows) << log2g;
   const long long bx = (threads + kThreads - 1) / kThreads;
   const long long by = (m + (CPL << log2g) - 1) / (CPL << log2g);
   if (bx > 0x7fffffffLL || by > 65535) return (int)cudaErrorInvalidValue;
-  sell_spmm_kernel<CPL><<<dim3((unsigned)bx, (unsigned)by), kThreads, 0,
-                          stream>>>(val, col, slice_off, X, n_rows,
-                                    n_slices, m, log2g, Y);
+  sell_spmm_kernel<T, CPL><<<dim3((unsigned)bx, (unsigned)by), kThreads, 0,
+                             stream>>>(val, col, slice_off, X, n_rows,
+                                       n_slices, m, log2g, Y);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns `Y` (n_rows, m).
-// slice_off holds n_slices + 1 offsets; val and col slice_off[n_slices]
-// slots each.
-extern "C" int bsr_spmm_f64(const double* val, const int* col,
-                            const long long* slice_off, const double* X,
-                            int n_rows, int n_slices, int m, double* Y,
-                            void* stream) {
+template <typename T>
+int launch(const T* val, const int* col, const long long* slice_off,
+           const T* X, int n_rows, int n_slices, int m, T* Y, void* stream) {
   if (n_rows <= 0 || m <= 0) return (int)cudaGetLastError();
   if (n_slices != (n_rows + kSliceRows - 1) / kSliceRows)
     return (int)cudaErrorInvalidValue;
@@ -125,10 +122,31 @@ extern "C" int bsr_spmm_f64(const double* val, const int* col,
   while ((1 << log2g) < m && log2g < 5) ++log2g;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m <= 32)
-    return launch<1>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y,
-                     st);
+    return launch_cpl<T, 1>(val, col, slice_off, X, n_rows, n_slices, m,
+                            log2g, Y, st);
   if (m <= 64)
-    return launch<2>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y,
-                     st);
-  return launch<4>(val, col, slice_off, X, n_rows, n_slices, m, log2g, Y, st);
+    return launch_cpl<T, 2>(val, col, slice_off, X, n_rows, n_slices, m,
+                            log2g, Y, st);
+  return launch_cpl<T, 4>(val, col, slice_off, X, n_rows, n_slices, m, log2g,
+                          Y, st);
+}
+
+}  // namespace
+
+// Return a cudaError_t code (0 = launched). Launch on `stream`, do not
+// synchronise and allocate nothing: the caller owns `Y` (n_rows, m).
+// slice_off holds n_slices + 1 offsets; val and col slice_off[n_slices]
+// slots each.
+extern "C" int bsr_spmm_f64(const double* val, const int* col,
+                            const long long* slice_off, const double* X,
+                            int n_rows, int n_slices, int m, double* Y,
+                            void* stream) {
+  return launch(val, col, slice_off, X, n_rows, n_slices, m, Y, stream);
+}
+
+extern "C" int bsr_spmm_c128(const double2* val, const int* col,
+                             const long long* slice_off, const double2* X,
+                             int n_rows, int n_slices, int m, double2* Y,
+                             void* stream) {
+  return launch(val, col, slice_off, X, n_rows, n_slices, m, Y, stream);
 }

@@ -1,5 +1,5 @@
-// Numeric phase of the block SpGEMM C = A B, f64, over the operands' live
-// entries: a row-wise (Gustavson) product, each block row of C summed in
+// Numeric phase of the block SpGEMM C = A B, f64 or complex128, over the
+// operands' live entries: a row-wise (Gustavson) product, each block row of C summed in
 // shared memory and written once.
 //
 // Replaces: russell_tpu/sparse/kernels.py, _spgemm_pallas (the Pallas TPU
@@ -67,9 +67,17 @@
 // row's entries and skipping columns outside it; a block too large for the
 // budget is cut into runs of chunk_rows rows (one block a chunk). Either
 // way a chunk is one contiguous run of C. Offsets into C are 64-bit.
+//
+// complex128 (value.cuh): the same kernel over 16-byte values, each
+// product (ar br - ai bi, ar bi + ai br) with every product and sum
+// rounded apart; the strip holds half as many values in the same bytes,
+// and the registers are budgeted for two CTAs an SM, not three (a complex
+// Batch holds twice the registers).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "value.cuh"
 
 namespace {
 
@@ -126,17 +134,18 @@ __device__ __forceinline__ int strip_pos(const int* cols, int nb, int nr,
 // One pass of a warp: each lane with a product (pos >= 0) adds v to the
 // strip. Lanes of a group that share a column (a B row holding it twice)
 // add one after the other in lane order.
-__device__ __forceinline__ void add_pass(double* strip, int pos, int j,
-                                         double v, int lane) {
+template <typename T>
+__device__ __forceinline__ void add_pass(T* strip, int pos, int j, T v,
+                                         int lane) {
   const int prev = __shfl_up_sync(kFull, j, 1, kGroup);
   const bool dup = lane > 0 && j >= 0 && prev == j;
   if (__any_sync(kFull, dup)) {
     for (int l = 0; l < kGroup; ++l) {
-      if (lane == l && pos >= 0) strip[pos] = __dadd_rn(strip[pos], v);
+      if (lane == l && pos >= 0) strip[pos] = vadd_rn(strip[pos], v);
       __syncwarp();
     }
   } else if (pos >= 0) {
-    strip[pos] = __dadd_rn(strip[pos], v);
+    strip[pos] = vadd_rn(strip[pos], v);
   }
   __syncwarp();
 }
@@ -148,22 +157,24 @@ __device__ __forceinline__ void add_pass(double* strip, int pos, int j,
 // entry t in (jv[t], bv[t]) (column -1: none). The products are formed at
 // the adds, so that nothing waits on these loads before the strip is
 // ready.
+template <typename T>
 struct Batch {
   long long bs;
-  double av;
+  T av;
   int bl, ne;
   int jv[kGroup];
-  double bv[kGroup];
+  T bv[kGroup];
 };
 
+template <typename T>
 __device__ __forceinline__ void load_batch(
-    const int* __restrict__ a_col, const double* __restrict__ a_val,
+    const int* __restrict__ a_col, const T* __restrict__ a_val,
     const long long* __restrict__ b_ptr, const int* __restrict__ b_col,
-    const double* __restrict__ b_val, int b_rows, long long e0, long long hi,
-    int lane, Batch& x) {
+    const T* __restrict__ b_val, int b_rows, long long e0, long long hi,
+    int lane, Batch<T>& x) {
   x.ne = (int)max(0LL, min((long long)kGroup, hi - e0));
   x.bs = 0;
-  x.av = 0.0;
+  x.av = vzero<T>();
   x.bl = 0;
   if (lane < x.ne) {
     const int k = a_col[e0 + lane];
@@ -179,7 +190,7 @@ __device__ __forceinline__ void load_batch(
     const long long st = __shfl_sync(kFull, x.bs, t, kGroup);
     const bool live = lane < len;
     x.jv[t] = live ? __ldg(b_col + st + lane) : -1;
-    x.bv[t] = live ? __ldg(b_val + st + lane) : 0.0;
+    x.bv[t] = live ? vldg(b_val + st + lane) : vzero<T>();
   }
 }
 
@@ -187,25 +198,26 @@ __device__ __forceinline__ void load_batch(
 // order: the loaded first kGroup entries of its B row, then the rest of a
 // longer row, before the next A entry. Control flow is the same for the
 // whole warp (its groups walk rows of other lengths side by side).
+template <typename T>
 __device__ __forceinline__ void add_batch(const int* __restrict__ b_col,
-                                          const double* __restrict__ b_val,
-                                          const Batch& x, double* strip,
+                                          const T* __restrict__ b_val,
+                                          const Batch<T>& x, T* strip,
                                           const int* cols, int nb, int nr,
                                           int rr, int bn, int lane) {
 #pragma unroll
   for (int t = 0; t < kGroup; ++t) {
     if (!__any_sync(kFull, t < x.ne)) break;
-    const double a = __shfl_sync(kFull, x.av, t, kGroup);
+    const T a = vshfl(kFull, x.av, t, kGroup);
     add_pass(strip, strip_pos(cols, nb, nr, rr, bn, x.jv[t]), x.jv[t],
-             __dmul_rn(a, x.bv[t]), lane);
+             vmul_rn(a, x.bv[t]), lane);
     const int len = __shfl_sync(kFull, x.bl, t, kGroup);
     if (!__any_sync(kFull, len > kGroup)) continue;
     const long long st = __shfl_sync(kFull, x.bs, t, kGroup);
     for (int off = kGroup; __any_sync(kFull, off < len); off += kGroup) {
       const bool live = off + lane < len;
       const int j = live ? __ldg(b_col + st + off + lane) : -1;
-      const double v =
-          live ? __dmul_rn(a, __ldg(b_val + st + off + lane)) : 0.0;
+      const T v =
+          live ? vmul_rn(a, vldg(b_val + st + off + lane)) : vzero<T>();
       add_pass(strip, strip_pos(cols, nb, nr, rr, bn, j), j, v, lane);
     }
   }
@@ -246,18 +258,38 @@ __device__ __forceinline__ void store_run(double* __restrict__ dst,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+// The same for complex values: each is one 16-byte streaming store.
+__device__ __forceinline__ void store_run(double2* __restrict__ dst,
+                                          double2* src, int n, int stid) {
+  for (int e = stid; e < n; e += kSetThreads) {
+    const double2 v = src[e];
+    src[e] = make_double2(0.0, 0.0);
+    __stcs(dst + e, v);
+  }
+}
+
+// CTAs an SM the registers are budgeted for: three strips of 64 KB fit an
+// SM's shared memory; a complex Batch needs more registers than a third of
+// the SM's gives 256 threads
+template <typename T>
+constexpr int min_ctas() {
+  return sizeof(T) == sizeof(double) ? 3 : 2;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_ctas<T>())
     spgemm_rows_kernel(const long long* __restrict__ a_ptr,
                        const int* __restrict__ a_col,
-                       const double* __restrict__ a_val,
+                       const T* __restrict__ a_val,
                        const long long* __restrict__ b_ptr,
                        const int* __restrict__ b_col,
-                       const double* __restrict__ b_val, int b_rows,
+                       const T* __restrict__ b_val, int b_rows,
                        const long long* __restrict__ c_row_ptr,
                        const int* __restrict__ c_col, int n_block_rows,
                        int bm, int bn, int chunk_rows, int chunk_blocks,
-                       double* __restrict__ C) {
-  extern __shared__ __align__(16) double strip[];
+                       T* __restrict__ C) {
+  extern __shared__ __align__(16) double smem[];
+  T* strip = reinterpret_cast<T*>(smem);
   int* cols = reinterpret_cast<int*>(strip + (size_t)chunk_rows *
                                                  chunk_blocks * bn);
   const int tid = threadIdx.x;
@@ -271,11 +303,12 @@ __global__ void __launch_bounds__(kThreads, 3)
       (long long)kTurns, ((long long)n_block_rows - blockIdx.x + gridDim.x -
                           1) / (long long)gridDim.x);
   // the strip starts zero and every turn leaves it so (store_run)
-  const int n_strip = chunk_rows * chunk_blocks * bn;
-  double2* z = reinterpret_cast<double2*>(strip);
-  for (int e = tid; e < (n_strip >> 1); e += kThreads)
+  const int n_words =
+      chunk_rows * chunk_blocks * bn * (int)(sizeof(T) / sizeof(double));
+  double2* z = reinterpret_cast<double2*>(smem);
+  for (int e = tid; e < (n_words >> 1); e += kThreads)
     z[e] = make_double2(0.0, 0.0);
-  if (tid == 0 && (n_strip & 1)) strip[n_strip - 1] = 0.0;
+  if (tid == 0 && (n_words & 1)) smem[n_words - 1] = 0.0;
   __syncthreads();
   // set s takes turns s, s + kSets, ...; the strip is handed over between
   // turns
@@ -296,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 3)
           e0 = a_ptr[i * bm + r0 + grp];
           hi = a_ptr[i * bm + r0 + grp + 1];
         }
-        Batch x;
+        Batch<T> x;
         load_batch(a_col, a_val, b_ptr, b_col, b_val, b_rows, e0, hi, lane,
                    x);
         const int cv = stid < nb ? c_col[c0 + stid] : 0;
@@ -331,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         set_sync(set);
         // blocks c0 .. c0 + nb - 1 whole, or rows r0 .. r0 + nr - 1 of
         // block c0 alone: one run of C either way
-        double* dst = C + ((size_t)c0 * bm + r0) * bn;
+        T* dst = C + ((size_t)c0 * bm + r0) * bn;
         store_run(dst, strip, n, stid);
       }
     }
@@ -342,10 +375,34 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+template <typename T>
+int launch(const long long* a_ptr, const int* a_col, const T* a_val,
+           const long long* b_ptr, const int* b_col, const T* b_val,
+           int b_rows, const long long* c_row_ptr, const int* c_col,
+           int n_block_rows, int bm, int bn, int chunk_rows, int chunk_blocks,
+           T* C, void* stream) {
+  if (n_block_rows <= 0) return (int)cudaGetLastError();
+  if (bm <= 0 || bn <= 0 || chunk_rows <= 0 || chunk_rows > bm ||
+      chunk_blocks <= 0 || (chunk_rows < bm && chunk_blocks != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * (size_t)chunk_rows * chunk_blocks * bn +
+                      sizeof(int) * (size_t)chunk_blocks;
+  cudaError_t err = cudaFuncSetAttribute(
+      spgemm_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n_block_rows + kTurns - 1) / kTurns);
+  spgemm_rows_kernel<T><<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr, c_col,
+      n_block_rows, bm, bn, chunk_rows, chunk_blocks, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns `C` (c_blocks, bm,
+// Return a cudaError_t code (0 = launched). Launch on `stream`, do not
+// synchronise and allocate nothing: the caller owns `C` (c_blocks, bm,
 // bn). a_* and b_* are the operands' RowLayouts (row pointers of a.nbr * bm
 // + 1 and b_rows + 1 entries); c_row_ptr holds n_block_rows + 1 offsets
 // into c_col and C. A chunk is chunk_blocks whole blocks (chunk_rows = bm)
@@ -357,20 +414,20 @@ extern "C" int spgemm_blocks_f64(const long long* a_ptr, const int* a_col,
                                  const int* c_col, int n_block_rows, int bm,
                                  int bn, int chunk_rows, int chunk_blocks,
                                  double* C, void* stream) {
-  if (n_block_rows <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bn <= 0 || chunk_rows <= 0 || chunk_rows > bm ||
-      chunk_blocks <= 0 || (chunk_rows < bm && chunk_blocks != 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * (size_t)chunk_rows * chunk_blocks * bn +
-                      sizeof(int) * (size_t)chunk_blocks;
-  cudaError_t err = cudaFuncSetAttribute(
-      spgemm_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((n_block_rows + kTurns - 1) / kTurns);
-  spgemm_rows_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr, c_col,
-      n_block_rows, bm, bn, chunk_rows, chunk_blocks, C);
-  return (int)cudaGetLastError();
+  return launch(a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr,
+                c_col, n_block_rows, bm, bn, chunk_rows, chunk_blocks, C,
+                stream);
+}
+
+extern "C" int spgemm_blocks_c128(const long long* a_ptr, const int* a_col,
+                                  const double2* a_val,
+                                  const long long* b_ptr, const int* b_col,
+                                  const double2* b_val, int b_rows,
+                                  const long long* c_row_ptr,
+                                  const int* c_col, int n_block_rows, int bm,
+                                  int bn, int chunk_rows, int chunk_blocks,
+                                  double2* C, void* stream) {
+  return launch(a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr,
+                c_col, n_block_rows, bm, bn, chunk_rows, chunk_blocks, C,
+                stream);
 }

@@ -68,7 +68,8 @@ class Radau5:
         kw = {} if lsp is None else dict(
             ordering=lsp.ordering, scaling=lsp.scaling,
             pivot_epsilon=lsp.pivot_epsilon,
-            refine_steps=lsp.refinement_nstep)
+            refine_steps=lsp.refinement_nstep,
+            dense_threshold=lsp.dense_threshold)
         self.plan = _factor.analyze(ndim, ii, jj, genie=params.newton.genie,
                                     grid=system.grid, **kw)
 

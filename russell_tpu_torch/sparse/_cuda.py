@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``russell_tpu_torch/csrc/<name>.cu`` with a plain
-C entry point. At its first use it is compiled by ``nvcc`` for Hopper
+Each kernel is one source ``russell_tpu_torch/csrc/<name>.cu`` with plain
+C entry points. At its first use it is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/russell_tpu_torch/lib<name>.so`` at the
 repository root (an ignored directory) and loaded with ``ctypes``; it is
-rebuilt when the source is newer than the library. ``build_all`` starts
+rebuilt when the source or a header of ``csrc/`` is newer than the
+library. ``build_all`` starts
 one ``nvcc`` per source, all at once. Nothing here runs when the module is
 imported, so the CPU tests, which have no ``nvcc``, import it freely. The
 wrappers that launch the kernels live beside their plain PyTorch versions
-(``sparse/splu.py``, ``sparse/kernels.py``).
+(``sparse/splu.py``, ``sparse/kernels.py``). A kernel for several value
+types has one C entry point for each (``<name>_f64``, ``<name>_c128``).
 """
 
 from __future__ import annotations
@@ -33,23 +35,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point and argument types of each kernel library; every entry
-# point returns a cudaError_t code
+_SPMV = [_P, _P, _P, _P, _I, _I, _P, _P]
+_SPMM = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
+_SPGEMM = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+# C entry points of each kernel library and their argument types (one per
+# value type where the kernel has several); every entry point returns a
+# cudaError_t code
 _SIGNATURES = {
     # blocks, pair_l, pair_u, chunk, lane_off, tickets, n_chunks, n_live,
     # be, out, scratch, stream
-    "splu_pairs": ("splu_pairs_f64",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
-    "gather_rows": ("gather_rows_f64", [_P, _P, _I, _I, _P, _P]),
+    "splu_pairs": {"splu_pairs_f64":
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
+    "gather_rows": {"gather_rows_f64": [_P, _P, _I, _I, _P, _P]},
     # val, col, slice_off, x, n_rows, n_slices, y, stream
-    "bsr_spmv": ("bsr_spmv_f64", [_P, _P, _P, _P, _I, _I, _P, _P]),
+    "bsr_spmv": {"bsr_spmv_f64": _SPMV, "bsr_spmv_c128": _SPMV},
     # val, col, slice_off, X, n_rows, n_slices, m, Y, stream
-    "bsr_spmm": ("bsr_spmm_f64", [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "bsr_spmm": {"bsr_spmm_f64": _SPMM, "bsr_spmm_c128": _SPMM},
     # a_ptr, a_col, a_val, b_ptr, b_col, b_val, b_rows, c_row_ptr, c_col,
     # n_block_rows, bm, bn, chunk_rows, chunk_blocks, C, stream
-    "spgemm_blocks": ("spgemm_blocks_f64",
-                      [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                       _I, _P, _P]),
+    "spgemm_blocks": {"spgemm_blocks_f64": _SPGEMM,
+                      "spgemm_blocks_c128": _SPGEMM},
+    # D, delta, w, m, Dinv, ap, piv, stream
+    "gj_inv": {"gj_inv_f64": [_P, _P, _I, _I, _P, _P, _P, _P]},
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -76,11 +83,13 @@ def build_all(names=KERNELS) -> dict:
     up-to-date library, one ``nvcc`` per source, all started together;
     returns {name: library path}. Raises with nvcc's output on failure."""
     out, jobs = {}, {}
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
     for name in names:
         src, so = _paths(name)
         out[name] = so
-        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
-                src):
+        newest = max(os.path.getmtime(f) for f in [src, *headers])
+        if os.path.exists(so) and os.path.getmtime(so) >= newest:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -122,10 +131,10 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -1,4 +1,4 @@
-"""Native direct factorization: the SPLU path, in PyTorch.
+"""Native direct factorization: the SPLU and GRIDMF paths, in PyTorch.
 
 Counterpart of ``russell_tpu.sparse.factor`` (reference role: the
 symbolic analysis + numeric LU + solves of russell_sparse's MUMPS /
@@ -7,13 +7,16 @@ UMFPACK / cuDSS backends). The split is the same:
 - **analysis** (host, numpy): compute the ordering and freeze every index
   set the numeric phase needs (MUMPS JOB_ANALYZE).
 - **numeric factorize / solve** (device): max-norm equilibration, the
-  SPLU block factorization and packed substitution, and fixed-count
-  iterative refinement against the scaled matrix.
+  SPLU block factorization and packed substitution or the GRIDMF
+  multifrontal factorization and its sweeps, and fixed-count iterative
+  refinement against the scaled matrix.
 
-Only ``Genie.SPLU`` is ported so far; every other genie (AUTO included,
-with or without a grid hint) raises ``NotImplementedError`` rather than
-route anywhere else. Factors are full f64/complex128: the H100 has f64,
-so the reference package's mixed-precision regime is not carried over.
+``Genie.SPLU`` and ``Genie.GRIDMF`` are ported. ``Genie.AUTO`` routes as
+the reference does where that leads to GRIDMF (a ``grid`` hint, n >
+``dense_threshold`` and a cell-local pattern); every other AUTO case, and
+GENMF, DENSE and BANDED, raise ``NotImplementedError`` rather than route
+anywhere else. Factors are full f64/complex128: the H100 has f64, so the
+reference package's mixed-precision regime is not carried over.
 """
 
 from __future__ import annotations
@@ -25,10 +28,22 @@ import numpy as np
 import torch
 
 from russell_tpu_torch.sparse.enums import Genie, Ordering, Scaling
+from russell_tpu_torch.sparse import gridmf as _gridmf
 from russell_tpu_torch.sparse import splu as _splu
 
 __all__ = ["SolvePlan", "analyze", "numeric_factorize",
            "numeric_factorize_pair", "factor_solve", "factor_solve_pair"]
+
+# Device memory (GiB) that the three f64 value planes of GRIDMF factors of
+# Radau5's real and complex pair may take; it picks the leaf, the
+# reference's candidates (64, then 16 cells) tried in turn. The factorize
+# pair's peak is several times its factors: the complex pivot blocks are
+# inverted as their K embedding, at twice the width, with the Schur
+# recursion's temporaries (on an H100, npoint-513 Brusselator, leaf 64:
+# 10.9 GiB of factors, a 53.6 GiB peak). 15 GiB keeps that ratio's peak
+# within the card's 80 GB.
+GRIDMF_BUDGET_GB = 15.0
+GRIDMF_LEAVES = (64, 16)
 
 
 @dataclass
@@ -41,6 +56,7 @@ class SolvePlan:
     rows: np.ndarray
     cols: np.ndarray
     splu_plan: Optional["_splu.SpluPlan"] = None
+    gridmf_plan: Optional["_gridmf.GridMfPlan"] = None
     scaling: Scaling = Scaling.MAX
     pivot_epsilon: float = 1e-14
     refine_steps: int = 2
@@ -56,25 +72,50 @@ def analyze(
     scaling: Scaling = Scaling.AUTO,
     pivot_epsilon: float = 1e-14,
     refine_steps: int = 2,
+    dense_threshold: int = 1200,
     mixed_precision: Optional[bool] = None,
     grid: Optional[tuple] = None,
 ) -> SolvePlan:
-    """Symbolic phase: freeze the numeric phase's indices.
+    """Symbolic phase: choose a path and freeze the numeric phase's
+    indices.
 
     ``rows``/``cols`` must describe the FULL pattern (triangular symmetric
-    storage expanded by the caller). ``grid`` is the structure hint of the
-    GRIDMF path; SPLU does not read it. ``mixed_precision=True`` (f32
-    factors) is not ported."""
-    if genie != Genie.SPLU:
-        raise NotImplementedError(
-            f"genie {genie} is not ported yet: the port has Genie.SPLU "
-            "only; GRIDMF, GENMF, DENSE and BANDED are later slices "
-            "(ROADMAP.md)")
+    storage expanded by the caller). ``grid = (*dims, s)`` — 2-D ``(nr,
+    nc, s)`` or 3-D ``(n0, n1, n2, s)`` — is a structure hint (species-major
+    layout var = k*prod(dims) + row_major_cell) that unlocks the GRIDMF
+    path for cell-local stencil patterns: ``Genie.GRIDMF``, or
+    ``Genie.AUTO`` with n > ``dense_threshold``. ``mixed_precision=True``
+    (f32 factors) is not ported."""
     if mixed_precision:
         raise NotImplementedError("mixed-precision factors are not ported: "
                                   "the port factorizes in f64 (ROADMAP.md)")
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
+    if grid is not None and (genie == Genie.GRIDMF or
+                             (genie == Genie.AUTO and n > dense_threshold)):
+        try:
+            gplan = _gridmf_plan(n, rows, cols, grid, pivot_epsilon)
+        except ValueError:
+            if genie == Genie.GRIDMF:
+                raise
+            gplan = None  # not cell-local: fall through to the AUTO branch
+        if gplan is not None:
+            return SolvePlan(Genie.GRIDMF, n, rows, cols, gridmf_plan=gplan,
+                             scaling=Scaling.MAX if scaling == Scaling.AUTO
+                             else scaling,
+                             pivot_epsilon=pivot_epsilon,
+                             refine_steps=max(refine_steps, 2),
+                             effective_ordering="nd-grid")
+    if genie == Genie.GRIDMF:
+        raise ValueError("Genie.GRIDMF needs a grid=(nr, nc, s) hint "
+                         f"covering n={n}")
+    if genie != Genie.SPLU:
+        raise NotImplementedError(
+            f"genie {genie} is not ported yet for this system (n={n}, "
+            f"grid={grid}): the port has Genie.SPLU, and Genie.GRIDMF for "
+            "grid-hinted cell-local systems (AUTO takes it above "
+            "dense_threshold); the DENSE, BANDED and GENMF routes of AUTO "
+            "are later slices (ROADMAP.md)")
     # METIS is nested dissection in the reference (enums.rs:71-158);
     # "nd" plays the same role AND unlocks the level-batched numeric
     # phase. AUTO tries both symbolics (cheap, host-only) and keeps the
@@ -109,6 +150,30 @@ def analyze(
                      pivot_epsilon=pivot_epsilon,
                      refine_steps=max(refine_steps, 2),
                      effective_ordering=eff_ord)
+
+
+def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
+    """The GRIDMF plan at the first leaf size of GRIDMF_LEAVES whose three
+    f64 value planes of factors fit GRIDMF_BUDGET_GB (the last one when
+    none does but its real plane fits). Raises ValueError for a pattern
+    that is not cell-local, and NotImplementedError when even the real
+    plane of the smallest leaf's factors exceeds the budget: the
+    reference streams those factors to host memory, which is a later
+    slice (ROADMAP.md queue 1, item 12)."""
+    for leaf in GRIDMF_LEAVES:
+        gplan = _gridmf.gridmf_analyze(n, rows, cols, grid,
+                                       leaf_cells=leaf,
+                                       pivot_epsilon=pivot_epsilon)
+        store_gb = _gridmf.gridmf_store_gb(gplan)
+        if 3.0 * store_gb <= GRIDMF_BUDGET_GB:
+            return gplan
+    if store_gb > GRIDMF_BUDGET_GB:
+        raise NotImplementedError(
+            f"GRIDMF factors of {store_gb:.1f} GiB a value plane exceed the "
+            f"{GRIDMF_BUDGET_GB} GiB device budget; the out-of-core path "
+            "that streams them to host memory is not ported yet "
+            "(ROADMAP.md queue 1, item 12)")
+    return gplan
 
 
 def _device_indices(plan: SolvePlan, device):
@@ -161,7 +226,7 @@ def _equilibrate(plan: SolvePlan, data):
 
 
 def _check_plan(plan: SolvePlan):
-    if plan.genie != Genie.SPLU:
+    if plan.genie not in (Genie.SPLU, Genie.GRIDMF):
         raise NotImplementedError(f"genie {plan.genie} is not ported yet "
                                   "(ROADMAP.md)")
 
@@ -172,7 +237,10 @@ def numeric_factorize(plan: SolvePlan, data):
     (plan.rows, plan.cols)."""
     _check_plan(plan)
     data, rs, cs = _equilibrate(plan, data)
-    fac = _splu.splu_factorize(plan.splu_plan, data)
+    if plan.genie == Genie.GRIDMF:
+        fac = _gridmf.gridmf_factorize(plan.gridmf_plan, data)
+    else:
+        fac = _splu.splu_factorize(plan.splu_plan, data)
     fac["rs"] = rs
     fac["cs"] = cs
     fac["data"] = data  # scaled entries (kept for refinement)
@@ -181,10 +249,14 @@ def numeric_factorize(plan: SolvePlan, data):
 
 def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
     """Factorize TWO matrices with the same structure (Radau5's real and
-    complex Newton matrices) in ONE pass over the packed schedule
-    (splu_factorize_multi) — the analog of the reference's concurrent
-    real/complex factorization (radau5.rs, P5)."""
+    complex Newton matrices). For SPLU both run in ONE pass over the
+    packed schedule (splu_factorize_multi) — the analog of the reference's
+    concurrent real/complex factorization (radau5.rs, P5); GRIDMF factors
+    them one after the other, as the reference package does."""
     _check_plan(plan)
+    if plan.genie != Genie.SPLU:
+        return (numeric_factorize(plan, data_r),
+                numeric_factorize(plan, data_c))
     dr, rs_r, cs_r = _equilibrate(plan, data_r)
     dc, rs_c, cs_c = _equilibrate(plan, data_c)
     fr, fc = _splu.splu_factorize_multi(plan.splu_plan, (dr, dc))
@@ -206,7 +278,10 @@ def _residual(plan: SolvePlan, fac, x, b):
 def _solve_once(plan: SolvePlan, fac, b):
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
-    x = _splu.splu_solve(plan.splu_plan, fac, y)
+    if plan.genie == Genie.GRIDMF:
+        x = _gridmf.gridmf_solve(plan.gridmf_plan, fac, y)
+    else:
+        x = _splu.splu_solve(plan.splu_plan, fac, y)
     return fac["cs"].to(out_dtype) * x.to(out_dtype)
 
 
@@ -225,11 +300,15 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
 
 def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
                       refine_steps=None):
-    """Solve the real and complex systems TOGETHER (one packed-substitution
-    pass per refinement round covers both)."""
+    """Solve the real and complex systems TOGETHER (for SPLU one
+    packed-substitution pass per refinement round covers both; GRIDMF
+    solves them one after the other, as the reference package does)."""
     _check_plan(plan)
     if refine_steps is None:
         refine_steps = plan.refine_steps
+    if plan.genie != Genie.SPLU:
+        return (factor_solve(plan, fac_r, b_r, refine_steps),
+                factor_solve(plan, fac_c, b_c, refine_steps))
     facs = (fac_r, fac_c)
     bs = (b_r, b_c)
 

@@ -13,7 +13,10 @@ version beside it (the reference's einsum / scatter-add paths). A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no switch and no fallback. Each wrapper counts its
 launches (``bsr_matvec.launches``, ``bsr_matmat.launches``,
-``spgemm.launches``; ``reset_launch_counts``).
+``spgemm.launches``; ``reset_launch_counts``). The kernels take float64
+and complex128 (``KERNEL_DTYPES``, one C entry point each); float32 is
+refused on the card: the port computes in f64 throughout, and the
+reference's float32 exists for the TPU.
 
 No kernel walks the blocks: a banded matrix in 8x128 (or 16x16) blocks
 stores about 99 % zeros. SpMV and SpMM read a ``LiveLayout`` of the
@@ -47,6 +50,8 @@ _LAYOUT_CHUNK = 1 << 26
 # 29 16x16 C blocks of a Brusselator block row, three CTAs an SM
 SPGEMM_STRIP_BYTES = 64 << 10
 _SMEM_MAX = 232448      # shared memory one CTA can have on an H100
+# the value types of the BSR kernels, each with its C entry point's suffix
+KERNEL_DTYPES = {torch.float64: "f64", torch.complex128: "c128"}
 
 
 @dataclass(frozen=True)
@@ -189,7 +194,7 @@ class LiveLayout:
     n_cols: int
     nnz: int                   # live entries, the same in any layout
     slice_off: torch.Tensor    # (n_slices + 1,) int64
-    val: torch.Tensor          # (slice_off[-1],) float64
+    val: torch.Tensor          # (slice_off[-1],) the blocks' dtype
     col: torch.Tensor          # (slice_off[-1],) int32 global column
 
     @property
@@ -225,7 +230,7 @@ class RowLayout:
     nnz: int
     row_ptr: torch.Tensor      # (n_rows + 1,) int64
     col: torch.Tensor          # (nnz,) int32 global column
-    val: torch.Tensor          # (nnz,) float64
+    val: torch.Tensor          # (nnz,) the blocks' dtype
 
     @property
     def tensors(self):
@@ -248,7 +253,11 @@ def _live_entries(bsr: BsrMatrix, spgemm: bool = False):
     dev = bsr.blocks.device
     weight = bsr.mask.reshape(-1)
     block_col = bsr.col_ids.reshape(-1)
-    slots = torch.nonzero(weight > 0 if spgemm else weight).reshape(-1)
+    # a complex matrix's mask is complex (bsr_from_coo keeps the COO's
+    # dtype); SpGEMM's "mask > 0" reads its real part, as numpy orders
+    # complex values in the plan
+    live = (weight.real if weight.is_complex() else weight) > 0
+    slots = torch.nonzero(live if spgemm else weight).reshape(-1)
     step = max(1, _LAYOUT_CHUNK // max(bm * bn, 1))
     rows, cols, vals = [], [], []
     for s0 in range(0, slots.numel(), step):
@@ -390,8 +399,9 @@ def _spgemm_layout(bsr: BsrMatrix) -> RowLayout:
 
 
 def _check_kernel_bsr(name, bsr: BsrMatrix):
-    """What a BSR kernel takes: float64 blocks on a CUDA device, col ids
-    and mask on the same device."""
+    """What a BSR kernel takes: float64 or complex128 blocks on a CUDA
+    device, col ids and mask on the same device. Returns the suffix of the
+    kernel's C entry point for the blocks' dtype."""
     dev = bsr.blocks.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
@@ -399,17 +409,21 @@ def _check_kernel_bsr(name, bsr: BsrMatrix):
     if any(t.device != dev for t in parts):
         raise ValueError(f"{name}: blocks, col_ids and mask must lie on "
                          f"{dev}")
-    if bsr.blocks.dtype != torch.float64:
-        raise TypeError(f"{name}: the kernel takes float64 blocks")
+    suffix = KERNEL_DTYPES.get(bsr.blocks.dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: the kernel takes float64 or complex128 "
+                        f"blocks, got {bsr.blocks.dtype}: float32 and the "
+                        "other types are refused as intended (the port "
+                        "computes in f64)")
+    return suffix
 
 
-def _kernel_layout(name, bsr: BsrMatrix, layout: str = "_live_layout"):
+def _kernel_layout(bsr: BsrMatrix, layout: str = "_live_layout"):
     """The layout ``layout`` of ``bsr`` that a kernel reads, ready for a
     launch on the current CUDA stream: a stream other than the one that
     built it waits, at its first launch, on the build's event and is
     recorded on the layout's tensors, so the allocator keeps them until
     that stream's work is done."""
-    _check_kernel_bsr(name, bsr)
     entry = _layout_entry(bsr, layout)
     lay = entry["layout"]
     stream = torch.cuda.current_stream(bsr.blocks.device)
@@ -453,10 +467,11 @@ def bsr_matvec(bsr: BsrMatrix, x):
     x = _operand("bsr_matvec", bsr, x, 1)
     if bsr.blocks.device.type == "cpu":
         return _bsr_matvec_plain(bsr, x)
-    lay = _kernel_layout("bsr_matvec", bsr)
+    suffix = _check_kernel_bsr("bsr_matvec", bsr)
+    lay = _kernel_layout(bsr)
     y = torch.empty(bsr.n_rows, dtype=x.dtype, device=x.device)
     if bsr.n_rows:
-        fn = _cuda.library("bsr_spmv").bsr_spmv_f64
+        fn = getattr(_cuda.library("bsr_spmv"), f"bsr_spmv_{suffix}")
         _cuda.launch_check("bsr_matvec", fn(
             lay.val.data_ptr(), lay.col.data_ptr(), lay.slice_off.data_ptr(),
             x.data_ptr(), bsr.n_rows, lay.n_slices, y.data_ptr(),
@@ -488,11 +503,12 @@ def bsr_matmat(bsr: BsrMatrix, X):
     X = _operand("bsr_matmat", bsr, X, 2)
     if bsr.blocks.device.type == "cpu":
         return _bsr_matmat_plain(bsr, X)
-    lay = _kernel_layout("bsr_matmat", bsr)
+    suffix = _check_kernel_bsr("bsr_matmat", bsr)
+    lay = _kernel_layout(bsr)
     m = X.shape[1]
     Y = torch.empty((bsr.n_rows, m), dtype=X.dtype, device=X.device)
     if bsr.n_rows and m:
-        fn = _cuda.library("bsr_spmm").bsr_spmm_f64
+        fn = getattr(_cuda.library("bsr_spmm"), f"bsr_spmm_{suffix}")
         _cuda.launch_check("bsr_matmat", fn(
             lay.val.data_ptr(), lay.col.data_ptr(), lay.slice_off.data_ptr(),
             X.data_ptr(), bsr.n_rows, lay.n_slices, m, Y.data_ptr(),
@@ -626,23 +642,28 @@ def _plan_ops(plan: SpgemmPlan, device):
     return dp
 
 
-def _strip_chunks(bm, bn, max_blocks, budget=None):
+def _strip_chunks(bm, bn, max_blocks, budget=None, elem=8):
     """(rows, blocks) of the strip of C that one CTA of spgemm_blocks holds
-    in shared memory: as many whole C blocks of its block row as fit in
-    ``budget`` bytes (SPGEMM_STRIP_BYTES; at most ``max_blocks``, at least
-    one) with their int32 block columns; or, when one block does not fit,
-    runs of rows of one block. A budget below one row of a block is raised
-    to it."""
+    in shared memory, at ``elem`` bytes a value (8 float64, 16 complex128):
+    as many whole C blocks of its block row as fit in ``budget`` bytes
+    (SPGEMM_STRIP_BYTES; at most ``max_blocks``, at least one) with their
+    int32 block columns; or, when one block does not fit, runs of rows of
+    one block. A budget below one row of a block is raised to it. One row
+    of a C block must fit the card's shared memory: bn <= 29,055 in
+    float64 and 14,527 in complex128, a limit kept as intended (no BSR
+    shape that a caller of either package builds comes near it)."""
     budget = SPGEMM_STRIP_BYTES if budget is None else budget
-    row = 8 * bn + 4
+    row = elem * bn + 4
     if row > _SMEM_MAX:
-        raise ValueError(f"spgemm: one row of a C block ({bn} doubles) "
-                         f"exceeds the card's shared memory")
+        raise ValueError(f"spgemm: one row of a C block ({bn} values of "
+                         f"{elem} bytes) exceeds the card's shared memory "
+                         f"(bn <= {(_SMEM_MAX - 4) // elem}; a limit kept "
+                         "as intended)")
     budget = max(budget, row)
-    per_block = 8 * bm * bn + 4
+    per_block = elem * bm * bn + 4
     if per_block <= budget:
         return bm, max(1, min(max_blocks, budget // per_block))
-    return min(bm, (budget - 4) // (8 * bn)), 1
+    return min(bm, (budget - 4) // (elem * bn)), 1
 
 
 def _spgemm_plain(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
@@ -670,8 +691,9 @@ def spgemm(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
     raises: each block row of C is summed from the products of A's and B's
     live entries (their ``RowLayout``s, built at the first call on each
     matrix and kept as ``bsr_matvec``'s layout is) into a strip in shared
-    memory that is written to C once. Any bm; a row of a C block up to the
-    card's shared memory (bn <= 29,055)."""
+    memory that is written to C once. float64 or complex128; any bm; a row
+    of a C block up to the card's shared memory (bn <= 29,055 in float64,
+    14,527 in complex128)."""
     if a.bn != b.bm:
         raise ValueError("inner block dims must agree")
     dev = a.blocks.device
@@ -686,12 +708,15 @@ def spgemm(plan: SpgemmPlan, a: BsrMatrix, b: BsrMatrix):
     if dp["nbr"] > a.nbr:
         raise ValueError("spgemm: the plan has C block rows past A's (a "
                          "plan of other matrices?)")
-    rows, blocks = _strip_chunks(a.bm, b.bn, dp["max_row_blocks"])
-    ra = _kernel_layout("spgemm", a, "_spgemm_layout")
-    rb = ra if b is a else _kernel_layout("spgemm", b, "_spgemm_layout")
+    suffix = _check_kernel_bsr("spgemm", a)
+    _check_kernel_bsr("spgemm", b)
+    rows, blocks = _strip_chunks(a.bm, b.bn, dp["max_row_blocks"],
+                                 elem=a.blocks.element_size())
+    ra = _kernel_layout(a, "_spgemm_layout")
+    rb = ra if b is a else _kernel_layout(b, "_spgemm_layout")
     C = torch.empty((plan.c_blocks, a.bm, b.bn), dtype=a.blocks.dtype,
                     device=dev)
-    fn = _cuda.library("spgemm_blocks").spgemm_blocks_f64
+    fn = getattr(_cuda.library("spgemm_blocks"), f"spgemm_blocks_{suffix}")
     _cuda.launch_check("spgemm", fn(
         ra.row_ptr.data_ptr(), ra.col.data_ptr(), ra.val.data_ptr(),
         rb.row_ptr.data_ptr(), rb.col.data_ptr(), rb.val.data_ptr(),

@@ -17,10 +17,12 @@ __all__ = ["LinSolParams"]
 @dataclass
 class LinSolParams:
     """Solver options: the fields of ``russell_tpu.sparse.LinSolParams``
-    that the SPLU path reads (same names and defaults); the others come
-    with LinSolver."""
+    that the SPLU and GRIDMF paths read (same names and defaults); the
+    others come with LinSolver. ``dense_threshold``: Genie.AUTO takes
+    GRIDMF for a grid-hinted system only above this n."""
 
     ordering: Ordering = Ordering.AUTO
     scaling: Scaling = Scaling.AUTO
     pivot_epsilon: float = 1e-14
     refinement_nstep: int = 2
+    dense_threshold: int = 1200

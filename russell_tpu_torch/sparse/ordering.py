@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["mindeg_ordering", "nd_ordering", "symmetrize_pattern"]
+__all__ = ["mindeg_ordering", "nd_ordering", "symmetrize_pattern", "idx32"]
 
 
 def symmetrize_pattern(n, rows, cols):
@@ -182,3 +182,13 @@ def mindeg_ordering(n, rows, cols) -> np.ndarray:
             heapq.heappush(heap, (len(s), u))
         neighbors[v] = set()
     return perm
+
+
+def idx32(a):
+    """An index array as int32 when every index fits (the device index
+    arrays of GRIDMF: half the bytes of int64); otherwise unchanged."""
+    a = np.asarray(a)
+    if (a.dtype.kind in "iu" and a.dtype != np.int32
+            and (a.size == 0 or int(a.max()) < 2 ** 31)):
+        return a.astype(np.int32)
+    return a

@@ -246,3 +246,59 @@ def test_inference_tensors_build_the_layout_at_each_call():
     # and outside inference mode, on the same inference tensors
     again = tk._live_layout(bsr)
     torch.testing.assert_close(again.val, tripled.val, rtol=0, atol=0)
+
+
+def _complex_brusselator(npoint, seed):
+    """J(y0) + i 0.3 noise: a complex128 matrix of the Jacobian's pattern
+    (the pattern of Radau5's (alpha + i beta) M - J)."""
+    n, _, ii, jj, jv = _brusselator(npoint)
+    rng = np.random.default_rng(seed)
+    return n, n, ii, jj, jv + 0.3j * rng.standard_normal(len(jv))
+
+
+def test_complex_layouts_hold_complex_values_and_products_match_reference():
+    t = _complex_brusselator(9, 5)
+    coo = CooMatrix.from_arrays(*t)
+    jcoo = JCoo.from_arrays(*t)
+    A = np.zeros((t[0], t[1]), np.complex128)
+    np.add.at(A, (t[2], t[3]), t[4])
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(coo.ncol) + 1j * rng.standard_normal(coo.ncol)
+    X = (rng.standard_normal((coo.ncol, 16))
+         + 1j * rng.standard_normal((coo.ncol, 16)))
+    bsr = tk.bsr_from_coo(coo, 8, 128, device=CPU)
+    jbsr = jk.bsr_from_coo(jcoo, 8, 128)
+    assert bsr.blocks.dtype == torch.complex128
+    # the live layout keeps the complex values, every live entry once
+    lay = tk._live_layout(bsr)
+    assert lay.val.dtype == torch.complex128 and lay.nnz == int(
+        (A != 0).sum())
+    dense = torch.zeros((lay.n_slices * S, lay.n_cols),
+                        dtype=torch.complex128)
+    dense.index_put_((_slot_rows(lay), lay.col.long()), lay.val,
+                     accumulate=True)
+    np.testing.assert_array_equal(dense[:lay.n_rows].numpy(), A)
+    # the plain products against the reference's
+    for got, want in (
+            (tk.bsr_matvec(bsr, torch.as_tensor(x)),
+             jk.bsr_matvec(jbsr, x, use_pallas=False)),
+            (tk.bsr_matmat(bsr, torch.as_tensor(X)),
+             jk.bsr_matmat(jbsr, X, use_pallas=False))):
+        want = np.asarray(want)
+        assert got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
+                                   atol=RTOL * np.abs(want).max())
+    # SpGEMM's RowLayout keeps them too, and A·A matches the reference's
+    b16 = tk.bsr_from_coo(coo, 16, 16, device=CPU)
+    jb16 = jk.bsr_from_coo(jcoo, 16, 16)
+    rl = tk._spgemm_layout(b16)
+    assert rl.val.dtype == torch.complex128 and rl.nnz == lay.nnz
+    plan = tk.spgemm_plan(b16, b16)
+    C, cij = tk.spgemm(plan, b16, b16)
+    jC, jcij = jk.spgemm(jk.spgemm_plan(jb16, jb16), jb16, jb16,
+                         use_pallas=False)
+    np.testing.assert_array_equal(cij, np.asarray(jcij))
+    want = np.asarray(jC)
+    assert C.dtype == torch.complex128
+    np.testing.assert_allclose(C.numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())

@@ -548,3 +548,196 @@ def test_spgemm_layout_on_other_streams_and_after_an_update(cuda):
     torch.cuda.synchronize()
     assert a.__dict__["_spgemm_layout"] is not entry
     assert torch.equal(C3, 4.0 * C1)
+
+
+def _gj_inputs(w, m, seed, device):
+    """(w, m, m) diagonally dominant blocks, with lanes 0 and w // 2 made
+    to meet exact zero pivots: lane 0 at step 0, lane w // 2 at the last
+    step (its last diagonal zeroed, the rest of its last row and column
+    too, so no update reaches it)."""
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((w, m, m)) + 2.0 * m * np.eye(m)
+    D[0, 0, 0] = 0.0
+    h = w // 2
+    D[h, -1, :] = 0.0
+    D[h, :, -1] = 0.0
+    return torch.as_tensor(D, device=device)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 32])
+@pytest.mark.parametrize("w", [1, 64])
+def test_gj_inv_matches_plain_version(cuda, m, w):
+    D = _gj_inputs(w, m, 10 * m + w, cuda)
+    delta = torch.tensor(1e-14, dtype=torch.float64, device=cuda)
+    wide = torch.zeros((w, m + 3, m + 3), dtype=torch.float64, device=cuda)
+    wide[:, :m, :m] = D
+    n0 = splu._gj_inv.launches
+    got = splu._gj_inv(wide[:, :m, :m], delta)   # a view: made contiguous
+    assert splu._gj_inv.launches == n0 + 1
+    want = splu._gj_inv_plain(D, delta)
+    # the same elimination, each product and difference rounded as torch
+    # rounds them: the same bits
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0)
+    for g, p in zip(got[2:], want[2:]):
+        assert torch.equal(g, p)
+    n_clamped = 1 if w == m == 1 else 2
+    assert int(got[3].sum()) == n_clamped
+    assert float(got[2].min()) == 0.0
+    # and both reach the same kernel through _inv_block beyond 32
+    if m == 32:
+        big = _gj_inputs(w, 64 + m, m, cuda)
+        n0 = splu._gj_inv.launches
+        got = splu._inv_block(big, delta)
+        assert splu._gj_inv.launches > n0
+        cpu = splu._inv_block(big.cpu(), delta.cpu())
+        torch.testing.assert_close(got[0].cpu(), cpu[0], rtol=1e-11,
+                                   atol=1e-12)
+        torch.testing.assert_close(got[1].cpu(), cpu[1], rtol=1e-12, atol=0)
+        torch.testing.assert_close(got[2].cpu(), cpu[2], rtol=1e-12, atol=0)
+        assert torch.equal(got[3].cpu(), cpu[3])
+        assert torch.equal(got[4].cpu(), cpu[4])
+
+
+def test_gj_inv_raises_on_what_the_kernel_does_not_take(cuda):
+    delta = torch.tensor(1e-14, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):     # m 33: the recursion's business
+        splu._gj_inv(torch.zeros((2, 33, 33), dtype=torch.float64,
+                                 device=cuda), delta)
+    with pytest.raises(TypeError):      # no complex kernel: K embedding
+        splu._gj_inv(torch.zeros((2, 4, 4), dtype=torch.complex128,
+                                 device=cuda), delta)
+
+
+def _stencil(nr, nc, s, seed):
+    """A full 9-point stencil with all cross-species couplings (the
+    reference's test_gridmf._stencil_coo, which needs jax to import)."""
+    rng = np.random.default_rng(seed)
+    ncell = nr * nc
+    m = np.arange(ncell)
+    i, j = m % nc, m // nc
+    rows, cols = [], []
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            keep = (j + dr >= 0) & (j + dr < nr) & (i + dc >= 0) & (
+                i + dc < nc)
+            src = m[keep]
+            for k in range(s):
+                for k2 in range(s):
+                    rows.append(k * ncell + src)
+                    cols.append(k2 * ncell + src + dr * nc + dc)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return (ncell * s, rows, cols,
+            rng.normal(size=len(rows)) + 6.0 * (rows == cols))
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_gridmf_on_card_matches_cpu(cuda, cplx):
+    from russell_tpu_torch.sparse import gridmf
+    n, rows, cols, vals = _stencil(33, 29, 2, 4)
+    rng = np.random.default_rng(5)
+    if cplx:
+        vals = vals + 0.3j * rng.normal(size=len(vals))
+    b = rng.normal(size=n) + (1j * rng.normal(size=n) if cplx else 0.0)
+    plan = gridmf.gridmf_analyze(n, rows, cols, (33, 29, 2), leaf_cells=16)
+    out = {}
+    for dev in ("cpu", cuda):
+        n0 = splu._gj_inv.launches
+        fac = gridmf.gridmf_factorize(plan, torch.as_tensor(vals,
+                                                            device=dev))
+        x = gridmf.gridmf_solve(plan, fac, torch.as_tensor(b, device=dev))
+        out[str(dev)] = (fac, x, splu._gj_inv.launches - n0)
+    (fc, xc, kc), (fg, xg, kg) = out["cpu"], out[str(cuda)]
+    assert kc == 0 and kg > 0     # the card's pivot inverses are kernels
+    for d, (lc, lg) in enumerate(zip(fc["levels"], fg["levels"])):
+        for k, v in lc.items():
+            if v is None:
+                assert lg[k] is None
+                continue
+            scale = float(v.abs().max()) if v.numel() else 1.0
+            torch.testing.assert_close(lg[k].cpu(), v, rtol=0,
+                                       atol=1e-12 * scale,
+                                       msg=f"level {d} {k}")
+    torch.testing.assert_close(fg["logdet"].cpu(), fc["logdet"],
+                               rtol=1e-12, atol=0)
+    for k in ("min_pivot", "phase"):
+        torch.testing.assert_close(fg[k].cpu(), fc[k], rtol=1e-12, atol=0)
+    assert int(fg["n_perturbed"]) == int(fc["n_perturbed"])
+    torch.testing.assert_close(xg.cpu(), xc, rtol=1e-12,
+                               atol=1e-12 * float(xc.abs().max()))
+    A = np.zeros((n, n), vals.dtype)
+    np.add.at(A, (rows, cols), vals)
+    assert np.abs(A @ xg.cpu().numpy() - b).max() < 1e-10 * np.abs(b).max()
+
+
+def test_radau5_default_params_run_gridmf_on_card(cuda):
+    # the reference's default: no genie set (AUTO), grid hint, n > 1200
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 33)
+    params = Params(Method.RADAU5)
+    sol = OdeSolver(params, system, cuda)
+    assert sol.actual.plan.genie == Genie.GRIDMF
+    n0 = splu._gj_inv.launches
+    y = sol.solve(y0, t0, 0.1)
+    assert y.device.type == "cuda" and bool(torch.isfinite(y).all())
+    assert splu._gj_inv.launches > n0
+    ref = OdeSolver(params, system, "cpu")
+    yc = ref.solve(y0, t0, 0.1)
+    keys = ("n_accepted", "n_rejected", "n_factor", "n_lin_sol",
+            "n_jacobian")
+    assert ({k: getattr(sol.stats(), k) for k in keys}
+            == {k: getattr(ref.stats(), k) for k in keys})
+    torch.testing.assert_close(y.cpu(), yc, rtol=1e-10, atol=0)
+
+
+def _complex_coo(coo, seed):
+    ii, jj, vv = (np.asarray(a) for a in coo.triplets())
+    rng = np.random.default_rng(seed)
+    return CooMatrix.from_arrays(coo.nrow, coo.ncol, ii, jj,
+                                 vv + 0.3j * rng.standard_normal(len(vv)))
+
+
+@pytest.mark.parametrize("case", ["lap15_8x128", "irregular500_16x16",
+                                  "empty_tail_16x16"])
+def test_complex_bsr_kernels_match_plain_versions(cuda, case):
+    make, bm, bn = BSR_CASES[case]
+    coo = _complex_coo(make(), 3)
+    bsr = kernels.bsr_from_coo(coo, bm, bn, device=cuda)
+    assert bsr.blocks.dtype == torch.complex128
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal(coo.ncol)
+                        + 1j * rng.standard_normal(coo.ncol), device=cuda)
+    X = torch.as_tensor(rng.standard_normal((coo.ncol, 5))
+                        + 1j * rng.standard_normal((coo.ncol, 5)),
+                        device=cuda)
+    n0 = (kernels.bsr_matvec.launches, kernels.bsr_matmat.launches,
+          kernels.spgemm.launches)
+    _assert_kernel_close(kernels.bsr_matvec(bsr, x),
+                         kernels._bsr_matvec_plain(bsr, x))
+    _assert_kernel_close(kernels.bsr_matmat(bsr, X),
+                         kernels._bsr_matmat_plain(bsr, X))
+    sq = kernels.bsr_from_coo(coo, bm, bm, device=cuda)
+    plan = kernels.spgemm_plan(sq, sq)
+    C, _ = kernels.spgemm(plan, sq, sq)
+    _assert_kernel_close(C, kernels._spgemm_plain(plan, sq, sq))
+    assert torch.equal(kernels.spgemm(plan, sq, sq)[0], C)
+    assert (kernels.bsr_matvec.launches, kernels.bsr_matmat.launches,
+            kernels.spgemm.launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 2)
+
+
+def test_float32_is_refused_with_the_recorded_message(cuda):
+    coo = ssamples.laplacian_2d(6)
+    ii, jj, vv = (np.asarray(a) for a in coo.triplets())
+    f32 = CooMatrix.from_arrays(coo.nrow, coo.ncol, ii, jj,
+                                vv.astype(np.float32))
+    bsr = kernels.bsr_from_coo(f32, 8, 8, device=cuda)
+    x = torch.ones(coo.ncol, dtype=torch.float32, device=cuda)
+    for call in (lambda: kernels.bsr_matvec(bsr, x),
+                 lambda: kernels.bsr_matmat(bsr, x[:, None]),
+                 lambda: kernels.spgemm(kernels.spgemm_plan(bsr, bsr), bsr,
+                                        bsr)):
+        with pytest.raises(TypeError, match="refused as intended"):
+            call()
+    # and complex128's one-row limit of a C block is half float64's
+    with pytest.raises(ValueError, match="14527"):
+        kernels._strip_chunks(1, 14528, 1, elem=16)
+    assert kernels._strip_chunks(1, 14527, 1, elem=16) == (1, 1)

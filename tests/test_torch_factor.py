@@ -174,6 +174,14 @@ def test_factor_solve_pair_matches_reference(plans, pair, refine):
     (Genie.GENMF, None), (Genie.DENSE, None), (Genie.BANDED, None)])
 def test_other_genies_raise(plans, genie, grid):
     n, ii, jj, *_ = plans
+    if genie == Genie.GRIDMF:
+        # GRIDMF is ported: with a grid hint it plans, at any n; AUTO with
+        # the same hint still raises, since n = 50 <= dense_threshold is
+        # the reference's DENSE route, not ported
+        plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
+        assert plan.genie == Genie.GRIDMF
+        assert plan.effective_ordering == "nd-grid"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
 

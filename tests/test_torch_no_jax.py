@@ -32,7 +32,8 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.sparse.coo", "russell_tpu_torch.sparse.csr",
             "russell_tpu_torch.sparse.csc", "russell_tpu_torch.sparse.samples",
             "russell_tpu_torch.sparse.verify",
-            "russell_tpu_torch.sparse.matrix_market"} <= set(names)
+            "russell_tpu_torch.sparse.matrix_market",
+            "russell_tpu_torch.sparse.gridmf"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
