@@ -42,13 +42,16 @@ complex128.
    GFLOP/s, peak memory, residuals max|A x - b| / max|b| <= 1e-10 of the
    real and the complex system; then the leaf sweep (16, 32, 64 cells);
 11. gj_inv: the kernel against its plain version at every (w, m) of its
-   base calls in an npoint-129 SPLU pair and npoint-129 and 513 GRIDMF
-   pairs (513 also at leaf 16: up to 4,096 lanes), with zero pivots to
-   clamp (Dinv, exact n_perturbed and
-   min|pivot|, log|det| at rtol 1e-12); its time alone and with the
-   wrapper's reductions, L2 warm and cold, beside the bound, the plain
-   version's and torch.linalg.inv_ex's, summed over an npoint-129 GRIDMF
-   pair;
+   base calls (the blocks ``splu._inv_block`` does not split, m <=
+   ``splu.GJ_MAX_M``) in an npoint-129 SPLU pair and npoint-129 and 513
+   GRIDMF pairs (513 also at leaf 16: up to 4,096 lanes), with zero
+   pivots to clamp: Dinv bit-identical, min|pivot|, n_perturbed and sign
+   exact, log|det| at rtol 1e-14; then per factorize pair (GRIDMF 129 and
+   513, SPLU 129) the kernel's device time and launches and
+   _inv_block's (the kernel, the recursion's GEMMs and cats), beside the
+   bound of the pair's top-level pivot blocks and torch.linalg.inv_ex on
+   them; and at the npoint-129 GRIDMF pair's base calls the kernel's
+   L2-cold time, its plain version's and inv_ex's;
 12. replay: one whole SPLU factorize pair under torch.profiler: each SPLU
    kernel's summed device time beside the bound of the same work, and
    the pair's device launches;
@@ -89,21 +92,25 @@ before the last is the kernels' JSON; the last is
 
     python3 chip_smoke.py
 
-To compare the kernels of two trees on one card, unpack the other tree
-(``git archive``) into an ignored directory and run
-``python3 chip_smoke.py --ab DIR [ROUNDS]``: the replay of phase 12
-(with its device launches per factorize pair) and
-the npoint-513 ``bsr_matvec`` / ``bsr_matmat`` / ``spgemm`` times (back to
+To compare two trees on one card, unpack the other tree (``git
+archive``) into an ignored directory and run ``python3 chip_smoke.py --ab
+DIR [ROUNDS]``: the replay of phase 12 (with its device launches per
+factorize pair), one GRIDMF factorize pair at npoint 129 and 513 (device
+launches, device ms, profiled and median walls), the default path's cold
+and warm walls at npoint 129 (median of three, with the spread) and the
+npoint-513 ``bsr_matvec`` / ``bsr_matmat`` / ``spgemm`` times (back to
 back, and the first call on a new matrix and after an in-place update of
 its blocks, which builds the live layout) with DIR's package and with
 this tree's, each in its own process, in turns P C C P, ROUNDS times,
-then the ratios and the number of calls that pays for one layout build.
-``--replay [--tree DIR]`` is one such process.
+then the medians, the ratios and the number of calls that pays for one
+layout build. ``--replay [--tree DIR]`` is one such process.
 ``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
 plan for each chunk size K of CHUNK_SWEEP, which is how
 ``splu.CHUNK_PAIRS`` was chosen; ``--strip-sweep`` times ``spgemm`` at
 npoint 513 for each strip budget of STRIP_SWEEP, which is how
-``kernels.SPGEMM_STRIP_BYTES`` was chosen.
+``kernels.SPGEMM_STRIP_BYTES`` was chosen; ``--base-sweep`` runs the
+factorize pairs that reach ``gj_inv`` for each recursion base of
+BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
 """
 
 from __future__ import annotations
@@ -147,6 +154,8 @@ WARM_S = 1.0          # the card is kept busy this long before timing
 CHUNK_SWEEP = (2, 4, 8, 16)
 # spgemm_blocks' strip budgets in bytes (--strip-sweep)
 STRIP_SWEEP = (16 << 10, 32 << 10, 64 << 10, 96 << 10)
+# recursion bases of the pivot inverse (--base-sweep: splu.GJ_MAX_M)
+BASE_SWEEP = (32, 64, 128, 136, 144)
 # read before each call that cold_ms times: over twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
 
@@ -746,8 +755,9 @@ def phase_layers(sol, y):
 def inv_block_bases(m, w, out):
     """Append the (w, m) of each Gauss-Jordan base call that
     ``splu._inv_block`` makes on a (w, m, m) batch (its 2x2 Schur
-    recursion down to m <= 32)."""
-    if m <= 32:
+    recursion down to m <= ``splu.GJ_MAX_M``)."""
+    from russell_tpu_torch.sparse import splu
+    if m <= splu.GJ_MAX_M:
         out.append((w, m))
         return
     h = m // 2
@@ -755,81 +765,99 @@ def inv_block_bases(m, w, out):
     inv_block_bases(m - h, w, out)
 
 
-def gridmf_base_calls(gplan):
-    """{(w, m): calls} of gj_inv in one GRIDMF factorize pair: per depth the
-    real plane's pivot blocks (e) and the complex one's K embedding (2e)."""
-    calls = []
-    for lv in gplan.levels:
-        inv_block_bases(lv.e, lv.n_nodes, calls)
-        inv_block_bases(2 * lv.e, lv.n_nodes, calls)
-    return collections.Counter(calls)
+def gridmf_top_blocks(gplan):
+    """{(w, m): calls} of ``splu._inv_block`` in one GRIDMF factorize pair:
+    per depth the real plane's pivot blocks (e) and the complex one's K
+    embedding (2e)."""
+    return collections.Counter(
+        blk for lv in gplan.levels
+        for blk in ((lv.n_nodes, lv.e), (lv.n_nodes, 2 * lv.e)))
 
 
-def splu_base_calls(plan):
-    """{(w, m): calls} of gj_inv in one SPLU factorize pair: per row with
-    diagonal lanes, the real state's (nd, b) and the K state's (nd, 2b)."""
+def splu_top_blocks(plan):
+    """{(w, m): calls} of ``splu._inv_block`` in one SPLU factorize pair:
+    per row with diagonal lanes, the real state's (nd, b) and the K
+    state's (nd, 2b)."""
     from russell_tpu_torch.sparse import splu
     sp = plan.splu_plan
-    calls = []
-    for row in splu._device_plan(sp, torch.device("cuda"))["rows"]:
-        if row[2]:
-            inv_block_bases(sp.b, row[2], calls)
-            inv_block_bases(2 * sp.b, row[2], calls)
-    return collections.Counter(calls)
+    return collections.Counter(
+        blk for row in splu._device_plan(sp, torch.device("cuda"))["rows"]
+        if row[2] for blk in ((row[2], sp.b), (row[2], 2 * sp.b)))
+
+
+def base_calls(top):
+    """{(w, m): calls} of gj_inv under the top-level blocks ``top``."""
+    calls = collections.Counter()
+    for (w, m), c in top.items():
+        out = []
+        inv_block_bases(m, w, out)
+        for blk in out:
+            calls[blk] += c
+    return calls
 
 
 def gj_inputs(w, m, seed):
-    """(w, m, m) f64 blocks on the card, diagonally dominant, with exact
-    zero pivots that the clamp must catch: lane 0 at step 0, and (w > 1)
-    lane w // 2 at the last step (its last row and column zero)."""
-    rng = np.random.default_rng(seed)
-    D = rng.standard_normal((w, m, m)) + 2.0 * m * np.eye(m)
+    """(w, m, m) f64 blocks made on the card from ``seed``, diagonally
+    dominant, with exact zero pivots that the clamp must catch: lane 0 at
+    step 0, and (w > 1) lane w // 2 at the last step (its last row and
+    column zero)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = torch.randn((w, m, m), generator=g, dtype=torch.float64,
+                    device="cuda")
+    D.diagonal(dim1=1, dim2=2).add_(2.0 * m)
     D[0, 0, 0] = 0.0
     if w > 1:
         D[w // 2, -1, :] = 0.0
         D[w // 2, :, -1] = 0.0
-    return torch.as_tensor(D, device="cuda")
+    return D
 
 
 def gj_work(w, m):
-    """(bytes, flops) of the batched clamped inverse: D read once, Dinv and
-    the two pivot records written once; ~4 m^3 flops a lane (the rank-1
-    updates of [D | I])."""
-    return 8 * w * m * m + 8 * w * (m * m + 2 * m), 4 * m ** 3 * w
+    """(bytes, flops) of the clamped inverse of a (w, m, m) batch: D read
+    once, Dinv and the four per-lane statistics (three f64, one int32)
+    written once; 2 m^3 flops a lane (m steps of an m x m rank-1 update),
+    whichever base the recursion uses."""
+    return 16 * w * m * m + 28 * w, 2 * m ** 3 * w
 
 
 def gj_kernel_only(D, delta):
     """A launch of gj_inv's C entry point on D alone, outputs allocated
-    once: the kernel's time without the wrapper's torch reductions of the
-    pivot records (which its plain version shares)."""
+    once: the kernel's time without the wrapper's host work."""
     from russell_tpu_torch.sparse import _cuda
     w, m = D.shape[0], D.shape[-1]
-    Dinv = torch.empty_like(D)
-    ap = torch.empty((w, m), dtype=D.dtype, device=D.device)
-    piv = torch.empty_like(ap)
+    outs = [torch.empty_like(D)] + [
+        torch.empty(w, dtype=t, device=D.device) for t in (
+            torch.float64, torch.float64, torch.int32, torch.float64)]
     fn = _cuda.library("gj_inv").gj_inv_f64
 
     def launch():
         _cuda.launch_check("gj_inv", fn(
-            D.data_ptr(), delta.data_ptr(), w, m, Dinv.data_ptr(),
-            ap.data_ptr(), piv.data_ptr(), _cuda.stream_of(D)))
+            D.data_ptr(), D.stride(0), D.stride(1), delta.data_ptr(), w, m,
+            *(o.data_ptr() for o in outs), _cuda.stream_of(D)))
     return launch
 
 
 def check_gj_inv(w, m, seed, delta):
-    """gj_inv against its plain version at (w, m): Dinv, the pivot records'
-    statistics (n_perturbed and min|pivot| exactly, log|det| at rtol
-    1e-12). Returns (max |Dinv - plain|, bit identical, n_perturbed)."""
+    """gj_inv against its plain version at (w, m): Dinv bit-identical,
+    min|pivot|, n_perturbed and the sign exact, log|det| at rtol 1e-14
+    (both sum it in step order; the card's log and the CPU's may round
+    apart), and the zero pivots clamped. Returns (max |Dinv - plain|,
+    max relative log|det| error)."""
     from russell_tpu_torch.sparse import splu
     D = gj_inputs(w, m, seed)
     got = splu._gj_inv(D, delta)
     want = splu._gj_inv_plain(D, delta)
     err = float((got[0] - want[0]).abs().max())
-    assert_close(f"gj_inv ({w}, {m}) Dinv", got[0], want[0])
-    assert_close(f"gj_inv ({w}, {m}) log|det|", got[1], want[1])
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"gj_inv ({w}, {m}): Dinv differs from the "
+                             f"plain version by up to {err}")
+    ld_err = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0,
+                               msg=lambda s: f"gj_inv ({w}, {m}) log|det|: "
+                               f"{s}")
     for name, g, p in (("min|pivot|", got[2], want[2]),
                        ("n_perturbed", got[3], want[3]),
-                       ("phase", got[4], want[4])):
+                       ("sign", got[4], want[4])):
         if not torch.equal(g, p):
             raise AssertionError(f"gj_inv ({w}, {m}): {name} differs from "
                                  "the plain version")
@@ -837,79 +865,136 @@ def check_gj_inv(w, m, seed, delta):
     if npert != (1 if w == 1 else 2) or float(got[2].min()) != 0.0:
         raise AssertionError(f"gj_inv ({w}, {m}): the zero pivots were not "
                              f"clamped ({npert} perturbed)")
-    return err, bool(torch.equal(got[0], want[0])), npert
+    return err, ld_err
+
+
+def summed_times(calls, fn, reps=REPS, cold=False):
+    """Sum over {(w, m): calls} of calls x the device time of ``fn(D)``
+    on ``gj_inputs(w, m)`` (back to back, or L2-cold)."""
+    delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
+    tot = 0.0
+    for (w, m), c in sorted(calls.items()):
+        D = gj_inputs(w, m, w + m)
+        big = w * m * m > 1 << 24
+        call = fn(D, delta)
+        tot += c * (cold_ms if cold else time_ms)(
+            call, reps=min(reps, 3) if big else reps,
+            warmup=1 if big else 3)
+        del D, call
+    torch.cuda.empty_cache()
+    return tot
+
+
+def inv_block_pair(name, top):
+    """One factorize pair's pivot inverses, ``top`` its {(w, m): calls} of
+    ``splu._inv_block``: the gj_inv kernel's device time and launches
+    (its base calls), _inv_block's whole device time and device launches
+    (the kernel and the recursion's GEMMs, cats and adds), both against
+    the bound of the top-level blocks (gj_work: 2 m^3 a lane, whatever
+    the base) and against torch.linalg.inv_ex on the same top-level blocks
+    (unclamped)."""
+    from russell_tpu_torch.sparse import splu
+    base = base_calls(top)
+    nbytes = sum(c * gj_work(w, m)[0] for (w, m), c in top.items())
+    flops = sum(c * gj_work(w, m)[1] for (w, m), c in top.items())
+    b_ms, b_by = bound(nbytes, flops)
+    ms = summed_times(base, lambda D, d: gj_kernel_only(D, d))
+    inv_ms = summed_times(top, lambda D, d: (lambda: splu._inv_block(D, d)))
+    lib_ms = summed_times(top, lambda D, d: (
+        lambda: torch.linalg.inv_ex(D)))
+    # device launches of the pair's _inv_block calls, in one profiled run
+    delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
+    blocks = [(gj_inputs(w, m, w + m), c) for (w, m), c in top.items()]
+
+    def all_calls():
+        for D, c in blocks:
+            for _ in range(c):
+                splu._inv_block(D, delta)
+    all_calls()
+    n0 = gj_inv_launches()
+    launches = kernel_device_ms(all_calls)[2]
+    if gj_inv_launches() - n0 != sum(base.values()):
+        raise AssertionError(f"{name}: gj_inv launched "
+                             f"{gj_inv_launches() - n0} times for "
+                             f"{sum(base.values())} base calls")
+    del blocks
+    torch.cuda.empty_cache()
+    rec = {"pair": name, "top_blocks": sum(top.values()),
+           "gj_inv_launches": sum(base.values()), "gj_inv_ms": ms,
+           "inv_block_ms": inv_ms, "inv_block_launches": launches,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops, "inv_block_share": b_ms / inv_ms,
+           "library_ms": lib_ms,
+           "top_w_m_calls": [[w, m, c] for (w, m), c in sorted(top.items())],
+           "base_w_m_calls": [[w, m, c]
+                              for (w, m), c in sorted(base.items())]}
+    say("inv_block_pair", **rec)
+    return rec
 
 
 def phase_gj_inv(splu_plan, gplans):
     """gj_inv against its plain version on the card at every (w, m) of its
     base calls in one npoint-129 SPLU factorize pair and in one GRIDMF
     factorize pair at npoint 129 and 513 (and 513 at leaf 16), with clamped
-    lanes; then, at the
-    npoint-129 GRIDMF pair's shapes, its device time (L2 warm and cold)
-    beside the bound, the wrapper's (the kernel and its torch reductions of
-    the pivot records), the plain version's (elimination and the same
-    reductions) and torch.linalg.inv_ex's (the unclamped inverse), each
-    summed over the pair's calls. Returns the kernels line's numbers."""
+    lanes; then, per factorize pair (GRIDMF 129 and 513, SPLU 129), the
+    kernel's and _inv_block's device time and launches beside the bound of
+    the top-level blocks and torch.linalg.inv_ex on them
+    (``inv_block_pair``); and, at the npoint-129 GRIDMF pair's base calls,
+    the kernel's L2-cold time, its plain version's and inv_ex's on the same
+    blocks, and the bound of that work. Returns the kernels line's
+    numbers."""
     from russell_tpu_torch.sparse import splu
     delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
-    shapes = {"splu_129": splu_base_calls(splu_plan)}
+    tops = {"splu_129": splu_top_blocks(splu_plan)}
     for key, gp in gplans.items():
-        shapes[f"gridmf_{key}"] = gridmf_base_calls(gp)
-    max_err, bits, checked = 0.0, True, set()
-    for name, calls in shapes.items():
+        tops[f"gridmf_{key}"] = gridmf_top_blocks(gp)
+    max_err, ld_err, checked = 0.0, 0.0, set()
+    for name, top in tops.items():
+        calls = base_calls(top)
         for (w, m) in sorted(calls):
             if (w, m) in checked:
                 continue
             checked.add((w, m))
-            err, same, _ = check_gj_inv(w, m, w * 100 + m, delta)
-            max_err, bits = max(max_err, err), bits and same
-        say("gj_inv_shapes", plan=name, calls=sum(calls.values()),
+            err, lde = check_gj_inv(w, m, w * 100 + m, delta)
+            max_err, ld_err = max(max_err, err), max(ld_err, lde)
+        say("gj_inv_shapes", plan=name, gj_max_m=splu.GJ_MAX_M,
+            calls=sum(calls.values()),
             shapes=[[w, m, c] for (w, m), c in sorted(calls.items())])
     say("gj_inv_check", shapes=len(checked), max_abs_err=max_err,
-        bit_identical=bits)
-    # the npoint-129 GRIDMF pair's calls, each shape timed and weighted by
-    # its calls
-    tot = collections.Counter()
-    rows = []
-    for (w, m), c in sorted(shapes["gridmf_129"].items()):
-        D = gj_inputs(w, m, w + m)
-        kern = gj_kernel_only(D, delta)
-        t = {"ms": time_ms(kern), "cold_ms": cold_ms(kern),
-             "wrapper_ms": time_ms(lambda: splu._gj_inv(D, delta)),
-             "plain_ms": time_ms(lambda: splu._gj_inv_plain(D, delta),
-                                 reps=5),
-             "library_ms": time_ms(lambda: torch.linalg.inv_ex(D))}
-        b_ms, _ = bound(*gj_work(w, m))
-        rows.append([w, m, c, t["ms"], t["cold_ms"], t["wrapper_ms"],
-                     t["plain_ms"], t["library_ms"], b_ms])
-        for k, v in t.items():
-            tot[k] += c * v
-        tot["bound_ms"] += c * b_ms
-        nbytes, flops = gj_work(w, m)
-        tot["bytes"] += c * nbytes
-        tot["flops"] += c * flops
-    b_ms, b_by = bound(tot["bytes"], tot["flops"])
-    # one SPLU row's diagonal lanes: the real state (b) and, through
-    # _inv_block, the K state (2b)
-    nd = max(w for (w, m) in shapes["splu_129"])
+        logdet_max_rel_err=ld_err, bit_identical=True)
+    pairs = {name: inv_block_pair(name, tops[name]) for name in (
+        "gridmf_129", "gridmf_513", "splu_129")}
+    # the kernel alone at the npoint-129 GRIDMF pair's base calls
+    base = base_calls(tops["gridmf_129"])
+    nbytes = sum(c * gj_work(w, m)[0] for (w, m), c in base.items())
+    flops = sum(c * gj_work(w, m)[1] for (w, m), c in base.items())
+    b_ms, b_by = bound(nbytes, flops)
+    res = {"max_abs_err": max_err, "ms": pairs["gridmf_129"]["gj_inv_ms"],
+           "ms_cold_l2": summed_times(
+               base, lambda D, d: gj_kernel_only(D, d), cold=True),
+           "plain_ms": summed_times(base, lambda D, d: (
+               lambda: splu._gj_inv_plain(D, d)), reps=3),
+           "library_ms": summed_times(base, lambda D, d: (
+               lambda: torch.linalg.inv_ex(D))),
+           "bound_ms": b_ms, "bound_by": b_by}
+    # one SPLU row's diagonal lanes: the real state (b) and the K state (2b)
+    nd = max(w for (w, m) in tops["splu_129"])
     D = gj_inputs(nd, 64, 7)
     splu_row = {"lanes": nd,
                 "b32_ms": time_ms(lambda: splu._gj_inv(D[:, :32, :32], delta)),
                 "inv_block_2b64_ms": time_ms(lambda: splu._inv_block(D,
                                                                      delta))}
-    res = {"max_abs_err": max_err, "ms": tot["ms"],
-           "ms_cold_l2": tot["cold_ms"], "wrapper_ms": tot["wrapper_ms"],
-           "plain_ms": tot["plain_ms"],
-           "library_ms": tot["library_ms"], "bound_ms": b_ms,
-           "bound_by": b_by}
-    say("gj_inv", per="npoint-129 GRIDMF factorize pair",
-        calls=sum(shapes["gridmf_129"].values()), bytes=tot["bytes"],
-        flops=tot["flops"], **res, share=b_ms / tot["ms"],
-        share_cold_l2=b_ms / tot["cold_ms"], bit_identical=bits,
-        rows_w_m_calls_ms_cold_wrapper_plain_library_bound=rows,
-        splu_row=splu_row)
+    say("gj_inv", per="npoint-129 GRIDMF factorize pair, its base calls",
+        gj_max_m=splu.GJ_MAX_M, calls=sum(base.values()), bytes=nbytes,
+        flops=flops, **res, share=b_ms / res["ms"],
+        share_cold_l2=b_ms / res["ms_cold_l2"], splu_row=splu_row,
+        logdet_max_rel_err=ld_err)
     torch.cuda.empty_cache()
-    return res
+    return {**res, "logdet_max_rel_err": ld_err,
+            "inv_block": {k: {f: v[f] for f in (
+                "gj_inv_launches", "gj_inv_ms", "inv_block_ms",
+                "inv_block_launches", "bound_ms", "library_ms")}
+                for k, v in pairs.items()}}
 
 
 def brusselator_system(npoint):
@@ -1031,6 +1116,7 @@ def gridmf_pair_record(plan, vr, vc, pairs=3):
             "factorize_pair_wall_median_ms": 1e3 * statistics.median(walls),
             "factorize_pair_device_ms": dev_ms,
             "factorize_pair_device_busy_share": dev_ms / (1e3 * prof_wall),
+            "factorize_pair_profiled_wall_ms": 1e3 * prof_wall,
             "factorize_pair_device_launches": launches,
             "gj_inv_launches_per_pair": gj_per_pair,
             "gj_inv_device_ms": summed(ms, "gj_inv"),
@@ -1075,20 +1161,18 @@ def phase_gridmf_small():
                              "(or y not finite, or not GRIDMF)")
 
 
-def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
+def default_path_runs(warm_runs):
     """The reference's default path: Radau5 with default Params (genie
     AUTO) on the npoint-129 Brusselator, which AUTO routes to GRIDMF;
-    tolerances 1e-4, t in [0, 1]. A cold run (host analysis included),
-    then ``warm_runs`` fresh solvers whose analysis is untimed; the
-    counters held to the SPLU run's (or, where they differ, y to rtol 1e-6
-    of its y), gj_inv's launches counted from 0 in each run."""
+    tolerances 1e-4, t in [0, 1]. Yields a record, the solver and y of a
+    cold run (host analysis included), then of ``warm_runs`` fresh solvers
+    whose analysis is untimed, gj_inv's launches counted from 0 in each
+    run."""
     from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
-    from russell_tpu_torch.sparse.enums import Genie
     system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
     params = Params(Method.RADAU5)
     params.set_tolerances(1e-4, 1e-4)
     dev = torch.device("cuda")
-    runs = []
     for i in range(1 + warm_runs):
         run = "cold" if i == 0 else "warm"
         if run == "warm":
@@ -1105,23 +1189,33 @@ def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
         launches = gj_inv_launches()
         st = sol.stats()
         got = counters(st)
-        rec = {"run": run, "wall_s": wall, "counters": got,
+        yield {"run": run, "wall_s": wall, "counters": got,
                "gj_inv_launches": launches,
                "gj_inv_launches_per_factorization": launches / max(
                    got["n_factor"], 1),
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                "nanos_factor_max": st.nanos_factor_max,
-               "nanos_lin_sol_max": st.nanos_lin_sol_max}
+               "nanos_lin_sol_max": st.nanos_lin_sol_max}, sol, y
+
+
+def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
+    """``default_path_runs`` checked: the plan is GRIDMF, y finite, gj_inv
+    launched, and the counters held to the SPLU run's (or, where they
+    differ, y to rtol 1e-6 of its y)."""
+    from russell_tpu_torch.sparse.enums import Genie
+    runs = []
+    for rec, sol, y in default_path_runs(warm_runs):
         runs.append(rec)
-        say("gridmf_main_path", npoint=NPOINT, ndim=system.ndim,
+        got, launches = rec["counters"], rec["gj_inv_launches"]
+        say("gridmf_main_path", npoint=NPOINT, ndim=sol.ndim,
             genie=str(sol.actual.plan.genie), **rec,
             y_min=float(y.min()), y_max=float(y.max()))
         if sol.actual.plan.genie != Genie.GRIDMF:
             raise AssertionError("default Params did not route to GRIDMF")
-        if tuple(y.shape) != (system.ndim,) or not bool(
+        if tuple(y.shape) != (sol.ndim,) or not bool(
                 torch.isfinite(y).all()):
             raise AssertionError("GRIDMF main path: y is not finite of "
-                                 f"shape ({system.ndim},)")
+                                 f"shape ({sol.ndim},)")
         if launches <= 0:
             raise AssertionError("GRIDMF main path: gj_inv was not launched")
         y_err = float(((y - splu_y).abs() / splu_y.abs()).max())
@@ -1737,7 +1831,8 @@ def main():
         "launches": gruns[-1]["gj_inv_launches"], **gres,
         "launches_splu_main_path": runs["warm"]["launches"]["gj_inv"],
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
-                  "pair, summed"})
+                  "pair, summed (inv_block: per factorize pair, the "
+                  "top-level pivot blocks)"})
     say("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1796,24 +1891,52 @@ def bsr_ab_times():
     return rec
 
 
+def gridmf_replay(npoint):
+    """One GRIDMF factorize pair at ``npoint`` (the leaf AUTO picks) as
+    ``gridmf_pair_record`` measures it, under keys of the npoint."""
+    plan, vr, vc, _ = gridmf_setup(npoint)
+    rec = gridmf_pair_record(plan, vr, vc)
+    del plan, vr, vc
+    torch.cuda.empty_cache()
+    return {f"gridmf_{npoint}_{k}": rec[f"factorize_pair_{k}"] for k in (
+        "device_launches", "device_ms", "profiled_wall_ms",
+        "wall_median_ms")}
+
+
+def default_path_walls(warm_runs=3):
+    """``default_path_runs``: the cold wall, the warm walls, their median
+    and spread, and the last run's counters."""
+    recs = [rec for rec, _, _ in default_path_runs(warm_runs)]
+    warm = [r["wall_s"] for r in recs[1:]]
+    return {"default_cold_wall_s": recs[0]["wall_s"],
+            "default_warm_walls_s": warm,
+            "default_warm_median_s": statistics.median(warm),
+            "default_warm_spread_s": max(warm) - min(warm),
+            "default_counters": recs[-1]["counters"]}
+
+
 def main_replay():
     """--replay [--tree DIR]: one line, the replay of this package (or
-    DIR's) on the npoint-129 factorize pair, then its BSR SpMV, SpMM and
-    SpGEMM times on the npoint-513 Jacobian."""
+    DIR's) on the npoint-129 SPLU factorize pair, one GRIDMF factorize pair
+    at npoint 129 and 513, the default path's walls at npoint 129, then its
+    BSR SpMV, SpMM and SpGEMM times on the npoint-513 Jacobian."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     rec = replay(replay_setup())
+    torch.cuda.empty_cache()
+    for npoint in (NPOINT, NPOINT_BSR):
+        rec.update(gridmf_replay(npoint))
+    rec.update(default_path_walls())
     torch.cuda.empty_cache()
     print(json.dumps({**rec, **bsr_ab_times()}), flush=True)
 
 
 def main_ab(parent, rounds):
-    """--ab PARENT [ROUNDS]: the replay and the BSR SpMV / SpMM / SpGEMM
-    times with the parent tree's package (``git archive`` of the parent commit
-    unpacked at PARENT) and with this tree's, each in its own process, in
-    turns P C C P, ROUNDS times, on one card; then the medians of each
-    kernel's device time per factorize pair and per BSR call, and the
-    ratios change / parent."""
+    """--ab PARENT [ROUNDS]: ``main_replay`` with the parent tree's package
+    (``git archive`` of the parent commit unpacked at PARENT) and with this
+    tree's, each in its own process, in turns P C C P, ROUNDS times, on one
+    card; then the medians of each number and the ratios change /
+    parent."""
     phase_device()
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(parent), "change": here}
@@ -1833,6 +1956,11 @@ def main_ab(parent, rounds):
         runs[which].append(rec)
     keys = ("splu_pairs_ms", "gather_rows_ms", "gj_inv_ms",
             "device_busy_ms", "device_launches", "profiled_wall_s",
+            *(f"gridmf_{n}_{k}" for n in (NPOINT, NPOINT_BSR) for k in (
+                "device_launches", "device_ms", "profiled_wall_ms",
+                "wall_median_ms")),
+            "default_cold_wall_s", "default_warm_median_s",
+            "default_warm_spread_s",
             "bsr_matvec_ms", "bsr_matmat_ms",
             "bsr_first_matvec_s", "bsr_first_matmat_s",
             "bsr_updated_matvec_s", "spgemm_ms", "spgemm_first_s",
@@ -1852,6 +1980,8 @@ def main_ab(parent, rounds):
         return extra_ms / saved_ms if saved_ms > 0 else None
 
     say("ab", order="P C C P", rounds=rounds, median=med,
+        counters={w: [r["default_counters"] for r in recs]
+                  for w, recs in runs.items()},
         bsr_matvec_break_even_products=break_even("bsr_matvec_ms",
                                                   "bsr_first_matvec_s"),
         bsr_matvec_break_even_after_update=break_even(
@@ -1859,15 +1989,57 @@ def main_ab(parent, rounds):
         spgemm_break_even_calls=break_even("spgemm_ms", "spgemm_first_s"),
         spgemm_break_even_after_update=break_even("spgemm_ms",
                                                   "spgemm_updated_s"),
-        device_launches_ratio=c["device_launches"] / p["device_launches"],
-        device_busy_ratio=c["device_busy_ms"] / p["device_busy_ms"],
-        profiled_wall_ratio=c["profiled_wall_s"] / p["profiled_wall_s"],
-        **{f"{k.rsplit('_', 1)[0]}_ratio": c[k] / p[k] for k in (
-            "splu_pairs_ms", "gather_rows_ms", "bsr_matvec_ms",
-            "bsr_matmat_ms", "bsr_first_matvec_s", "bsr_first_matmat_s",
-            "bsr_updated_matvec_s")},
-        **{f"{k}_ratio": c[k] / p[k] for k in (
-            "spgemm_ms", "spgemm_first_s", "spgemm_updated_s")})
+        ratio={k: c[k] / p[k] for k in keys if p[k]})
+
+
+def base_sweep(bases=BASE_SWEEP, rounds=2):
+    """The factorize pairs whose pivot inverses reach gj_inv (GRIDMF at
+    npoint 129 and 513 at the leaf AUTO picks, 513 at leaf 16, SPLU at
+    129) with ``splu.GJ_MAX_M`` set to each base of ``bases`` in turn,
+    ``rounds`` times in alternating order: the device launches, device ms
+    and profiled wall of one pair under the profiler and the median wall of
+    three, which is how GJ_MAX_M was chosen."""
+    from russell_tpu_torch.sparse import factor, splu
+    default = splu.GJ_MAX_M
+    setups = {"splu_129": lambda: replay_setup()}
+    for name, npoint, leaf in (("gridmf_129", NPOINT, None),
+                               ("gridmf_513", NPOINT_BSR, None),
+                               ("gridmf_513_leaf16", NPOINT_BSR, 16)):
+        setups[name] = (lambda npoint=npoint, leaf=leaf:
+                        gridmf_setup(npoint, leaf)[:3])
+    try:
+        for name, setup in setups.items():
+            plan, vr, vc = setup()
+            order = list(bases)
+            for rnd in range(rounds):
+                for base in (order if rnd % 2 == 0 else order[::-1]):
+                    splu.GJ_MAX_M = base
+
+                    def pair():
+                        return factor.numeric_factorize_pair(plan, vr, vc)
+                    pair()
+                    torch.cuda.synchronize()
+                    walls = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        pair()
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
+                    n0 = gj_inv_launches()
+                    ms, wall, launches = kernel_device_ms(pair)
+                    say("base_sweep", pair=name, gj_max_m=base, round=rnd,
+                        device_launches=launches,
+                        gj_inv_launches=gj_inv_launches() - n0,
+                        device_ms=sum(ms.values()),
+                        gj_inv_ms=summed(ms, "gj_inv"),
+                        gemm_ms=sum(v for k, v in ms.items()
+                                    if "gemm" in k.lower()),
+                        profiled_wall_ms=1e3 * wall,
+                        wall_median_ms=1e3 * statistics.median(walls))
+            del plan, vr, vc
+            torch.cuda.empty_cache()
+    finally:
+        splu.GJ_MAX_M = default
 
 
 def strip_sweep():
@@ -1911,6 +2083,10 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         strip_sweep()
+    elif "--base-sweep" in sys.argv:
+        phase_device()
+        phase_build()
+        base_sweep()
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

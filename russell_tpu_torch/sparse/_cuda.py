@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SPMV = [_P, _P, _P, _P, _I, _I, _P, _P]
 _SPMM = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
 _SPGEMM = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P]
@@ -55,8 +56,10 @@ _SIGNATURES = {
     # n_block_rows, bm, bn, chunk_rows, chunk_blocks, C, stream
     "spgemm_blocks": {"spgemm_blocks_f64": _SPGEMM,
                       "spgemm_blocks_c128": _SPGEMM},
-    # D, delta, w, m, Dinv, ap, piv, stream
-    "gj_inv": {"gj_inv_f64": [_P, _P, _I, _I, _P, _P, _P, _P]},
+    # D, lane stride, row stride, delta, w, m, Dinv, log|det|, min|pivot|,
+    # n_perturbed, sign, stream
+    "gj_inv": {"gj_inv_f64": [_P, _L, _L, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P]},
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -15,8 +15,8 @@ and the symbolic/numeric phases of interface_umfpack.c.
   ``splu_pairs`` CUDA kernel on the card, over a balanced work list of
   pair chunks built once per plan), subtracts them from the
   assembled values, inverts its diagonal lanes (``_inv_block``: recursive
-  Schur splitting down to a Gauss-Jordan base with MUMPS-style static
-  pivot clamping, the ``gj_inv`` CUDA kernel on the card),
+  Schur splitting above ``GJ_MAX_M``, a Gauss-Jordan base with MUMPS-style
+  static pivot clamping below it, the ``gj_inv`` CUDA kernel on the card),
   right-multiplies every other lane by a per-lane block gathered with the
   ``gather_rows`` CUDA kernel (a stored Dinv, the identity, or the row's
   freshly inverted diagonal) and writes the row's contiguous storage
@@ -48,12 +48,18 @@ from russell_tpu_torch.sparse.ordering import mindeg_ordering
 __all__ = ["SpluPlan", "splu_analyze", "splu_factorize",
            "splu_factorize_multi", "splu_solve", "splu_solve_multi",
            "splu_pairs", "gather_rows", "reset_launch_counts", "PairWork",
-           "CHUNK_PAIRS"]
+           "CHUNK_PAIRS", "GJ_MAX_M"]
 
 # most pairs in one chunk of splu_pairs' work list (_pair_chunks): the
 # longest chain one CTA walks in series (chosen from the sweep over K of
 # ``chip_smoke.py --chunk-sweep``, PERF.md)
 CHUNK_PAIRS = 4
+# the largest block the clamped Gauss-Jordan base (``_gj_inv``, the
+# ``gj_inv`` kernel, which holds up to 144 x 144 f64 in one CTA's
+# registers) takes: ``_inv_block`` splits only blocks above it, on every
+# device. The plans' pivot blocks are 32-143 or twice that; the value won
+# ``chip_smoke.py --base-sweep`` (PERF.md)
+GJ_MAX_M = 144
 
 
 @dataclass
@@ -820,44 +826,38 @@ def _device_plan(plan: SpluPlan, device):
 # ---------------------------------------------------------------------------
 
 
-def _pivot_stats(ap, piv, d):
-    """Per-lane (log|det|, min|pivot|, n_perturbed, phase) of a batched
-    clamped elimination from its pivots: ``ap`` the |pivot| before the
-    clamp and ``piv`` the clamped pivot, both (w, m); ``d`` the clamp
-    threshold."""
-    apj = piv.abs()
-    ld = apj.clamp_min(1e-300).log().sum(dim=1)
-    mp = ap.amin(dim=1)
-    npert = (ap <= d).sum(dim=1, dtype=torch.int32)
-    ph = torch.where(apj > 0, piv / apj.clamp_min(1e-300), 1.0).prod(dim=1)
-    return ld, mp, npert, ph
-
-
 def _gj_inv_plain(D, delta):
     """Plain PyTorch version of ``_gj_inv`` (the reference package's
     ``_gj_inv``, splu.py:476-513): the elimination as torch ops over the
-    batch, one step at a time. Also takes complex dtypes."""
+    batch, one step at a time, with the per-lane statistics summed step by
+    step in the reference's order. Also takes complex dtypes."""
     w, m = D.shape[0], D.shape[-1]
     dtype = D.dtype
+    rdt = D.real.dtype if D.is_complex() else dtype
     eye = torch.eye(m, dtype=dtype, device=D.device)
     # augmented [D | I] so each elimination step is ONE rank-1 update
     W = torch.cat([D, eye.expand(w, m, m)], dim=-1)
-    d = delta.to(D.real.dtype if D.is_complex() else dtype)
-    aps, pivs = [], []
+    d = delta.to(rdt)
+    ld = torch.zeros(w, dtype=rdt, device=D.device)
+    mp = torch.full((w,), float("inf"), dtype=rdt, device=D.device)
+    npert = torch.zeros(w, dtype=torch.int32, device=D.device)
+    ph = torch.ones(w, dtype=dtype, device=D.device)
     for j in range(m):
         pj = W[:, j, j]
         ap = pj.abs()
+        mp = torch.minimum(mp, ap)
+        bad = ap <= d
+        npert = npert + bad.to(torch.int32)
         unit = torch.where(ap > 0, pj / ap.clamp_min(1e-300), 1.0)
-        pj = torch.where(ap <= d, unit * d, pj)
-        aps.append(ap)
-        pivs.append(pj)
+        pj = torch.where(bad, unit * d, pj)
+        apj = pj.abs()
+        ph = ph * torch.where(apj > 0, pj / apj.clamp_min(1e-300), 1.0)
+        ld = ld + apj.clamp_min(1e-300).log()
         row = W[:, j, :] / pj[:, None]
         f = W[:, :, j].clone()
         f[:, j] = 0
         W.sub_(f[:, :, None] * row[:, None, :])
         W[:, j, :] = row
-    ld, mp, npert, ph = _pivot_stats(torch.stack(aps, dim=1),
-                                     torch.stack(pivs, dim=1), d)
     return W[:, :, m:], ld, mp, npert, ph
 
 
@@ -870,14 +870,14 @@ def _gj_inv(D, delta):
     Returns (Dinv, log|det|, min|pivot|, n_perturbed, phase) per batch
     lane; ``phase`` is the product of pivot signs (sign of the
     determinant; unit-modulus complex phase for complex dtypes). The pivot
-    bookkeeping is that of the reference package's ``_gj_inv``; the
-    per-lane statistics are reduced once after the elimination
-    (``_pivot_stats``) instead of step by step (the same values, summed in
-    another order).
+    bookkeeping and the order of its sums are the reference package's
+    ``_gj_inv``.
 
     A CPU tensor takes the plain version (``_gj_inv_plain``); a CUDA
-    tensor launches ``csrc/gj_inv.cu`` (float64, 1 <= m <= 32; ``delta``
-    is read on the card, so the host does not wait) or raises."""
+    tensor launches ``csrc/gj_inv.cu`` once, which returns the inverse and
+    the statistics (float64, 1 <= m <= ``GJ_MAX_M``, rows of a view read in
+    place when its last dimension is contiguous; ``delta`` is read on the
+    card, so the host does not wait), or raises."""
     if D.device.type == "cpu":
         return _gj_inv_plain(D, delta)
     if D.device.type != "cuda":
@@ -885,32 +885,35 @@ def _gj_inv(D, delta):
     if D.dtype != torch.float64:
         raise TypeError(f"gj_inv: the kernel takes float64, got {D.dtype}")
     w, m = D.shape[0], D.shape[-1]
-    if D.dim() != 3 or D.shape[1] != m or not 1 <= m <= 32:
+    if D.dim() != 3 or D.shape[1] != m or not 1 <= m <= GJ_MAX_M:
         raise ValueError(f"gj_inv: the kernel takes (w, m, m) with "
-                         f"1 <= m <= 32, got {tuple(D.shape)}")
-    D = D.contiguous()
+                         f"1 <= m <= {GJ_MAX_M}, got {tuple(D.shape)}")
+    if D.stride(-1) != 1:
+        D = D.contiguous()
     d = torch.as_tensor(delta, dtype=torch.float64, device=D.device)
     if d.numel() != 1:
         raise ValueError("gj_inv: delta must hold one value")
     d = d.reshape(()).contiguous()
-    Dinv = torch.empty_like(D)
-    ap = torch.empty((w, m), dtype=D.dtype, device=D.device)
-    piv = torch.empty((w, m), dtype=D.dtype, device=D.device)
+    Dinv = torch.empty((w, m, m), dtype=D.dtype, device=D.device)
+    ld, mp, ph = (torch.empty(w, dtype=D.dtype, device=D.device)
+                  for _ in range(3))
+    npert = torch.empty(w, dtype=torch.int32, device=D.device)
     if w:
         fn = _cuda.library("gj_inv").gj_inv_f64
         _cuda.launch_check("gj_inv", fn(
-            D.data_ptr(), d.data_ptr(), w, m, Dinv.data_ptr(), ap.data_ptr(),
-            piv.data_ptr(), _cuda.stream_of(D)))
+            D.data_ptr(), D.stride(0), D.stride(1), d.data_ptr(), w, m,
+            Dinv.data_ptr(), ld.data_ptr(), mp.data_ptr(), npert.data_ptr(),
+            ph.data_ptr(), _cuda.stream_of(D)))
         _gj_inv.launches += 1
-    return (Dinv, *_pivot_stats(ap, piv, d))
+    return Dinv, ld, mp, npert, ph
 
 
 def _inv_block(D, delta):
     """Batched inverse of (w, m, m) via recursive 2x2 Schur splitting down
-    to a Gauss-Jordan base (the products are batched GEMMs).
-    log|det D| = log|det A| + log|det S|."""
+    to a Gauss-Jordan base of at most ``GJ_MAX_M`` (the products are
+    batched GEMMs). log|det D| = log|det A| + log|det S|."""
     m = D.shape[-1]
-    if m <= 32:
+    if m <= GJ_MAX_M:
         return _gj_inv(D, delta)
     h = m // 2
     A, B = D[:, :h, :h], D[:, :h, h:]

@@ -564,45 +564,74 @@ def _gj_inputs(w, m, seed, device):
     return torch.as_tensor(D, device=device)
 
 
-@pytest.mark.parametrize("m", [1, 16, 17, 32])
+def _device_kernels(fn):
+    """Names of the device kernels (and copies) that ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            names += [e.key] * e.count
+    return names
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 33, 64, 67, 128,
+                               splu.GJ_MAX_M])
 @pytest.mark.parametrize("w", [1, 64])
 def test_gj_inv_matches_plain_version(cuda, m, w):
     D = _gj_inputs(w, m, 10 * m + w, cuda)
     delta = torch.tensor(1e-14, dtype=torch.float64, device=cuda)
     wide = torch.zeros((w, m + 3, m + 3), dtype=torch.float64, device=cuda)
     wide[:, :m, :m] = D
+    splu._gj_inv(wide[:, :m, :m], delta)    # the library loads
     n0 = splu._gj_inv.launches
-    got = splu._gj_inv(wide[:, :m, :m], delta)   # a view: made contiguous
+    out = []
+    # a view, read in place: one kernel, the statistics its own outputs
+    names = _device_kernels(
+        lambda: out.append(splu._gj_inv(wide[:, :m, :m], delta)))
+    got = out[0]
     assert splu._gj_inv.launches == n0 + 1
+    assert len(names) == 1 and "gj_inv" in names[0], names
     want = splu._gj_inv_plain(D, delta)
     # the same elimination, each product and difference rounded as torch
     # rounds them: the same bits
     assert torch.equal(got[0], want[0])
-    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0)
     for g, p in zip(got[2:], want[2:]):
         assert torch.equal(g, p)
     n_clamped = 1 if w == m == 1 else 2
     assert int(got[3].sum()) == n_clamped
     assert float(got[2].min()) == 0.0
-    # and both reach the same kernel through _inv_block beyond 32
-    if m == 32:
-        big = _gj_inputs(w, 64 + m, m, cuda)
-        n0 = splu._gj_inv.launches
-        got = splu._inv_block(big, delta)
-        assert splu._gj_inv.launches > n0
-        cpu = splu._inv_block(big.cpu(), delta.cpu())
-        torch.testing.assert_close(got[0].cpu(), cpu[0], rtol=1e-11,
-                                   atol=1e-12)
-        torch.testing.assert_close(got[1].cpu(), cpu[1], rtol=1e-12, atol=0)
-        torch.testing.assert_close(got[2].cpu(), cpu[2], rtol=1e-12, atol=0)
-        assert torch.equal(got[3].cpu(), cpu[3])
-        assert torch.equal(got[4].cpu(), cpu[4])
+
+
+def test_inv_block_on_card_matches_cpu(cuda):
+    # 272 = 2 x 136: one Schur split above the base on both devices; the
+    # two base calls give the same bits, the split's GEMMs (cuBLAS against
+    # the CPU's) round apart
+    m = 272
+    big = _gj_inputs(64, m, m, cuda)
+    delta = torch.tensor(1e-14, dtype=torch.float64, device=cuda)
+    n0 = splu._gj_inv.launches
+    got = splu._inv_block(big, delta)
+    assert splu._gj_inv.launches == n0 + 2
+    cpu = splu._inv_block(big.cpu(), delta.cpu())
+    torch.testing.assert_close(got[0].cpu(), cpu[0], rtol=1e-11, atol=1e-12)
+    torch.testing.assert_close(got[1].cpu(), cpu[1], rtol=1e-12, atol=0)
+    torch.testing.assert_close(got[2].cpu(), cpu[2], rtol=1e-12, atol=0)
+    assert torch.equal(got[3].cpu(), cpu[3])
+    assert torch.equal(got[4].cpu(), cpu[4])
 
 
 def test_gj_inv_raises_on_what_the_kernel_does_not_take(cuda):
     delta = torch.tensor(1e-14, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):     # m 33: the recursion's business
-        splu._gj_inv(torch.zeros((2, 33, 33), dtype=torch.float64,
+    m = splu.GJ_MAX_M + 1               # above the base: the recursion's
+    with pytest.raises(ValueError):
+        splu._gj_inv(torch.zeros((2, m, m), dtype=torch.float64,
                                  device=cuda), delta)
     with pytest.raises(TypeError):      # no complex kernel: K embedding
         splu._gj_inv(torch.zeros((2, 4, 4), dtype=torch.complex128,

@@ -1,5 +1,5 @@
-"""russell_tpu_torch never imports jax (nor russell_tpu), and neither does
-chip_smoke.py."""
+"""russell_tpu_torch never imports jax (nor russell_tpu), and neither do
+chip_smoke.py and gj_inv_variants.py."""
 
 import os
 import pkgutil
@@ -39,7 +39,7 @@ def test_port_modules_import_without_jax():
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "sys.path.insert(0, '.')\n"
-        "import chip_smoke\n"
+        "import chip_smoke, gj_inv_variants\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'russell_tpu'))\n"
         "assert not bad, bad\n"
