@@ -5,7 +5,9 @@ Drives the port's paths and checks them. The main path is Radau5 on the
 2-D Brusselator PDE: with default Params (genie AUTO), which routes it to
 GRIDMF, whose pivot-block inverses run the CUDA kernel ``gj_inv``; and
 through the SPLU solver, whose factorize rows run ``splu_pairs``,
-``gather_rows`` and ``gj_inv``. The BSR path is the sparse products of
+``gather_rows`` and ``gj_inv``. The ODE surface beside it: the Fortran
+oracles on the card, DoPri5/DoPri8 on the Brusselator, BwEuler through
+GRIDMF and Radau5 through the DENSE route. The BSR path is the sparse products of
 ``russell_tpu_torch.sparse`` — ``bsr_from_coo`` → ``bsr_matvec`` /
 ``bsr_matmat`` and ``spgemm_plan`` → ``spgemm`` — whose CUDA kernels are
 ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``, in float64 and
@@ -55,7 +57,30 @@ complex128.
 12. replay: one whole SPLU factorize pair under torch.profiler: each SPLU
    kernel's summed device time beside the bound of the same work, and
    the pair's device launches;
-13. bsr_kernels: each BSR kernel against its plain version on the card on
+13. ode_samples: the radau5.f, dopri5.f, dop853.f and Euler oracles of
+   tests/test_ode.py on the card with the default genie AUTO (DENSE for
+   these systems): Radau5 on van der Pol, Robertson, Hairer-Wanner eq. 1
+   and amplifier1t, DoPri5 on Hairer-Wanner and Arenstorf, DoPri8 on van
+   der Pol, BwEuler and MdEuler on Hairer-Wanner; counters exact, y
+   within the tolerances given there;
+14. erk_path: DoPri5 and DoPri8 on the npoint-129 Brusselator (tolerances
+   1e-4, t in [0, 1]) with stiffness detection recorded and dense stations
+   every 0.1, on the card and on the CPU in this run: counters exact, y
+   and stations at rtol 1e-10; then DoPri5 on the npoint-513 Brusselator
+   on the card (y finite); each with its steps, wall, device launches per
+   step and device busy share (profiled; at npoint 513 over the window t
+   in [0, ERK_WINDOW_X1]) and where stiffness was detected;
+15. bweuler_path: BwEuler on the npoint-129 Brusselator with default
+   Params (AUTO → GRIDMF, so ``gj_inv`` runs) at equal steps of
+   BWEULER_H: counters, wall, factorizations, ``gj_inv`` launches, y
+   finite, and the last Newton solve's residual <= 1e-10;
+16. dense_factor: Radau5 with default Params on the npoint-24 Brusselator
+   (ndim 1,152 <= dense_threshold: AUTO → DENSE, grid hint or not) on the
+   card and on the CPU (counters exact, y at rtol 1e-10); one factorize
+   pair at the replay's shifts: residuals <= 1e-12, log|det|, min|pivot|
+   and sign at rtol 1e-12 of the CPU's, the pair's and a solve pair's
+   times per call;
+17. bsr_kernels: each BSR kernel against its plain version on the card on
    the npoint-129 Brusselator Jacobian (8x128 blocks for SpMV and SpMM at
    m = 16, 16x16 blocks for A·A): the kernel's, the plain version's and
    the library call's time with the L2 flushed before each call (``ms``:
@@ -73,17 +98,17 @@ complex128.
    output form (``spgemm_work``: the live entries once, C written once)
    beside the bound over stored blocks (``stored_bound_ms``); two more
    launches of each kernel must give the same bits;
-14. bsr_path: the BSR path through the public entry points on the
+18. bsr_path: the BSR path through the public entry points on the
    npoint-513 Brusselator Jacobian J(y0) (n 526,338), with launch counts
    and peak device memory; then each product held against its kernel's
    plain version on the same inputs (every entry) and against scipy on
-   the host, with the numbers of phase 13, nnz/s, GB/s and roofline share
+   the host, with the numbers of phase 17, nnz/s, GB/s and roofline share
    at these shapes. The kernels line reports the BSR kernels from this
    phase: measured numbers and the bound only (shares, the stored-block
    bounds, the layouts and first calls stay in the phase's lines);
-15. bsr_complex: the three BSR products on complex128 matrices (J(y0) +
+19. bsr_complex: the three BSR products on complex128 matrices (J(y0) +
    0.3 i noise at npoint 129 and 513), each against its plain version and
-   scipy, launched twice more for bit identity, timed as in phase 13; the
+   scipy, launched twice more for bit identity, timed as in phase 17; the
    kernels line carries the npoint-513 numbers under ``complex128``.
 
 Every phase raises on failure, so the exit code is non-zero. The line
@@ -1754,6 +1779,373 @@ def phase_bsr_complex():
         torch.cuda.empty_cache()
     return out[NPOINT_BSR]
 
+# -- the ODE surface: samples, ERK, BwEuler and the DENSE route --------------
+
+NPOINT_DENSE = 24     # ndim 1,152 <= dense_threshold: AUTO takes DENSE
+ERK_WINDOW_X1 = 0.05  # the profiled window of the npoint-513 DoPri5 run
+BWEULER_H = 0.01      # BwEuler's equal step (PERF.md §5: 0.1 diverges)
+
+
+def ode_run(name, sample, method, x1=None, h_ini=None, tol=None,
+            dense_h=None, h_equal=None, sample_args=(), y0=None, x0=None):
+    """One OdeSolver run on the card with default Params apart from the
+    named ones; returns (record, solver, y on the host, dense Output or
+    None)."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Output, Params
+    from russell_tpu_torch.ode import samples
+    res = getattr(samples, sample)(*sample_args)
+    system = res[0]
+    x0 = res[1] if x0 is None else x0
+    y0 = res[2] if y0 is None else y0
+    if x1 is None:
+        x1 = res[3]
+    params = Params(Method[method])
+    if h_ini is not None:
+        params.step.h_ini = h_ini
+    if tol is not None:
+        params.set_tolerances(*tol)
+    out = None
+    if dense_h is not None:
+        out = Output().set_dense_h_out(dense_h).set_dense_recording(
+            list(range(system.ndim)))
+    sol = OdeSolver(params, system, "cuda")
+    t0 = time.perf_counter()
+    y = sol.solve(y0, x0, x1, h_equal=h_equal, output=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sol.stats()
+    rec = {"name": name, "method": method, "wall_s": wall,
+           "counters": counters(st), "h_accepted": st.h_accepted,
+           "y": y.cpu().tolist()}
+    plan = getattr(sol.actual, "plan", None)
+    if plan is not None:
+        rec["genie"] = plan.genie.name
+    return rec, sol, np.asarray(rec["y"]), out
+
+
+def phase_ode_samples():
+    """The Fortran oracles of tests/test_ode.py on the card, through the
+    default genie AUTO (DENSE for these small systems): counters exact, y
+    within the tolerances given there."""
+    from russell_tpu_torch.ode import samples
+    runs, bad = [], []
+
+    def check(rec, want, y_want=(), h_want=None):
+        """want: {counter: value}; y_want: [(index, value, tol)]."""
+        got = {k: rec["counters"][k] for k in want}
+        if got != want:
+            bad.append(f"{rec['name']}: counters {got} != {want}")
+        for i, v, tol in y_want:
+            if not abs(rec["y"][i] - v) < tol:
+                bad.append(f"{rec['name']}: y[{i}] {rec['y'][i]} off {v} "
+                           f"by >= {tol}")
+        if h_want is not None and not abs(rec["h_accepted"] - h_want[0]) \
+                < h_want[1]:
+            bad.append(f"{rec['name']}: h_accepted {rec['h_accepted']}")
+        if rec.get("genie", "DENSE") != "DENSE":
+            bad.append(f"{rec['name']}: genie {rec['genie']}, not DENSE")
+        runs.append(rec)
+
+    # Radau5 (tests/test_ode.py:47, :362, :34, :97)
+    rec, *_ = ode_run("radau5_van_der_pol", "van_der_pol", "RADAU5",
+                      h_ini=1e-6, dense_h=0.2, sample_args=(1e-6, False))
+    check(rec, {"n_function": 2249, "n_jacobian": 162, "n_factor": 253,
+                "n_lin_sol": 668, "n_steps": 280, "n_accepted": 242,
+                "n_rejected": 8, "n_iterations": 2, "n_iterations_max": 6},
+          [(0, 1.706163410178079, 1e-12), (1, -8.927971289301175e-01,
+                                           1e-11)],
+          (1.510987221365367e-01, 1e-6))
+    rec, *_ = ode_run("radau5_robertson", "robertson", "RADAU5", x1=0.3,
+                      h_ini=1e-6, tol=(1e-8, 1e-2))
+    check(rec, {"n_function": 88, "n_jacobian": 8, "n_factor": 15,
+                "n_lin_sol": 24, "n_steps": 17, "n_accepted": 15,
+                "n_rejected": 1},
+          [(0, 9.886740138499884e-01, 1e-15), (1, 3.447720471782070e-05,
+                                               1e-15),
+           (2, 1.129150894529390e-02, 1e-15)], (8.160578540333708e-01,
+                                                1e-10))
+    y_fn = samples.hairer_wanner_eq1()[4]
+    rec, *_ = ode_run("radau5_hairer_wanner", "hairer_wanner_eq1", "RADAU5",
+                      x1=1.5, h_ini=1e-4)
+    check(rec, {}, [(0, float(y_fn(1.5, None)[0]), 5e-5)])
+    if not (rec["counters"]["n_accepted"] > 0
+            and rec["counters"]["n_jacobian"] >= 1):
+        bad.append("radau5_hairer_wanner: no accepted step or Jacobian")
+    rec, *_ = ode_run("radau5_amplifier1t", "amplifier1t", "RADAU5", x1=0.05,
+                      h_ini=1e-6, tol=(1e-4, 1e-4))
+    check(rec, {"n_function": 1511, "n_jacobian": 126, "n_factor": 166,
+                "n_lin_sol": 461, "n_steps": 166, "n_accepted": 127,
+                "n_rejected": 6, "n_iterations_max": 5},
+          [(0, -2.226517868073645e-02, 1e-10), (1, 3.068700099735197, 1e-10),
+           (2, 2.898340496450958, 1e-9), (3, 2.033525366489690, 1e-7),
+           (4, -2.269179823457655, 1e-7)], (7.791381954171996e-04, 1e-6))
+    # DoPri5, DoPri8 (tests/test_ode.py:16, :321, :342)
+    rec, _, _, out = ode_run("dopri5_hairer_wanner", "hairer_wanner_eq1",
+                             "DOPRI5", x1=1.5, h_ini=1e-4, dense_h=0.1)
+    check(rec, {"n_function": 235, "n_steps": 39, "n_accepted": 39,
+                "n_rejected": 0}, [(0, 9.063921649310544e-02, 1e-13)])
+    if len(out.dense_x()) != 16:
+        bad.append("dopri5_hairer_wanner: not 16 dense stations")
+    rec, *_ = ode_run("dopri5_arenstorf", "arenstorf", "DOPRI5", h_ini=1e-4,
+                      tol=(1e-7, 1e-7))
+    check(rec, {"n_function": 1429, "n_steps": 238, "n_accepted": 217,
+                "n_rejected": 21},
+          [(0, 9.940021704030663e-01, 1e-11), (1, 9.040891036151961e-06,
+                                               1e-11),
+           (2, 1.459758305600828e-03, 1e-9), (3, -2.001245515834718, 1e-9)],
+          (5.258587607119909e-04, 1e-10))
+    rec, *_ = ode_run("dopri8_van_der_pol", "van_der_pol", "DOPRI8", x1=2.0,
+                      h_ini=1e-6, tol=(1e-9, 1e-9), dense_h=0.1,
+                      sample_args=(1e-3, False), y0=np.array([2.0, 0.0]),
+                      x0=0.0)
+    check(rec, {"n_steps": 1469, "n_accepted": 1348, "n_rejected": 121,
+                "n_function": 21553 - 2},
+          [(0, 1.763234540172087, 1e-13), (1, -8.356886819301910e-01,
+                                           1e-12)])
+    # Euler (tests/test_ode.py:516, :529)
+    rec, *_ = ode_run("bweuler_hairer_wanner", "hairer_wanner_eq1",
+                      "BW_EULER", x1=1.5, h_equal=1.875 / 50.0)
+    check(rec, {"n_function": 80, "n_jacobian": 40, "n_factor": 40,
+                "n_lin_sol": 40, "n_steps": 40, "n_accepted": 40,
+                "n_rejected": 0, "n_iterations_max": 2},
+          [(0, 0.09060476604187756, 1e-15)])
+    rec, *_ = ode_run("mdeuler_hairer_wanner", "hairer_wanner_eq1",
+                      "MD_EULER", x1=1.5, h_ini=1e-4)
+    check(rec, {"n_function": 424, "n_jacobian": 0, "n_factor": 0,
+                "n_lin_sol": 0, "n_steps": 212, "n_accepted": 212,
+                "n_rejected": 0}, [(0, 0.09062475637905158, 1e-16)])
+    say("ode_samples", runs=[{k: v for k, v in r.items() if k != "y"}
+                             | {"y": r["y"][:5]} for r in runs],
+        failures=bad)
+    if bad:
+        raise AssertionError("ode_samples: " + "; ".join(bad))
+
+
+def erk_brusselator(method, npoint, dev, x1=1.0, profile=False):
+    """DoPri5 or DoPri8 on the npoint Brusselator (alpha ALPHA, tolerances
+    1e-4, t in [0, x1]) with stiffness detection on (recorded, not raised)
+    and dense stations every 0.1 handed to a callback; returns a record,
+    y and the stations [(x, y on the host)]."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Output, Params
+    from russell_tpu_torch.ode import samples
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, npoint)
+    params = Params(Method[method])
+    params.set_tolerances(1e-4, 1e-4)
+    params.stiffness.enabled = True
+    params.stiffness.stop_with_error = False
+    params.stiffness.save_results = True
+    stations = []
+
+    def keep(stats, h, x, y, args):
+        stations.append((x, y))
+        return False
+
+    out = Output().set_dense_h_out(0.1).set_dense_callback(keep)
+    sol = OdeSolver(params, system, dev)
+    rec = {"method": method, "npoint": npoint, "ndim": system.ndim,
+           "device": str(dev), "x1": x1}
+    if profile:
+        ms, wall, launches = kernel_device_ms(
+            lambda: sol.solve(y0, t0, x1, output=out))
+        rec.update(profiled_wall_s=wall, device_ms=sum(ms.values()),
+                   device_launches=launches)
+        return rec, None, None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    y = sol.solve(y0, t0, x1, output=out)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t_start
+    st = sol.stats()
+    rec.update(counters=counters(st), h_accepted=st.h_accepted,
+               stiff_detected=len(out.stiff_x()) > 0,
+               stiff_x=list(out.stiff_x()),
+               stiff_step_index=list(out.stiff_step_index),
+               stations=len(stations))
+    return rec, y, stations
+
+
+def phase_erk_path():
+    """DoPri5 and DoPri8 on the npoint-129 Brusselator on the card and on
+    the CPU in this run (counters exact, y and the dense stations at rtol
+    1e-10), then DoPri5 on the npoint-513 Brusselator on the card (y
+    finite); each with its wall, device launches per step and device busy
+    share (the profiled run's device time over the unprofiled run's
+    wall)."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    out = []
+    for method, npoint, with_cpu in (("DOPRI5", NPOINT, True),
+                                     ("DOPRI8", NPOINT, True),
+                                     ("DOPRI5", NPOINT_BSR, False)):
+        rec, y, stations = erk_brusselator(method, npoint, cuda)
+        n_steps = rec["counters"]["n_steps"]
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"erk_path {method} {npoint}: y not finite")
+        if npoint == NPOINT:
+            prof, _, _ = erk_brusselator(method, npoint, cuda, profile=True)
+            rec["launches_per_step"] = prof["device_launches"] / n_steps
+            rec["device_busy_share"] = prof["device_ms"] / 1e3 / rec["wall_s"]
+        else:
+            # a window: the whole run's trace is ~10^6 events
+            win, _, _ = erk_brusselator(method, npoint, cuda,
+                                        x1=ERK_WINDOW_X1)
+            prof, _, _ = erk_brusselator(method, npoint, cuda,
+                                         x1=ERK_WINDOW_X1, profile=True)
+            w_steps = win["counters"]["n_steps"]
+            rec["window"] = {"x1": ERK_WINDOW_X1, "steps": w_steps,
+                             "wall_s": win["wall_s"], **{
+                                 k: prof[k] for k in (
+                                     "profiled_wall_s", "device_ms",
+                                     "device_launches")}}
+            rec["launches_per_step"] = prof["device_launches"] / w_steps
+            rec["device_busy_share"] = (prof["device_ms"] / 1e3
+                                        / win["wall_s"])
+            rec["wall_per_step_ms"] = 1e3 * rec["wall_s"] / n_steps
+        if with_cpu:
+            crec, cy, cstations = erk_brusselator(method, npoint, cpu)
+            rec["cpu_wall_s"] = crec["wall_s"]
+            rec["counters_equal_cpu"] = crec["counters"] == rec["counters"]
+            rec["y_max_rel_err_vs_cpu"] = float(
+                ((y.cpu() - cy).abs() / cy.abs()).max())
+            say("erk_path", **rec)
+            if crec["counters"] != rec["counters"]:
+                raise AssertionError(f"erk_path {method}: counters "
+                                     f"{rec['counters']} != the CPU's "
+                                     f"{crec['counters']}")
+            torch.testing.assert_close(y.cpu(), cy, rtol=1e-10, atol=0)
+            if len(stations) != len(cstations):
+                raise AssertionError("erk_path: station counts differ")
+            for (x, ys), (cx, cys) in zip(stations, cstations):
+                if x != cx:
+                    raise AssertionError(f"erk_path: station x {x} != {cx}")
+                np.testing.assert_allclose(ys, cys, rtol=1e-10, atol=0)
+        else:
+            say("erk_path", **rec)
+        out.append(rec)
+        del y
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bweuler_path():
+    """BwEuler on the npoint-129 Brusselator with default Params (AUTO →
+    GRIDMF, so gj_inv runs) and equal steps of BWEULER_H: counters, wall,
+    factorizations, gj_inv launches, y finite, and the last Newton solve's
+    max|A x - b| / max|b| <= 1e-10."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+    from russell_tpu_torch.sparse import factor
+    from russell_tpu_torch.sparse.enums import Genie
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    t_a = time.perf_counter()
+    sol = OdeSolver(Params(Method.BW_EULER), system, "cuda")
+    analyze_s = time.perf_counter() - t_a
+    if sol.actual.plan.genie != Genie.GRIDMF:
+        raise AssertionError(f"BwEuler: AUTO picked {sol.actual.plan.genie}")
+    last = {}
+    solve = sol.actual._solve
+
+    def solve_and_keep(r):
+        last["b"], last["x"] = r, solve(r)
+        return last["x"]
+
+    sol.actual._solve = solve_and_keep
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    y = sol.solve(y0, t0, 1.0, h_equal=BWEULER_H)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = gj_inv_launches()
+    r = factor._residual(sol.actual.plan, sol.actual._fac, last["x"],
+                         last["b"])
+    resid = float(r.abs().max() / last["b"].abs().max())
+    st = sol.stats()
+    say("bweuler_path", npoint=NPOINT, ndim=system.ndim, h_equal=BWEULER_H,
+        genie=sol.actual.plan.genie.name, analyze_s=analyze_s, wall_s=wall,
+        counters=counters(st), n_factor=st.n_factor,
+        gj_inv_launches=launches, last_solve_residual=resid,
+        nanos_factor_max=st.nanos_factor_max,
+        nanos_lin_sol_max=st.nanos_lin_sol_max,
+        y_min=float(y.min()), y_max=float(y.max()))
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("bweuler_path: y not finite")
+    if launches <= 0:
+        raise AssertionError("bweuler_path: gj_inv was not launched")
+    if not resid <= 1e-10:
+        raise AssertionError(f"bweuler_path: residual {resid} > 1e-10")
+
+
+def phase_dense_factor():
+    """Radau5 with default Params on the npoint-24 Brusselator (ndim 1,152,
+    AUTO → DENSE with the grid hint) on the card and on the CPU in this run
+    (counters exact, y at rtol 1e-10); then one factorize pair at the
+    replay's shifts on both devices: residuals <= 1e-12 on the card,
+    log|det|, min|pivot| and sign (phase) at rtol 1e-12 of the CPU's, and
+    the pair's and a solve pair's device times."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+    from russell_tpu_torch.sparse import factor
+    from russell_tpu_torch.sparse.enums import Genie
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT_DENSE)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sol = OdeSolver(Params(Method.RADAU5), system, dev)
+        if sol.actual.plan.genie != Genie.DENSE:
+            raise AssertionError(f"npoint {NPOINT_DENSE}: AUTO picked "
+                                 f"{sol.actual.plan.genie}")
+        t_start = time.perf_counter()
+        y = sol.solve(y0, t0, 1.0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (time.perf_counter() - t_start, counters(sol.stats()),
+                    y.cpu(), sol)
+    (wall, got, y, sol), (cwall, cgot, cy, csol) = res["cuda"], res["cpu"]
+    rec = {"npoint": NPOINT_DENSE, "ndim": system.ndim, "wall_s": wall,
+           "cpu_wall_s": cwall, "counters": got,
+           "y_max_rel_err_vs_cpu": float(((y - cy).abs() / cy.abs()).max())}
+    if got != cgot:
+        say("dense_factor", **rec, cpu_counters=cgot)
+        raise AssertionError(f"dense_factor: counters {got} != CPU {cgot}")
+    torch.testing.assert_close(y, cy, rtol=1e-10, atol=0)
+    # one factorize pair at y0 with the replay's h
+    jv = torch.as_tensor(system.jacobian(t0, torch.as_tensor(y0), None)
+                         .numpy())
+    facs = {}
+    for dev, s in (("cuda", sol), ("cpu", csol)):
+        facs[dev] = s.actual._factorize(jv.to(dev), H_REPLAY)
+    plan = sol.actual.plan
+    fr, fc = facs["cuda"]
+    g = torch.Generator().manual_seed(SEED)
+    br = torch.randn(system.ndim, generator=g, dtype=torch.float64)
+    bc = torch.complex(torch.randn(system.ndim, generator=g,
+                                   dtype=torch.float64),
+                       torch.randn(system.ndim, generator=g,
+                                   dtype=torch.float64))
+    brd, bcd = br.cuda(), bc.cuda()
+    xr, xc = factor.factor_solve_pair(plan, fr, fc, brd, bcd, refine_steps=0)
+    stats = {}
+    for kind, f, cf, x, b in (("real", fr, facs["cpu"][0], xr, brd),
+                              ("complex", fc, facs["cpu"][1], xc, bcd)):
+        r = factor._residual(plan, f, x, b)
+        stats[kind] = {"residual": float(r.abs().max() / b.abs().max())}
+        for k in ("logdet", "min_pivot", "phase"):
+            got_v, want_v = f[k].cpu(), cf[k]
+            stats[kind][k] = ([float(got_v.real), float(got_v.imag)]
+                              if got_v.is_complex() else float(got_v))
+            torch.testing.assert_close(got_v, want_v, rtol=1e-12, atol=0,
+                                       msg=lambda m: f"dense {kind} {k}: {m}")
+        if not stats[kind]["residual"] <= 1e-12:
+            raise AssertionError(f"dense_factor: {kind} residual "
+                                 f"{stats[kind]['residual']} > 1e-12")
+    # per call, CUDA events around each: the host's launches included
+    jvd = jv.cuda()
+    rec.update(
+        pair=stats, factorize_pair_ms=call_ms(
+            lambda: sol.actual._factorize(jvd, H_REPLAY), reps=10),
+        solve_pair_ms=call_ms(lambda: factor.factor_solve_pair(
+            plan, fr, fc, brd, bcd, refine_steps=0), reps=10))
+    say("dense_factor", **rec)
+
 
 def main():
     t_start = time.perf_counter()
@@ -1781,6 +2173,10 @@ def main():
     gres = phase_gj_inv(plan, gplans)
     del gplans
     rep = phase_replay(plan)
+    phase_ode_samples()
+    phase_erk_path()
+    phase_bweuler_path()
+    phase_dense_factor()
     phase_bsr_kernels()
     bsr_launches, bres = phase_bsr_path()
     cres = phase_bsr_complex()

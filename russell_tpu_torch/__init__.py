@@ -5,19 +5,24 @@ A second package beside ``russell_tpu``, written for one NVIDIA H100.
 is held against. Module names mirror ``russell_tpu``'s, so each module's
 counterpart is found under the same path.
 
-The port goes slice by slice (ROADMAP.md). So far: the Radau5 stepper on
-the SPLU sparse solver, and the sparse formats with the BSR products:
+The port goes slice by slice (ROADMAP.md). So far: the ODE solver
+surface on the DENSE, SPLU and GRIDMF sparse solvers, and the sparse
+formats with the BSR products:
 
-- ``ode``    : Radau5 host stepper, parameters, statistics, samples
-               (the 2-D Brusselator PDE and van der Pol)
+- ``ode``    : OdeSolver with every method (Radau5, forward and backward
+               Euler, the 13 explicit Runge-Kutta tableaux), Output with
+               dense output, analytic, autodiff and numerical Jacobians,
+               parameters, statistics, stiffness detection, the
+               reference's samples
 - ``sparse`` : COO/CSR/CSC matrices, samples, MatrixMarket I/O,
                VerifyLinSys, orderings, SPLU (host plan + numeric scan
-               with its two CUDA kernels), the SPLU path of ``factor``,
-               BSR SpMV/SpMM and block SpGEMM (three CUDA kernels)
+               with its CUDA kernels), GRIDMF, the DENSE, SPLU and GRIDMF
+               paths of ``factor``, the numerical Jacobian, BSR SpMV/SpMM
+               and block SpGEMM (three CUDA kernels)
 - ``native`` : the host C++ symbolic engine (orderings, block fill)
 - ``csrc``   : the CUDA kernels, built with nvcc at first use
-- ``interop``: SPLU plans and factors, BSR matrices and SpGEMM plans to
-               and from ``russell_tpu``'s
+- ``interop``: SPLU plans and factors, DENSE factors, BSR matrices and
+               SpGEMM plans to and from ``russell_tpu``'s
 
 Tensors are f64/complex128 and live on an explicit ``device``: the card
 ("cuda") unless the caller asks for the CPU. This package never imports

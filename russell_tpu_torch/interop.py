@@ -1,5 +1,5 @@
-"""SPLU plans and factors, BSR matrices and SpGEMM plans to and from the
-reference package's.
+"""SPLU plans and factors, DENSE factors, BSR matrices and SpGEMM plans to
+and from the reference package's.
 
 ``russell_tpu`` (JAX) is the reference this package is held against.
 These helpers carry a SPLU plan and a SPLU factorization, a BSR matrix and
@@ -10,7 +10,11 @@ for it is returned as the keyword arguments of its dataclass.
 
 A SPLU factor dict holds ``blocks`` (K-embedding layout for complex
 matrices), ``logdet``, ``min_pivot``, ``n_perturbed``, ``phase`` and, when
-it came from ``factor``, ``rs``, ``cs`` and ``data``.
+it came from ``factor``, ``rs``, ``cs`` and ``data``. A DENSE factor dict
+holds ``lu``, ``piv``, ``rs``, ``cs``, ``logdet``, ``phase``,
+``min_pivot`` and ``data``; its ``piv`` is 0-based in the reference
+package (``jax.scipy.linalg.lu_factor``) and 1-based here
+(``torch.linalg.lu_factor_ex``), and the converters shift it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
 from russell_tpu_torch.sparse.splu import SpluPlan
 
 __all__ = ["splu_plan_from", "splu_plan_fields", "factor_to_torch",
-           "factor_to_numpy", "bsr_fields", "bsr_from", "spgemm_plan_from"]
+           "factor_to_numpy", "dense_factor_to_torch", "dense_factor_to_numpy",
+           "bsr_fields", "bsr_from", "spgemm_plan_from"]
 
 
 def splu_plan_fields(plan) -> dict:
@@ -69,6 +74,24 @@ def factor_to_torch(fac: dict, device="cuda") -> dict:
 def factor_to_numpy(fac: dict) -> dict:
     """A SPLU factor dict of tensors as numpy arrays on the host."""
     return {k: v.detach().cpu().numpy() for k, v in fac.items()}
+
+
+def dense_factor_to_torch(fac: dict, device="cuda") -> dict:
+    """A DENSE factor dict of numpy arrays with the reference package's
+    0-based ``piv`` as tensors on ``device``, ``piv`` 1-based int32."""
+    out = factor_to_torch({k: v for k, v in fac.items() if k != "piv"},
+                          device)
+    out["piv"] = torch.as_tensor(
+        np.asarray(fac["piv"]).astype(np.int32) + 1, device=out["lu"].device)
+    return out
+
+
+def dense_factor_to_numpy(fac: dict) -> dict:
+    """A DENSE factor dict of tensors as numpy arrays on the host, ``piv``
+    0-based as in the reference package."""
+    out = factor_to_numpy(fac)
+    out["piv"] = out["piv"] - 1
+    return out
 
 
 def _host(v):

@@ -13,19 +13,23 @@ radau5.f; constants from radau5.f).
   device; the convergence/divergence control (θ, η — radau5.f lines
   914-967) runs on the host in f64 so the statistics counters match the
   Fortran oracles exactly.
-- The Gustafsson predictive controller (radau5.rs:589) follows the
-  reference formulas. Dense output is a later slice (ROADMAP.md).
+- Collocation dense output and the Gustafsson predictive controller
+  (radau5.rs:589) follow the reference formulas.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 
 import numpy as np
 import torch
 
 from russell_tpu_torch.ode.constants import radau5_constants
 from russell_tpu_torch.sparse import factor as _factor
+from russell_tpu_torch.sparse.coo import CooMatrix
+from russell_tpu_torch.sparse.matrix_market import write_matrix_market
 
 __all__ = ["Radau5"]
 
@@ -48,6 +52,7 @@ class Radau5:
         ndim = system.ndim
         use_num = params.newton.use_numerical_jacobian
         (jac_ii, jac_jj), self._jac_fn = system.jac_values_fn(use_num)
+        self._numerical = use_num or system.jacobian is None
 
         # mass structure/values (diagonal identity when no mass; radau5.rs:131)
         if system.mass is not None:
@@ -228,14 +233,16 @@ class Radau5:
             elif not self.jacobian_computed:
                 work.stats.sw_jacobian.reset()
                 work.stats.n_jacobian += 1
+                if self._numerical:
+                    work.stats.n_function += ndim
                 self._jv = self._jac_fn(x, y, args)
                 self.jacobian_computed = True
                 work.stats.stop_sw_jacobian()
+            # dump-and-die debugging (radau5.rs:242-254)
             nstep = self.params.newton.write_matrix_after_nstep_and_stop
             if nstep is not None and work.stats.n_accepted > nstep:
-                raise NotImplementedError(
-                    "write_matrix_after_nstep_and_stop is not ported yet "
-                    "(ROADMAP.md)")
+                out_dir = self._write_matrices(h)
+                raise RuntimeError(f"MATRIX FILES GENERATED in {out_dir}/")
             work.stats.sw_factor.reset()
             work.stats.n_factor += 1
             # drop the old pair first: two pairs alive at once doubled the
@@ -318,6 +325,35 @@ class Radau5:
             fpe = self._f(x, y + err, args)
             work.rel_error = float(self._err_estimate2(mez, fpe))
 
+    def _write_matrices(self, h):
+        """Write J, K_real, K_comp as MatrixMarket and vismatrix files
+        (radau5.rs write_matrix_after_nstep_and_stop) into
+        ``$TMPDIR/russell_tpu_torch``; returns that directory."""
+        out_dir = os.path.join(tempfile.gettempdir(), "russell_tpu_torch")
+        os.makedirs(out_dir, exist_ok=True)
+        ndim = self.system.ndim
+        jv = self._jv.detach().cpu().numpy()
+        rows = self.plan.rows[: len(jv)]
+        cols = self.plan.cols[: len(jv)]
+        jac = CooMatrix.from_arrays(ndim, ndim, rows, cols, jv)
+        A, B, G = _R5["ALPHA"], _R5["BETA"], _R5["GAMMA"]
+        kr = np.concatenate([-jv, (G / h) * self._mass_vv])
+        kc = np.concatenate([-jv.astype(np.complex128),
+                             ((A + 1j * B) / h) * self._mass_vv])
+        k_rows = np.concatenate([rows, self._mass_ii])
+        k_cols = np.concatenate([cols, self._mass_jj])
+        kk_real = CooMatrix.from_arrays(ndim, ndim, k_rows, k_cols, kr)
+        kk_comp = CooMatrix.from_arrays(ndim, ndim, k_rows, k_cols, kc)
+        for name, m in (("jacobian", jac), ("kk_real", kk_real),
+                        ("kk_comp", kk_comp)):
+            write_matrix_market(m, os.path.join(out_dir, f"{name}.mtx"))
+            write_matrix_market(m, os.path.join(out_dir, f"{name}.smat"),
+                                vismatrix=True)
+        return out_dir
+
+    def enable_dense_output(self):
+        pass  # collocation polynomial always available
+
     def accept(self, work, x, y, h, args):
         self.reuse_jacobian_kk_and_fact = False
         self.reuse_jacobian = False
@@ -368,3 +404,14 @@ class Radau5:
         div = max(self.params.step.m_min,
                   min(self.params.step.m_max, work.rel_error ** 0.25 / fac))
         work.h_new = h / div
+
+    def dense_output(self, x_out, x, y, h):
+        """Collocation polynomial interpolation (radau5.rs:669)."""
+        assert x - h <= x_out <= x
+        s = (x_out - x) / h
+        MU3, MU4 = _R5["MU3"], _R5["MU4"]
+        yc = self.yc
+        return y + s * (yc[0] + (s - MU4) * (yc[1] + (s - MU3) * yc[2]))
+
+    def update_params(self, params):
+        self.params = params

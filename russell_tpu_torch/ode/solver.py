@@ -6,9 +6,10 @@ error-controlled accept/reject, divergence backoff (:300-306), the
 ``vec_all_finite`` anomaly check). The per-step work runs on the device
 the solver was given; this module is the host-side control loop in f64.
 
-This slice ports Radau5 without an Output; the other methods, dense
-output and the fused whole-integration loop are later slices
-(ROADMAP.md).
+Every method of ``Method`` runs, with an ``Output`` (step and dense
+output, callbacks, JSON files, stiffness recording). The fused
+whole-integration loop (``fused=True``) and ``solve_batch`` are the next
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 import russell_tpu_torch
 from russell_tpu_torch.ode.constants import N_EQUAL_STEPS
 from russell_tpu_torch.ode.enums import Method
+from russell_tpu_torch.ode.erk import ExplicitRungeKutta
+from russell_tpu_torch.ode.euler import EulerForward, EulerBackward
 from russell_tpu_torch.ode.params import Params
 from russell_tpu_torch.ode.radau5 import Radau5
 from russell_tpu_torch.ode.stats import Workspace
@@ -38,32 +41,45 @@ class OdeSolver:
 
     def __init__(self, params: Params, system: System, device="cuda"):
         params.validate()
-        if params.method != Method.RADAU5:
-            raise NotImplementedError(
-                f"method {params.method.name} is not ported yet: the port "
-                "has Radau5 only (ROADMAP.md)")
+        if system.mass is not None and params.method != Method.RADAU5:
+            raise ValueError("the mass matrix requires the Radau5 method")
         self.params = params
         self.system = system
         self.ndim = system.ndim
         self.device = russell_tpu_torch.device(device)
-        self.actual = Radau5(params, system, self.device)
+        if params.method == Method.RADAU5:
+            self.actual = Radau5(params, system, self.device)
+        elif params.method == Method.BW_EULER:
+            self.actual = EulerBackward(params, system)
+        elif params.method == Method.FW_EULER:
+            self.actual = EulerForward(system)
+        else:
+            self.actual = ExplicitRungeKutta(params, system)
         self.work = Workspace(params.method)
 
     def stats(self):
         return self.work.stats
 
+    def update_params(self, params: Params):
+        params.validate()
+        if params.method != self.params.method:
+            raise ValueError("update_params must not change the method")
+        self.params = params
+        self.actual.update_params(params)
+
     def solve(self, y0, x0: float, x1: float, h_equal: Optional[float] = None,
               args=None, output=None, fused: bool = False):
         """Integrate from (x0, y0) to x1; returns the final y (f64 tensor
-        on the solver's device)."""
+        on the solver's device). ``output`` (an ``Output``) records or
+        streams the accepted steps and dense stations."""
         if fused:
             raise NotImplementedError("fused=True (the whole-integration "
                                       "loop) is not ported yet (ROADMAP.md)")
-        if output is not None:
-            raise NotImplementedError("Output is not ported yet "
-                                      "(ROADMAP.md)")
-        y = torch.as_tensor(np.asarray(y0, dtype=np.float64),
-                            device=self.device)
+        if isinstance(y0, torch.Tensor):
+            y = y0.to(self.device, torch.float64)
+        else:
+            y = torch.as_tensor(np.asarray(y0, dtype=np.float64),
+                                device=self.device)
         if y.shape[0] != self.ndim:
             raise ValueError("y0 dimension must equal ndim")
         if x1 <= x0:
@@ -90,6 +106,13 @@ class OdeSolver:
         work.stats.sw_total.reset()
         x = x0
 
+        if output is not None:
+            output.initialize(x0, x1, self.params.stiffness.save_results)
+            if output.with_dense_output():
+                self.actual.enable_dense_output()
+            if output.execute(work, h, x, y, self.actual, args):
+                return y
+
         # equal-stepping loop (ode_solver.rs:239-271)
         if equal_stepping:
             nstep = math.ceil((x1 - x) / h)
@@ -100,7 +123,14 @@ class OdeSolver:
                 work.stats.n_accepted += 1  # must come after step
                 x, y = self.actual.accept(work, x, y, h, args)
                 self._check_finite(y)
+                if output is not None:
+                    if output.execute(work, h, x, y, self.actual, args):
+                        work.stats.stop_sw_step()
+                        work.stats.stop_sw_total()
+                        return y
                 work.stats.stop_sw_step()
+            if output is not None:
+                output.last(work, h, x, y, args)
             work.stats.stop_sw_total()
             return y
 
@@ -140,6 +170,11 @@ class OdeSolver:
                 work.rel_error_prev = max(self.params.step.rel_error_prev_min,
                                           work.rel_error)
                 work.stats.h_accepted = work.h_new
+                if output is not None:
+                    if output.execute(work, h, x, y, self.actual, args):
+                        work.stats.stop_sw_step()
+                        work.stats.stop_sw_total()
+                        return y
                 if last_step:
                     success = True
                     work.stats.stop_sw_step()
@@ -159,11 +194,21 @@ class OdeSolver:
                     self.actual.reject(work, h)
             work.stats.stop_sw_step()
 
+        if output is not None:
+            output.last(work, h, x, y, args)
         work.stats.stop_sw_total()
         if not success:
             raise RuntimeError(
                 "variable stepping did not converge with n_step_max steps")
         return y
+
+    def solve_batch(self, y0_batch, x0, x1, h0: Optional[float] = None):
+        """Solve the same system from many initial conditions at once: in
+        the reference package a vmap of the fused integration. Not ported
+        yet: it comes with the fused loop (ROADMAP.md)."""
+        raise NotImplementedError("solve_batch (the batched fused "
+                                  "integration) is not ported yet "
+                                  "(ROADMAP.md)")
 
     @staticmethod
     def _check_finite(y):

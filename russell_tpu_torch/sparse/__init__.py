@@ -4,8 +4,9 @@ Counterpart of ``russell_tpu.sparse``. So far: the COO matrix, CSR/CSC
 (host structure, values on a device), the samples, MatrixMarket I/O,
 VerifyLinSys, the host orderings, SPLU (host plan + numeric left-looking
 scan whose block-pair products and row gathers are CUDA kernels on the
-card), the SPLU path of ``factor``, and BSR SpMV/SpMM and block SpGEMM
-(``kernels``, three CUDA kernels on the card). The other solver paths are
+card), GRIDMF, the DENSE, SPLU and GRIDMF paths of ``factor``, the
+numerical Jacobian, and BSR SpMV/SpMM and block SpGEMM (``kernels``,
+three CUDA kernels on the card). BANDED, GENMF and the LinSolver are
 later slices (ROADMAP.md).
 """
 

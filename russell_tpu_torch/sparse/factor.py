@@ -1,4 +1,5 @@
-"""Native direct factorization: the SPLU and GRIDMF paths, in PyTorch.
+"""Native direct factorization: the DENSE, SPLU and GRIDMF paths, in
+PyTorch.
 
 Counterpart of ``russell_tpu.sparse.factor`` (reference role: the
 symbolic analysis + numeric LU + solves of russell_sparse's MUMPS /
@@ -6,17 +7,20 @@ UMFPACK / cuDSS backends). The split is the same:
 
 - **analysis** (host, numpy): compute the ordering and freeze every index
   set the numeric phase needs (MUMPS JOB_ANALYZE).
-- **numeric factorize / solve** (device): max-norm equilibration, the
-  SPLU block factorization and packed substitution or the GRIDMF
-  multifrontal factorization and its sweeps, and fixed-count iterative
-  refinement against the scaled matrix.
+- **numeric factorize / solve** (device): max-norm equilibration, then
+  the dense LU with partial pivoting (``torch.linalg.lu_factor_ex`` /
+  ``lu_solve``), the SPLU block factorization and packed substitution, or
+  the GRIDMF multifrontal factorization and its sweeps, and fixed-count
+  iterative refinement against the scaled matrix.
 
-``Genie.SPLU`` and ``Genie.GRIDMF`` are ported. ``Genie.AUTO`` routes as
-the reference does where that leads to GRIDMF (a ``grid`` hint, n >
-``dense_threshold`` and a cell-local pattern); every other AUTO case, and
-GENMF, DENSE and BANDED, raise ``NotImplementedError`` rather than route
-anywhere else. Factors are full f64/complex128: the H100 has f64, so the
-reference package's mixed-precision regime is not carried over.
+``Genie.DENSE``, ``Genie.SPLU`` and ``Genie.GRIDMF`` are ported.
+``Genie.AUTO`` routes as the reference does: n <= ``dense_threshold`` to
+DENSE (with or without a ``grid`` hint), a grid hint with a cell-local
+pattern above it to GRIDMF. Every other AUTO case (the reference's
+BANDED and GENMF routes), and GENMF and BANDED themselves, raise
+``NotImplementedError`` rather than route anywhere else. Factors are full
+f64/complex128: the H100 has f64, so the reference package's
+mixed-precision regime is not carried over.
 """
 
 from __future__ import annotations
@@ -57,6 +61,9 @@ class SolvePlan:
     cols: np.ndarray
     splu_plan: Optional["_splu.SpluPlan"] = None
     gridmf_plan: Optional["_gridmf.GridMfPlan"] = None
+    # DENSE: the entries' dense slots (row-major), one pass per duplicate
+    # rank, so that duplicates are summed in entry order on every device
+    dense_passes: Optional[list] = None
     scaling: Scaling = Scaling.MAX
     pivot_epsilon: float = 1e-14
     refine_steps: int = 2
@@ -84,8 +91,9 @@ def analyze(
     nc, s)`` or 3-D ``(n0, n1, n2, s)`` — is a structure hint (species-major
     layout var = k*prod(dims) + row_major_cell) that unlocks the GRIDMF
     path for cell-local stencil patterns: ``Genie.GRIDMF``, or
-    ``Genie.AUTO`` with n > ``dense_threshold``. ``mixed_precision=True``
-    (f32 factors) is not ported."""
+    ``Genie.AUTO`` with n > ``dense_threshold``; AUTO takes DENSE at n <=
+    ``dense_threshold``. ``mixed_precision=True`` (f32 factors) is not
+    ported."""
     if mixed_precision:
         raise NotImplementedError("mixed-precision factors are not ported: "
                                   "the port factorizes in f64 (ROADMAP.md)")
@@ -109,13 +117,23 @@ def analyze(
     if genie == Genie.GRIDMF:
         raise ValueError("Genie.GRIDMF needs a grid=(nr, nc, s) hint "
                          f"covering n={n}")
+    if genie == Genie.AUTO and n <= dense_threshold:
+        genie = Genie.DENSE
+    if genie == Genie.DENSE:
+        return SolvePlan(Genie.DENSE, n, rows, cols,
+                         dense_passes=_dense_passes(n, rows, cols),
+                         scaling=Scaling.NO if scaling == Scaling.AUTO
+                         else scaling,
+                         pivot_epsilon=pivot_epsilon, refine_steps=0,
+                         effective_ordering="natural")
     if genie != Genie.SPLU:
         raise NotImplementedError(
             f"genie {genie} is not ported yet for this system (n={n}, "
-            f"grid={grid}): the port has Genie.SPLU, and Genie.GRIDMF for "
+            f"grid={grid}): the port has Genie.DENSE (AUTO takes it at n "
+            "<= dense_threshold), Genie.SPLU, and Genie.GRIDMF for "
             "grid-hinted cell-local systems (AUTO takes it above "
-            "dense_threshold); the DENSE, BANDED and GENMF routes of AUTO "
-            "are later slices (ROADMAP.md)")
+            "dense_threshold); BANDED and GENMF, AUTO's other routes, are "
+            "later slices (ROADMAP.md queue 1, items 9 and 11)")
     # METIS is nested dissection in the reference (enums.rs:71-158);
     # "nd" plays the same role AND unlocks the level-batched numeric
     # phase. AUTO tries both symbolics (cheap, host-only) and keeps the
@@ -152,6 +170,24 @@ def analyze(
                      effective_ordering=eff_ord)
 
 
+def _dense_passes(n, rows, cols):
+    """[(entry ids, dense slots)] per duplicate rank: pass k holds the k-th
+    entry (in entry order) of every slot that has more than k entries, so
+    each pass writes distinct slots and the passes add a slot's entries
+    left to right, as a sequential scatter-add does."""
+    slot = rows * n + cols
+    order = np.argsort(slot, kind="stable")
+    s_sorted = slot[order]
+    starts = np.flatnonzero(np.r_[True, s_sorted[1:] != s_sorted[:-1]])
+    rank = np.arange(len(slot)) - np.repeat(starts, np.diff(
+        np.r_[starts, len(slot)]))
+    passes = []
+    for k in range(int(rank.max()) + 1 if len(slot) else 0):
+        ids = order[rank == k]
+        passes.append((ids, slot[ids]))
+    return passes
+
+
 def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
     """The GRIDMF plan at the first leaf size of GRIDMF_LEAVES whose three
     f64 value planes of factors fit GRIDMF_BUDGET_GB (the last one when
@@ -176,15 +212,22 @@ def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
     return gplan
 
 
-def _device_indices(plan: SolvePlan, device):
-    """(rows, cols) on ``device``, uploaded once per (plan, device)."""
+def _on_device(plan: SolvePlan, what: str, device, make):
+    """``make(device)`` for the plan's host arrays ``what``, uploaded once
+    per (plan, device)."""
     cache = plan.__dict__.setdefault("_device_cache", {})
-    key = str(torch.device(device))
+    key = (what, str(torch.device(device)))
     ent = cache.get(key)
     if ent is None:
-        ent = cache[key] = (torch.as_tensor(plan.rows, device=device),
-                            torch.as_tensor(plan.cols, device=device))
+        ent = cache[key] = make(device)
     return ent
+
+
+def _device_indices(plan: SolvePlan, device):
+    """(rows, cols) on ``device``, uploaded once per (plan, device)."""
+    return _on_device(plan, "rows_cols", device, lambda d: (
+        torch.as_tensor(plan.rows, device=d),
+        torch.as_tensor(plan.cols, device=d)))
 
 
 def _segment_max(vals, seg, n):
@@ -225,8 +268,51 @@ def _equilibrate(plan: SolvePlan, data):
     return data * (rs[rows] * cs[cols]).to(data.dtype), rs, cs
 
 
+def _logdet_update(diag, piv):
+    """(log|det|, phase) of one LU factor's U diagonal and its pivots
+    (``torch.linalg`` pivots are 1-based, where the reference package's
+    are 0-based)."""
+    k = diag.shape[0]
+    swaps = torch.sum(piv != torch.arange(1, k + 1, dtype=piv.dtype,
+                                          device=piv.device))
+    absd = diag.abs()
+    sign = (1 - 2 * (swaps % 2)).to(absd.dtype)
+    safe = torch.where(absd > 0, absd, 1.0)
+    logdet = torch.sum(torch.where(absd > 0, torch.log(safe), -torch.inf))
+    if diag.is_complex():
+        phase = torch.prod(torch.where(absd > 0, diag / safe.to(diag.dtype),
+                                       0.0)) * sign
+    else:
+        phase = torch.prod(torch.sign(diag)) * sign
+    return logdet, phase
+
+
+def _dense_factorize(plan: SolvePlan, data):
+    n = plan.n
+    data, rs, cs = _equilibrate(plan, data)
+    a = torch.zeros(n * n, dtype=data.dtype, device=data.device)
+    passes = _on_device(plan, "dense_passes", data.device, lambda d: [
+        (torch.as_tensor(ids, device=d), torch.as_tensor(slots, device=d))
+        for ids, slots in plan.dense_passes])
+    for ids, slots in passes:
+        a[slots] = a[slots] + data[ids]
+    lu, piv, _ = torch.linalg.lu_factor_ex(a.reshape(n, n))
+    diag = torch.diagonal(lu)
+    logdet, phase = _logdet_update(diag, piv)
+    return {"lu": lu, "piv": piv, "rs": rs, "cs": cs, "logdet": logdet,
+            "phase": phase, "min_pivot": diag.abs().min(),
+            "data": data}  # scaled entries (kept for refinement)
+
+
+def _dense_solve(plan: SolvePlan, fac, b):
+    out_dtype = fac["data"].dtype
+    y = fac["rs"].to(out_dtype) * b.to(out_dtype)
+    x = torch.linalg.lu_solve(fac["lu"], fac["piv"], y[:, None])[:, 0]
+    return fac["cs"].to(out_dtype) * x
+
+
 def _check_plan(plan: SolvePlan):
-    if plan.genie not in (Genie.SPLU, Genie.GRIDMF):
+    if plan.genie not in (Genie.DENSE, Genie.SPLU, Genie.GRIDMF):
         raise NotImplementedError(f"genie {plan.genie} is not ported yet "
                                   "(ROADMAP.md)")
 
@@ -236,6 +322,8 @@ def numeric_factorize(plan: SolvePlan, data):
     complex128 tensor, on the device to factorize on) laid out as
     (plan.rows, plan.cols)."""
     _check_plan(plan)
+    if plan.genie == Genie.DENSE:
+        return _dense_factorize(plan, data)
     data, rs, cs = _equilibrate(plan, data)
     if plan.genie == Genie.GRIDMF:
         fac = _gridmf.gridmf_factorize(plan.gridmf_plan, data)
@@ -251,8 +339,8 @@ def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
     """Factorize TWO matrices with the same structure (Radau5's real and
     complex Newton matrices). For SPLU both run in ONE pass over the
     packed schedule (splu_factorize_multi) — the analog of the reference's
-    concurrent real/complex factorization (radau5.rs, P5); GRIDMF factors
-    them one after the other, as the reference package does."""
+    concurrent real/complex factorization (radau5.rs, P5); DENSE and GRIDMF
+    factor them one after the other, as the reference package does."""
     _check_plan(plan)
     if plan.genie != Genie.SPLU:
         return (numeric_factorize(plan, data_r),
@@ -276,6 +364,8 @@ def _residual(plan: SolvePlan, fac, x, b):
 
 
 def _solve_once(plan: SolvePlan, fac, b):
+    if plan.genie == Genie.DENSE:
+        return _dense_solve(plan, fac, b)
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
     if plan.genie == Genie.GRIDMF:
@@ -301,8 +391,9 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
 def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
                       refine_steps=None):
     """Solve the real and complex systems TOGETHER (for SPLU one
-    packed-substitution pass per refinement round covers both; GRIDMF
-    solves them one after the other, as the reference package does)."""
+    packed-substitution pass per refinement round covers both; DENSE and
+    GRIDMF solve them one after the other, as the reference package
+    does)."""
     _check_plan(plan)
     if refine_steps is None:
         refine_steps = plan.refine_steps

@@ -1,6 +1,7 @@
 """russell_tpu_torch on the card: each CUDA kernel against its plain
-PyTorch version, and the SPLU factorization, Radau5 and the BSR products
-on CUDA against the same code on the CPU.
+PyTorch version, and the SPLU, GRIDMF and DENSE factorizations, the ODE
+methods with Output and the BSR products on CUDA against the same code on
+the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no jax (the GPU machine has none); run it there without the
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+from russell_tpu_torch.ode import Method, OdeSolver, Output, Params, samples
 from russell_tpu_torch.sparse import factor, kernels, splu
 from russell_tpu_torch.sparse import samples as ssamples
 from russell_tpu_torch.sparse.coo import CooMatrix
@@ -770,3 +771,62 @@ def test_float32_is_refused_with_the_recorded_message(cuda):
     with pytest.raises(ValueError, match="14527"):
         kernels._strip_chunks(1, 14528, 1, elem=16)
     assert kernels._strip_chunks(1, 14527, 1, elem=16) == (1, 1)
+
+
+def test_dense_factor_on_card_matches_cpu(cuda):
+    # AUTO -> DENSE (n <= dense_threshold), real and complex, on cuSOLVER /
+    # MAGMA through torch.linalg: factors' statistics and solves
+    system, _, y0, _ = samples.brusselator_pde(2e-3, 6)
+    n = system.ndim
+    ii, jj = system.jac_structure
+    rows = np.concatenate([ii, np.arange(n)])
+    cols = np.concatenate([jj, np.arange(n)])
+    plan = factor.analyze(n, rows, cols, grid=system.grid)
+    assert plan.genie == Genie.DENSE
+    jv = system.jacobian(0.0, torch.as_tensor(y0), None)
+    vr = torch.cat([-jv, torch.full((n,), 36.0, dtype=torch.float64)])
+    vc = torch.cat([-jv + 0j, torch.full((n,), 27.0 + 31.0j)])
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(n))
+    for vals in (vr, vc):
+        fac = factor.numeric_factorize(plan, vals.to(cuda))
+        ref = factor.numeric_factorize(plan, vals)
+        assert fac["lu"].device.type == "cuda"
+        torch.testing.assert_close(fac["piv"].cpu(), ref["piv"], rtol=0,
+                                   atol=0)
+        for k in ("logdet", "phase", "min_pivot"):
+            torch.testing.assert_close(fac[k].cpu(), ref[k], rtol=1e-12,
+                                       atol=0)
+        x = factor.factor_solve(plan, fac, b.to(cuda))
+        torch.testing.assert_close(x.cpu(), factor.factor_solve(plan, ref, b),
+                                   rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("method", ["DOPRI5", "DOPRI8", "RADAU5",
+                                    "BW_EULER", "RK4"])
+def test_ode_methods_with_output_on_card_match_cpu(cuda, method):
+    # the npoint-6 Brusselator (AUTO -> DENSE for the implicit methods),
+    # dense stations for the DoPri and Radau5 methods, step recording for
+    # the others
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 6)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = Params(Method[method])
+        out = Output()
+        if method in ("DOPRI5", "DOPRI8", "RADAU5"):
+            out.set_dense_h_out(0.1).set_dense_recording([0, 40])
+        else:
+            out.set_step_recording([0, 40])
+        sol = OdeSolver(params, system, dev)
+        h_equal = 0.05 if method == "BW_EULER" else None
+        y = sol.solve(y0, t0, 0.5, h_equal=h_equal, output=out)
+        assert y.device.type == dev.type
+        runs.append((y.cpu(), sol.stats(), out))
+    (y, st, out), (yc, stc, outc) = runs
+    for k in ("n_function", "n_jacobian", "n_factor", "n_lin_sol", "n_steps",
+              "n_accepted", "n_rejected"):
+        assert getattr(st, k) == getattr(stc, k), k
+    torch.testing.assert_close(y, yc, rtol=1e-10, atol=0)
+    for m in (0, 40):
+        np.testing.assert_allclose(out.dense_y(m) or out.step_y(m),
+                                   outc.dense_y(m) or outc.step_y(m),
+                                   rtol=1e-10)

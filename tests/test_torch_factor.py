@@ -173,17 +173,38 @@ def test_factor_solve_pair_matches_reference(plans, pair, refine):
     (Genie.AUTO, None), (Genie.AUTO, (5, 5, 2)), (Genie.GRIDMF, (5, 5, 2)),
     (Genie.GENMF, None), (Genie.DENSE, None), (Genie.BANDED, None)])
 def test_other_genies_raise(plans, genie, grid):
+    """The genies other than SPLU. GRIDMF plans with its grid hint at any
+    n; AUTO at n = 50 <= dense_threshold takes the reference's DENSE route,
+    with or without the grid hint, as DENSE itself does (ported since the
+    DENSE slice); GENMF and BANDED still raise, naming ROADMAP.md."""
     n, ii, jj, *_ = plans
     if genie == Genie.GRIDMF:
-        # GRIDMF is ported: with a grid hint it plans, at any n; AUTO with
-        # the same hint still raises, since n = 50 <= dense_threshold is
-        # the reference's DENSE route, not ported
         plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
         assert plan.genie == Genie.GRIDMF
         assert plan.effective_ordering == "nd-grid"
         return
+    if genie in (Genie.AUTO, Genie.DENSE):
+        plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
+        jplan = jfactor.analyze(n, ii, jj, genie=JGenie[genie.name],
+                                grid=grid)
+        assert plan.genie == Genie.DENSE and jplan.genie == JGenie.DENSE
+        assert plan.scaling.value == jplan.scaling.value == "no"
+        assert plan.refine_steps == jplan.refine_steps == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
+
+
+def test_auto_above_dense_threshold_raises(plans):
+    # the reference routes these to BANDED or GENMF: later slices, and
+    # nothing falls back to another route
+    n, ii, jj, *_ = plans
+    with pytest.raises(NotImplementedError, match="BANDED and GENMF"):
+        tfactor.analyze(n, ii, jj, genie=Genie.AUTO, dense_threshold=8)
+    ii2, jj2 = np.r_[ii, 0], np.r_[jj, n - 1]  # not cell-local
+    with pytest.raises(NotImplementedError, match="BANDED and GENMF"):
+        tfactor.analyze(n, ii2, jj2, genie=Genie.AUTO, grid=(5, 5, 2),
+                        dense_threshold=8)
 
 
 def test_mixed_precision_raises(plans):

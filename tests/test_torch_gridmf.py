@@ -207,9 +207,12 @@ def test_factor_path_auto_picks_gridmf_and_matches_reference():
             want = np.asarray(want)
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-11,
                                        atol=1e-11 * np.max(np.abs(want)))
-    # below dense_threshold AUTO is the reference's DENSE route: not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factor.analyze(n, rows, cols, grid=system.grid)
+    # below dense_threshold AUTO takes the reference's DENSE route, with
+    # the grid hint too
+    assert factor.analyze(n, rows, cols, grid=system.grid).genie == \
+        Genie.DENSE
+    assert jfactor.analyze(n, rows, cols, grid=system.grid).genie == \
+        JGenie.DENSE
 
 
 # (d) the determinant's sign

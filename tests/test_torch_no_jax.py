@@ -33,7 +33,13 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.sparse.csc", "russell_tpu_torch.sparse.samples",
             "russell_tpu_torch.sparse.verify",
             "russell_tpu_torch.sparse.matrix_market",
-            "russell_tpu_torch.sparse.gridmf"} <= set(names)
+            "russell_tpu_torch.sparse.gridmf",
+            "russell_tpu_torch.sparse.numerical_jacobian",
+            "russell_tpu_torch.ode.erk", "russell_tpu_torch.ode.erk_dense_out",
+            "russell_tpu_torch.ode.euler", "russell_tpu_torch.ode.output",
+            "russell_tpu_torch.ode.detect_stiffness",
+            "russell_tpu_torch.ode.samples",
+            "russell_tpu_torch.ode.system"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from russell_tpu.ode import Method as JMethod, OdeSolver as JOdeSolver
-from russell_tpu.ode import Params as JParams, samples as jsamples
+from russell_tpu.ode import Output as JOutput, Params as JParams
+from russell_tpu.ode import samples as jsamples
 from russell_tpu.sparse.enums import Genie as JGenie
-from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+from russell_tpu_torch.ode import Method, OdeSolver, Output, Params, samples
 from russell_tpu_torch.sparse import CooMatrix
 from russell_tpu_torch.sparse.enums import Genie
 
@@ -111,16 +112,47 @@ def test_brusselator_samples_match_reference():
 
 
 @pytest.mark.parametrize("what", ["method", "fused", "output", "genie",
-                                  "numerical_jacobian"])
+                                  "numerical_jacobian", "solve_batch"])
 def test_unported_paths_raise(what):
+    """The paths that earlier slices refused. ``method`` (DoPri5),
+    ``output``, ``genie`` (AUTO, which routes van der Pol to DENSE) and
+    ``numerical_jacobian`` are ported now and must give the reference
+    package's counters, through AUTO's DENSE route; ``fused`` and
+    ``solve_batch`` still raise, naming ROADMAP.md."""
     system, x0, y0, x1, args = samples.van_der_pol(1e-6, False)
     params = Params(Method.DOPRI5 if what == "method" else Method.RADAU5)
-    params.newton.genie = Genie.AUTO if what == "genie" else Genie.SPLU
+    params.newton.genie = (Genie.SPLU if what in ("fused", "solve_batch")
+                           else Genie.AUTO)
     params.newton.use_numerical_jacobian = what == "numerical_jacobian"
-    with pytest.raises(NotImplementedError):
+    if what in ("fused", "solve_batch"):
         sol = OdeSolver(params, system, "cpu")
-        sol.solve(y0, x0, x1, fused=what == "fused",
-                  output=object() if what == "output" else None)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            if what == "fused":
+                sol.solve(y0, x0, x1, fused=True)
+            else:
+                sol.solve_batch(np.stack([y0, y0]), x0, x1)
+        return
+    # short runs: the reference package runs them too (DoPri5 takes steps
+    # of ~3e-6 on this stiff problem)
+    x1 = 1e-4 if what == "method" else 0.05
+    jsystem, *_ = jsamples.van_der_pol(1e-6, False)
+    jparams = JParams(JMethod[params.method.name])
+    jparams.newton.genie = JGenie[params.newton.genie.name]
+    jparams.newton.use_numerical_jacobian = what == "numerical_jacobian"
+    jsol = JOdeSolver(jparams, jsystem)
+    sol = OdeSolver(params, system, "cpu")
+    out = Output().set_step_recording([0, 1]) if what == "output" else None
+    jout = JOutput().set_step_recording([0, 1]) if what == "output" else None
+    y = sol.solve(y0, x0, x1, output=out).numpy()
+    yj = np.asarray(jsol.solve(y0, x0, x1, output=jout))
+    assert _counters(sol.stats()) == _counters(jsol.stats())
+    np.testing.assert_allclose(y, yj, rtol=1e-10)
+    if what == "genie":
+        assert sol.actual.plan.genie == Genie.DENSE
+    if what == "output":
+        np.testing.assert_allclose(out.step_x, jout.step_x, rtol=1e-10)
+        np.testing.assert_allclose(out.step_y(1), jout.step_y(1),
+                                   rtol=1e-10)
 
 
 def test_device_helper():
