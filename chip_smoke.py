@@ -109,7 +109,31 @@ complex128.
 19. bsr_complex: the three BSR products on complex128 matrices (J(y0) +
    0.3 i noise at npoint 129 and 513), each against its plain version and
    scipy, launched twice more for bit identity, timed as in phase 17; the
-   kernels line carries the npoint-513 numbers under ``complex128``.
+   kernels line carries the npoint-513 numbers under ``complex128``;
+20. fused_path: ``solve(..., fused=True)`` and ``solve_batch``, the whole
+   integration on the card as one captured CUDA graph per step attempt
+   (conditional nodes for the skipped work, a done flag read every
+   ``_device_loop.REPLAYS_PER_READ`` replays): the torch and CUDA
+   versions; radau5.f's van der Pol and Robertson counters through DENSE,
+   exactly; the bench.py configuration (default Params, AUTO -> GRIDMF,
+   npoint 129) cold (warm-up, capture and instantiation shown apart) and
+   FUSED_WARM_RUNS warm, with its nodes per step attempt (``gj_inv``'s
+   too), replays, flag reads and device busy share (profiled device time
+   over the warm median wall) beside phase 9's host-stepped walls,
+   counters equal to phase 9's and y at atol 1e-12 of its y; the same
+   run captured anew and replayed with one replay per flag read:
+   bit-identical y and counters; SPLU at npoint 129 against phase 7
+   (nodes of ``splu_pairs``, ``gather_rows``, ``gj_inv``); GRIDMF at
+   npoint 513 against a host-stepped run in this phase (counters equal, y
+   at atol 1e-10, walls, peak memory); DoPri5 at npoint 513 against
+   phase 14's run (counters, y at rtol 1e-10; busy share over the window
+   t in [0, ERK_WINDOW_X1]); DoPri8 at npoint 129 with dense stations
+   every 0.1 against a host-stepped run (stations at atol 1e-10);
+   ``solve_batch`` of FUSED_BATCH van der Pol lanes (DENSE) and of
+   FUSED_BATCH DoPri5 Hairer-Wanner lanes, each lane held to a single
+   fused solve (y at atol 1e-12, counters equal). Each kernel of the
+   kernels line gains its nodes per captured attempt and its launches in
+   the cold fused runs (``fused_path``).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -141,6 +165,7 @@ BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import statistics
@@ -198,6 +223,9 @@ def reset_launch_counts():
     from russell_tpu_torch.sparse import kernels, splu
     splu.reset_launch_counts()
     kernels.reset_launch_counts()
+    lanes = sys.modules.get("russell_tpu_torch.ode._lanes")
+    if lanes is not None:
+        lanes.lane_pow.launches = 0
 
 
 def gj_inv_launches():
@@ -346,7 +374,7 @@ def phase_build():
     t0 = time.perf_counter()
     _cuda.build_all()
     wall = time.perf_counter() - t0
-    for name in _cuda.KERNELS:
+    for name in getattr(_cuda, "LIBRARIES", _cuda.KERNELS):
         _cuda.library(name)
         info = _cuda.build_info(name)
         say("build", kernel=name, all_wall_s=wall,
@@ -1258,7 +1286,7 @@ def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
             "counters"] == splu_counters,
         y_max_rel_err_vs_splu=y_err, gj_inv_launches=runs[-1][
             "gj_inv_launches"])
-    return runs
+    return runs, y.cpu()
 
 
 def phase_gridmf_layers(leaves=(16, 32, 64)):
@@ -1974,7 +2002,7 @@ def phase_erk_path():
     share (the profiled run's device time over the unprofiled run's
     wall)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    out = []
+    out, y_out = [], {}
     for method, npoint, with_cpu in (("DOPRI5", NPOINT, True),
                                      ("DOPRI8", NPOINT, True),
                                      ("DOPRI5", NPOINT_BSR, False)):
@@ -2023,9 +2051,10 @@ def phase_erk_path():
         else:
             say("erk_path", **rec)
         out.append(rec)
+        y_out[(method, npoint)] = y.cpu()
         del y
         torch.cuda.empty_cache()
-    return out
+    return out, y_out
 
 
 def phase_bweuler_path():
@@ -2147,6 +2176,425 @@ def phase_dense_factor():
     say("dense_factor", **rec)
 
 
+# ---------------------------------------------------------------------------
+# fused_path: the whole integration on the card (solve(fused=True),
+# solve_batch), a step attempt captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+FUSED_WARM_RUNS = 3
+FUSED_BATCH = 64
+
+
+def fused_kernel_counts():
+    from russell_tpu_torch.ode import _lanes
+    from russell_tpu_torch.sparse import splu
+    return {"splu_pairs": splu.splu_pairs.launches,
+            "gather_rows": splu.gather_rows.launches,
+            "gj_inv": splu._gj_inv.launches,
+            "lane_pow": _lanes.lane_pow.launches}
+
+
+def loop_record(fn):
+    """The captured graph of a fused solver ``fn`` and its last run."""
+    lp = fn.loop
+    return {"nodes_per_attempt": lp.nodes, "if_nodes": lp.if_nodes,
+            "body_nodes": {str(k): v for k, v in lp.body_nodes.items()},
+            "replays": lp.replays, "flag_reads": lp.reads,
+            "replays_per_read": lp.replays // max(lp.reads, 1),
+            "warmup_s": lp.warmup_s, "capture_instantiate_s": lp.capture_s}
+
+
+def fused_runs(params, system, y0, t0, x1, warm_runs, output=None):
+    """A cold fused run (a fresh solver: host analysis, uploads, warm-up,
+    capture and instantiation, replays), then ``warm_runs`` more solves on
+    the same solver, which replay the captured graph. The kernel counts
+    start at 0 before the cold run: the warm-up's launches and the
+    capture's nodes. Returns (record, solver, y of the last run)."""
+    from russell_tpu_torch.ode import OdeSolver
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sol = OdeSolver(params, system, "cuda")
+    y = sol.solve(y0, t0, x1, fused=True, output=output)
+    torch.cuda.synchronize()
+    rec = {"cold_wall_s": time.perf_counter() - t,
+           "launches_cold_run": fused_kernel_counts(),
+           "peak_mem_bytes_cold": torch.cuda.max_memory_allocated()}
+    fn = next(iter(sol._fused.values()))
+    rec.update(loop_record(fn))
+    warm = []
+    for _ in range(warm_runs):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        y = sol.solve(y0, t0, x1, fused=True, output=output)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    if warm:
+        rec.update(warm_walls_s=warm, warm_median_s=statistics.median(warm),
+                   warm_spread_s=max(warm) - min(warm),
+                   peak_mem_bytes_warm=torch.cuda.max_memory_allocated(),
+                   replays=fn.loop.replays, flag_reads=fn.loop.reads)
+    rec["counters"] = counters(sol.stats())
+    return rec, sol, y
+
+
+def captured_nodes(sol, y0, t0, x1):
+    """Each kernel's nodes in one captured step attempt: a fresh fused
+    solver of ``sol``'s, warmed up, its counts reset, then captured."""
+    fn = sol._build_fused(1)
+    h0 = min(sol.params.step.h_ini, x1 - t0)
+    fn.start(t0, torch.as_tensor(np.asarray(y0), device="cuda")[None], x1,
+             h0)
+    fn.loop.warm_up()
+    reset_launch_counts()
+    fn.loop.capture(warm_up=False)
+    return fused_kernel_counts(), fn
+
+
+LANE_POW_EXPONENTS = (0.17, 0.04, 0.25, 0.8, 3.0, -0.2)
+
+
+def phase_lane_pow():
+    """The fused controllers' pow (``csrc/lane_pow.cu``) against its plain
+    version (the C library's pow, which the host path's Python floats
+    use) on 10,000 bases per exponent of the controllers' kinds, beside
+    CUDA's own pow; then its time at the fused path's shape (one lane) and
+    at 64 lanes. Returns the kernels-line entry."""
+    from russell_tpu_torch.ode import _lanes
+    rng = np.random.default_rng(SEED)
+    v = np.concatenate([rng.uniform(1e-3, 2.0, 5000),
+                        10.0 ** rng.uniform(-10.0, 1.0, 5000)])
+    t = torch.as_tensor(v, device="cuda")
+    rows, worst = [], 0.0
+    for e in LANE_POW_EXPONENTS:
+        want = _lanes.lane_pow(torch.as_tensor(v), e).numpy()
+        got = _lanes.lane_pow(t, e).cpu().numpy()
+        cuda_pow = torch.pow(t, torch.full_like(t, e)).cpu().numpy()
+        rel = float((np.abs(got - want) / np.abs(want)).max())
+        worst = max(worst, float(np.abs(got - want).max()))
+        rows.append({"e": e, "kernel_mismatches": int((got != want).sum()),
+                     "cuda_pow_mismatches": int((cuda_pow != want).sum()),
+                     "kernel_max_rel_err": rel})
+    one = t[:1].clone()
+    lanes = t[:FUSED_BATCH].clone()
+    rec = {"name": "lane_pow", "route": "cuda",
+           "source": "russell_tpu_torch/csrc/lane_pow.cu",
+           "replaces": "russell_tpu/ode/radau5_fused.py:418 (plain XLA "
+                       "pow of the fused controllers, no Pallas kernel; "
+                       "also erk_fused.py:210)",
+           "max_abs_err": worst,
+           "ms": time_ms(lambda: _lanes.lane_pow(one, 0.25)),
+           "ms_64_lanes": time_ms(lambda: _lanes.lane_pow(lanes, 0.25)),
+           "plain_ms": time_ms(lambda: _lanes._lane_pow_plain(one, 0.25)),
+           "library_ms": time_ms(lambda: torch.pow(one, 0.25))}
+    # one value read and one written; ~600 f64 operations of the
+    # double-double log and exp
+    rec["bound_ms"], rec["bound_by"] = bound(16, 600)
+    say("fused_path", part="lane_pow", values=len(v), exponents=rows,
+        **{k: rec[k] for k in ("ms", "ms_64_lanes", "plain_ms",
+                               "library_ms", "bound_ms")})
+    for r in rows:
+        if r["kernel_mismatches"] > len(v) // 500 or not r[
+                "kernel_max_rel_err"] <= 2.3e-16:
+            raise AssertionError(f"lane_pow: {r} (more than 0.2 % of the "
+                                 "values off the C library's pow, or more "
+                                 "than an ulp)")
+    return rec
+
+
+def check_counters(name, got, want):
+    if got != want:
+        raise AssertionError(f"fused_path {name}: counters {got} != the "
+                             f"host-stepped run's {want}")
+
+
+def fused_entry(fres, name):
+    """A kernel's nodes per captured step attempt and its launches in the
+    cold fused runs (warm-up launches plus capture nodes) of phase
+    fused_path; the BSR kernels are on no fused path."""
+    out = {}
+    for part in ("gridmf_129", "splu_129", "gridmf_513"):
+        rec = fres.get(part, {})
+        if "nodes_per_kernel" in rec:
+            out[f"{part}_nodes_per_attempt"] = rec["nodes_per_kernel"].get(
+                name, 0)
+        if "launches_cold_run" in rec:
+            out[f"{part}_launches_cold_run"] = rec[
+                "launches_cold_run"].get(name, 0)
+        if "replays" in rec:
+            out[f"{part}_replays"] = rec["replays"]
+    return out
+
+
+def phase_fused_path(gridmf_host, splu_host, erk_host):
+    """The fused whole-integration loops on the card: radau5.f's oracles
+    through DENSE, the bench.py configuration (GRIDMF at npoint 129) cold
+    and warm with its graph, nodes, flag reads and device busy share,
+    replay-count invariance, SPLU at 129, GRIDMF at 513, DoPri5 at 513 and
+    DoPri8 with dense stations at 129, and solve_batch; each held to the
+    host-stepped run of the same configuration in this smoke."""
+    from russell_tpu_torch.ode import (Method, Output, Params, _device_loop,
+                                       samples)
+    from russell_tpu_torch.sparse.enums import Genie
+    res = {"lane_pow": phase_lane_pow()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # radau5.f oracles through DENSE (tests/test_ode.py:236, :384)
+    system, x0, y0, x1, _ = samples.van_der_pol(1e-6, False)
+    params = Params(Method.RADAU5)
+    params.step.h_ini = 1e-6
+    rec, sol, y = fused_runs(params, system, y0, x0, x1, 0)
+    y = y.cpu().numpy()
+    want = {"n_function": 2249, "n_jacobian": 162, "n_factor": 253,
+            "n_lin_sol": 668, "n_steps": 280, "n_accepted": 242,
+            "n_rejected": 8, "n_iterations_max": 6}
+    got = {k: rec["counters"][k] for k in want}
+    say("fused_path", part="availability", torch=torch.__version__,
+        cuda=torch.version.cuda,
+        conditional_nodes_captured=rec["if_nodes"] > 0,
+        replays_per_read=_device_loop.REPLAYS_PER_READ)
+    say("fused_path", part="van_der_pol_dense",
+        genie=sol.actual.plan.genie.name, y=y.tolist(), **rec)
+    if (got != want or abs(y[0] - 1.706163410178079) >= 1e-12
+            or abs(y[1] + 0.8927971289301175) >= 1e-11
+            or sol.actual.plan.genie != Genie.DENSE or rec["if_nodes"] <= 0):
+        raise AssertionError(f"fused van der Pol: {got} != radau5.f {want}"
+                             " (or y off the oracle, or not DENSE)")
+    system, x0, y0, _ = samples.robertson()
+    params = Params(Method.RADAU5)
+    params.step.h_ini = 1e-6
+    params.set_tolerances(1e-8, 1e-2)
+    rec, sol, y = fused_runs(params, system, y0, x0, 0.3, 0)
+    y = y.cpu().numpy()
+    want = {"n_function": 88, "n_jacobian": 8, "n_factor": 15,
+            "n_lin_sol": 24, "n_steps": 17, "n_accepted": 15,
+            "n_rejected": 1}
+    got = {k: rec["counters"][k] for k in want}
+    say("fused_path", part="robertson_dense", y=y.tolist(), **rec)
+    if got != want or any(abs(a - b) >= 1e-15 for a, b in zip(y, (
+            9.886740138499884e-01, 3.447720471782070e-05,
+            1.129150894529390e-02))):
+        raise AssertionError(f"fused Robertson: {got} != radau5.f {want} "
+                             "(or y off the oracle)")
+
+    # the bench.py configuration: default Params (AUTO -> GRIDMF), npoint
+    # 129, tolerances 1e-4, t 0 -> 1
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    rec, sol, y = fused_runs(params, system, y0, t0, 1.0, FUSED_WARM_RUNS)
+    check_counters("gridmf_129", rec["counters"], gridmf_host["counters"])
+    y_err = float((y.cpu() - gridmf_host["y"]).abs().max())
+    if not y_err <= 1e-12 or sol.actual.plan.genie != Genie.GRIDMF:
+        raise AssertionError(f"fused GRIDMF 129: y off the host-stepped "
+                             f"run's by {y_err} (atol 1e-12), or not GRIDMF")
+    if rec["launches_cold_run"]["gj_inv"] <= 0:
+        raise AssertionError("fused GRIDMF 129: gj_inv was not launched")
+    ms, p_wall, events = kernel_device_ms(
+        lambda: sol.solve(y0, t0, 1.0, fused=True))
+    rec.update(device_ms=sum(ms.values()), device_events=events,
+               profiled_wall_s=p_wall,
+               device_busy_share=sum(ms.values()) / 1e3 / rec[
+                   "warm_median_s"],
+               gj_inv_device_ms=summed(ms, "gj_inv"),
+               host_stepped_warm_median_s=gridmf_host["warm_median_s"],
+               host_stepped_counters=gridmf_host["counters"],
+               y_max_abs_err_vs_host=y_err)
+    y8 = y.clone()
+    c8 = counters(sol.stats())
+    # replay-count invariance: one replay per flag read gives the same bits
+    nodes, fn = captured_nodes(sol, y0, t0, 1.0)
+    default = _device_loop.REPLAYS_PER_READ
+    try:
+        _device_loop.REPLAYS_PER_READ = 1
+        fn.loop.run()
+    finally:
+        _device_loop.REPLAYS_PER_READ = default
+    y1, st1 = fn.result()
+    c1 = {k: int(st1[k][0]) if k in st1 else c8[k] for k in c8}
+    same = bool(torch.equal(y1[0], y8)) and c1 == c8
+    rec.update(nodes_per_kernel=nodes, replay_invariance={
+        "replays_per_read": 1, "reads": fn.loop.reads,
+        "bit_identical": same})
+    say("fused_path", part="gridmf_129", npoint=NPOINT, **rec)
+    if not same:
+        raise AssertionError("fused GRIDMF 129: one replay per flag read "
+                             "changes y or the counters")
+    res["gridmf_129"] = rec
+    del sol, fn, y, y1, y8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # SPLU at npoint 129
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    params.newton.genie = Genie.SPLU
+    rec, sol, y = fused_runs(params, system, y0, t0, 1.0, 1)
+    check_counters("splu_129", rec["counters"], splu_host["counters"])
+    y_err = float((y.cpu() - splu_host["y"]).abs().max())
+    nodes, fn = captured_nodes(sol, y0, t0, 1.0)
+    rec.update(nodes_per_kernel=nodes, y_max_abs_err_vs_host=y_err,
+               host_stepped_warm_wall_s=splu_host["wall_s"])
+    say("fused_path", part="splu_129", npoint=NPOINT, **rec)
+    if not y_err <= 1e-12:
+        raise AssertionError(f"fused SPLU 129: y off the host-stepped run's"
+                             f" by {y_err} (atol 1e-12)")
+    for k in ("splu_pairs", "gather_rows", "gj_inv"):
+        if rec["launches_cold_run"][k] <= 0 or nodes[k] <= 0:
+            raise AssertionError(f"fused SPLU 129: {k} was not launched")
+    res["splu_129"] = rec
+    del sol, fn, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GRIDMF at npoint 513 (bench.py's top rung): host-stepped, then fused
+    from russell_tpu_torch.ode import OdeSolver
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT_BSR)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    host = OdeSolver(params, system, "cuda")
+    yh = host.solve(y0, t0, 1.0)
+    torch.cuda.synchronize()
+    host_rec = {"wall_s": time.perf_counter() - t,
+                "counters": counters(host.stats()),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    yh = yh.cpu()
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, sol, y = fused_runs(params, system, y0, t0, 1.0, 1)
+    check_counters("gridmf_513", rec["counters"], host_rec["counters"])
+    y_err = float((y.cpu() - yh).abs().max())
+    gplan = sol.actual.plan.gridmf_plan
+    rec.update(host_stepped=host_rec, y_max_abs_err_vs_host=y_err,
+               depths=len(gplan.levels), leaf_front_e=gplan.levels[-1].e)
+    say("fused_path", part="gridmf_513", npoint=NPOINT_BSR, **rec)
+    if not y_err <= 1e-10:
+        raise AssertionError(f"fused GRIDMF 513: y off the host-stepped "
+                             f"run's by {y_err} (atol 1e-10)")
+    res["gridmf_513"] = rec
+    del sol, y, yh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DoPri5 at npoint 513 against erk_path's host-stepped run (its
+    # stiffness detection changes no step), with the same dense stations
+    params = Params(Method.DOPRI5)
+    params.set_tolerances(1e-4, 1e-4)
+    stations = []
+
+    def keep(stats, h, x, yy, args):
+        stations.append(x)
+        return False
+
+    out = Output().set_dense_h_out(0.1).set_dense_callback(keep)
+    rec, sol, y = fused_runs(params, system, y0, t0, 1.0, 1, output=out)
+    host = erk_host[("DOPRI5", NPOINT_BSR)]
+    check_counters("dopri5_513", rec["counters"], host["counters"])
+    y_err = float(((y.cpu() - host["y"]).abs() / host["y"].abs()).max())
+    win = sol.solve(y0, t0, ERK_WINDOW_X1, fused=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sol.solve(y0, t0, ERK_WINDOW_X1, fused=True)
+    torch.cuda.synchronize()
+    w_wall = time.perf_counter() - t
+    w_steps = sol.stats().n_steps
+    ms, p_wall, events = kernel_device_ms(
+        lambda: sol.solve(y0, t0, ERK_WINDOW_X1, fused=True))
+    rec.update(y_max_rel_err_vs_host=y_err, host_stepped_wall_s=host[
+        "wall_s"], stations=len(out.dense_x()), window={
+            "x1": ERK_WINDOW_X1, "steps": w_steps, "wall_s": w_wall,
+            "device_ms": sum(ms.values()), "device_events": events,
+            "profiled_wall_s": p_wall,
+            "device_busy_share": sum(ms.values()) / 1e3 / w_wall})
+    say("fused_path", part="dopri5_513", npoint=NPOINT_BSR, **rec)
+    if not y_err <= 1e-10:
+        raise AssertionError(f"fused DoPri5 513: y off the host-stepped "
+                             f"run's by {y_err} (rtol 1e-10)")
+    res["dopri5_513"] = rec
+    del sol, y, win
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DoPri8 at npoint 129 with dense stations every 0.1, held to a
+    # host-stepped run of the same parameters
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    params = Params(Method.DOPRI8)
+    params.set_tolerances(1e-4, 1e-4)
+    outs = {}
+    for fused in (False, True):
+        o = Output().set_dense_h_out(0.1).set_dense_recording(
+            list(range(0, system.ndim, 997)))
+        s8 = OdeSolver(params, system, "cuda")
+        t = time.perf_counter()
+        s8.solve(y0, t0, 1.0, output=o, fused=fused)
+        torch.cuda.synchronize()
+        outs[fused] = (o, time.perf_counter() - t, counters(s8.stats()))
+    err = max(float(np.abs(np.asarray(outs[True][0].dense_y(m))
+                           - np.asarray(outs[False][0].dense_y(m))).max())
+              for m in range(0, system.ndim, 997))
+    say("fused_path", part="dopri8_129_dense", npoint=NPOINT,
+        stations=len(outs[True][0].dense_x()), station_max_abs_err=err,
+        fused_cold_wall_s=outs[True][1], host_wall_s=outs[False][1],
+        counters=outs[True][2])
+    check_counters("dopri8_129", outs[True][2], outs[False][2])
+    if not err <= 1e-10 or outs[True][0].dense_x() != outs[False][
+            0].dense_x():
+        raise AssertionError(f"fused DoPri8 129: stations off the host's by"
+                             f" {err} (atol 1e-10)")
+
+    # solve_batch: each lane held to its single fused solve
+    for name, make in (("van_der_pol", "RADAU5"), ("hairer_wanner", "DOPRI5")):
+        if name == "van_der_pol":
+            system, x0, y0, _, _ = samples.van_der_pol(1e-4, False)
+            y0s = np.tile(np.asarray(y0)[None, :], (FUSED_BATCH, 1))
+            y0s[:, 0] += np.linspace(-0.2, 0.2, FUSED_BATCH)
+            x1, params = 1.0, Params(Method.RADAU5)
+        else:
+            system, x0, y0, _, _ = samples.hairer_wanner_eq1()
+            y0s = np.linspace(0.5, 2.0, FUSED_BATCH)[:, None] * np.asarray(
+                y0)[None, :]
+            y0s[:, 0] += np.linspace(0.0, 0.7, FUSED_BATCH)
+            x1, params = 1.5, Params(Method.DOPRI5)
+            params.step.h_ini = 1e-4
+        bsol = OdeSolver(params, system, "cuda")
+        walls = []
+        for _ in range(2):
+            t = time.perf_counter()
+            ys, st = bsol.solve_batch(y0s, x0, x1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        keys = [k for k in counters(bsol.stats()) if k in st]
+        worst, bad = 0.0, []
+        t = time.perf_counter()
+        for b in range(FUSED_BATCH):
+            yb = bsol.solve(y0s[b], x0, x1, fused=True)
+            worst = max(worst, float((yb - ys[b]).abs().max()))
+            single = counters(bsol.stats())
+            if any(int(st[k][b]) != single[k] for k in keys):
+                bad.append(b)
+        torch.cuda.synchronize()
+        singles = time.perf_counter() - t
+        say("fused_path", part=f"solve_batch_{name}", method=make,
+            lanes=FUSED_BATCH, cold_wall_s=walls[0], warm_wall_s=walls[1],
+            singles_wall_s=singles, statuses=sorted(set(
+                st["status"].tolist())),
+            n_accepted_range=[int(st["n_accepted"].min()),
+                              int(st["n_accepted"].max())],
+            lane_max_abs_err=worst, lanes_with_other_counters=bad,
+            genie=(bsol.actual.plan.genie.name if make == "RADAU5"
+                   else None))
+        if (st["status"].tolist() != [1] * FUSED_BATCH or bad
+                or not worst <= 1e-12):
+            raise AssertionError(f"solve_batch {name}: lanes {bad} differ "
+                                 f"from single solves (y by {worst})")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -2166,7 +2614,13 @@ def main():
     phase_layers(sol, y)
     del sol, y
     torch.cuda.empty_cache()
-    gruns = phase_gridmf_main_path(runs["warm"]["counters"], splu_y)
+    gruns, gridmf_y = phase_gridmf_main_path(runs["warm"]["counters"],
+                                             splu_y)
+    splu_host = {"counters": runs["warm"]["counters"], "y": splu_y.cpu(),
+                 "wall_s": runs["warm"]["wall_s"]}
+    gridmf_host = {"counters": gruns[-1]["counters"], "y": gridmf_y,
+                   "warm_median_s": statistics.median(
+                       r["wall_s"] for r in gruns[1:])}
     del splu_y
     torch.cuda.empty_cache()
     gplans = phase_gridmf_layers()
@@ -2174,12 +2628,16 @@ def main():
     del gplans
     rep = phase_replay(plan)
     phase_ode_samples()
-    phase_erk_path()
+    erk_recs, erk_ys = phase_erk_path()
+    erk_host = {(r["method"], r["npoint"]): {
+        "counters": r["counters"], "wall_s": r["wall_s"],
+        "y": erk_ys[(r["method"], r["npoint"])]} for r in erk_recs}
     phase_bweuler_path()
     phase_dense_factor()
     phase_bsr_kernels()
     bsr_launches, bres = phase_bsr_path()
     cres = phase_bsr_complex()
+    fres = phase_fused_path(gridmf_host, splu_host, erk_host)
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -2212,12 +2670,14 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             "bound_ms": sum(r[4] for r in res), "bound_by": by,
             "replay_ms_per_factorize_pair": rep[f"{name}_ms"],
+            "fused_path": fused_entry(fres, name),
             "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": bsr_launches[name],
             **res, "shapes": f"npoint-{NPOINT_BSR} Brusselator Jacobian",
+            "fused_path": fused_entry(fres, name),
             "complex128": {k: cres[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}})
@@ -2226,9 +2686,15 @@ def main():
         "replaces": src["gj_inv"][1],
         "launches": gruns[-1]["gj_inv_launches"], **gres,
         "launches_splu_main_path": runs["warm"]["launches"]["gj_inv"],
+        "fused_path": fused_entry(fres, "gj_inv"),
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
+    kernels.append({
+        **fres["lane_pow"],
+        "launches": fres["gridmf_129"]["launches_cold_run"]["lane_pow"],
+        "fused_path": fused_entry(fres, "lane_pow"),
+        "shapes": "one lane (the fused solves), 64 lanes (solve_batch)"})
     say("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

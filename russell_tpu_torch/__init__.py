@@ -13,7 +13,8 @@ formats with the BSR products:
                Euler, the 13 explicit Runge-Kutta tableaux), Output with
                dense output, analytic, autodiff and numerical Jacobians,
                parameters, statistics, stiffness detection, the
-               reference's samples
+               reference's samples; the whole integration on the device
+               (``fused=True``, ``solve_batch``) as a captured CUDA graph
 - ``sparse`` : COO/CSR/CSC matrices, samples, MatrixMarket I/O,
                VerifyLinSys, orderings, SPLU (host plan + numeric scan
                with its CUDA kernels), GRIDMF, the DENSE, SPLU and GRIDMF
@@ -31,7 +32,17 @@ jax.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# cuSOLVER's own cuBLAS handle takes its GEMM workspace from stream-ordered
+# allocations unless a default workspace is configured when the handle is
+# made; the fused ODE loops capture the DENSE route's complex LU into a CUDA
+# graph conditional body, which refuses allocation nodes at instantiation
+# (an H100 refused the second such capture of a 800 x 800 complex128 LU).
+# Configured here, before this process makes its first handle.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 __all__ = ["device"]
 

@@ -7,8 +7,11 @@ recording), analytic, autodiff (``torch.func.jacfwd``) and numerical
 Jacobians, and the reference's samples. The steppers' control logic runs
 on the host in f64 (so the statistics counters match Hairer's Fortran
 codes); the rhs, Jacobian, factorizations and solves run on the tensors'
-device. The fused whole-integration loop and ``solve_batch`` are the next
-slice (ROADMAP.md).
+device. ``solve(..., fused=True)`` and ``solve_batch`` run the whole
+integration of Radau5 or an embedded ERK method on the device instead
+(``radau5_fused``, ``erk_fused``): on the card a step attempt captured once
+as a CUDA graph whose conditional nodes take the control flow, replayed
+until a done flag is set (``_device_loop``).
 """
 
 from russell_tpu_torch.ode.enums import Method, Information

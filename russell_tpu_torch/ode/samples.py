@@ -46,6 +46,17 @@ def _per_device(**arrays):
     return get
 
 
+# x reaches a system function as a float on the host-stepped path and as a
+# 0-d tensor on the device on the fused one, where a host read (math.cos
+# of a tensor) would stop the graph's capture: the same functions take both
+def _cos(x):
+    return torch.cos(x) if isinstance(x, torch.Tensor) else math.cos(x)
+
+
+def _sin(x):
+    return torch.sin(x) if isinstance(x, torch.Tensor) else math.sin(x)
+
+
 def simple_equation_constant():
     """y' = 1, y(0) = 0 (samples.rs:44)."""
     const = _per_device(jac=np.zeros(1))
@@ -61,9 +72,10 @@ def simple_system_with_mass_matrix(lower_triangle: bool = False):
 
     M y' = f with y_ana = (cos x, -sin x, ln(1+x))."""
     def f(x, y, args):
-        return torch.stack([-y[0] + y[1], y[0] + y[1],
-                            torch.full((), 1.0 / (1.0 + x), dtype=y.dtype,
-                                       device=y.device)])
+        third = 1.0 / (1.0 + x)
+        if not isinstance(third, torch.Tensor):
+            third = torch.full((), third, dtype=y.dtype, device=y.device)
+        return torch.stack([-y[0] + y[1], y[0] + y[1], third.to(y.dtype)])
 
     system = System(3, f)
     ii = [0, 0, 1, 1]
@@ -160,8 +172,11 @@ def brusselator_pde(alpha: float, npoint: int, second_book: bool = False,
                 lap_v = lap_v + mol_d[b] * v[nn_d[b]]
             fu = fu + lap_u
             fv = fv + lap_v
-        if second_book and t >= 1.1:
-            fu = fu + const("inh", dev)
+        if second_book:
+            if isinstance(t, torch.Tensor):
+                fu = fu + torch.where(t >= 1.1, const("inh", dev), 0.0)
+            elif t >= 1.1:
+                fu = fu + const("inh", dev)
         return torch.cat([fu, fv])
 
     system = System(ndim, f)
@@ -232,7 +247,7 @@ def hairer_wanner_eq1():
     L = -50.0
 
     def f(x, y, args):
-        return L * (y - math.cos(x))
+        return L * (y - _cos(x))
 
     system = System(1, f)
     const = _per_device(jac=np.array([L]))
@@ -316,7 +331,7 @@ def amplifier1t():
     C1, C2, C3 = 1e-6, 2e-6, 3e-6
 
     def f(x, y, args):
-        ue = A * math.sin(OM * x)
+        ue = A * _sin(OM * x)
         g12 = BETA * (torch.exp((y[1] - y[2]) / UF) - 1.0)
         return torch.stack([
             (y[0] - ue) / R,

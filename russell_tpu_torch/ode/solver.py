@@ -7,9 +7,12 @@ error-controlled accept/reject, divergence backoff (:300-306), the
 the solver was given; this module is the host-side control loop in f64.
 
 Every method of ``Method`` runs, with an ``Output`` (step and dense
-output, callbacks, JSON files, stiffness recording). The fused
-whole-integration loop (``fused=True``) and ``solve_batch`` are the next
-slice (ROADMAP.md).
+output, callbacks, JSON files, stiffness recording). ``fused=True`` (Radau5
+or an embedded explicit Runge-Kutta method) runs the whole integration on
+the device (``radau5_fused.py``, ``erk_fused.py``): on the card one step
+attempt is captured as a CUDA graph and replayed, its control flow on the
+device; on the CPU the same step runs eagerly. ``solve_batch`` runs B
+initial values as lanes of one fused integration.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ class OdeSolver:
         else:
             self.actual = ExplicitRungeKutta(params, system)
         self.work = Workspace(params.method)
+        # fused integrations by (dense stations, lanes): each keeps its
+        # captured graph for the next solve
+        self._fused = {}
 
     def stats(self):
         return self.work.stats
@@ -71,15 +77,15 @@ class OdeSolver:
               args=None, output=None, fused: bool = False):
         """Integrate from (x0, y0) to x1; returns the final y (f64 tensor
         on the solver's device). ``output`` (an ``Output``) records or
-        streams the accepted steps and dense stations."""
+        streams the accepted steps and dense stations.
+
+        ``fused=True`` (Radau5 or an embedded ERK method, no ``h_equal``,
+        ``args=None``) runs the whole variable-step integration on the
+        device; an Output may then have dense stations only (its callbacks
+        and files are played back after the integration)."""
         if fused:
-            raise NotImplementedError("fused=True (the whole-integration "
-                                      "loop) is not ported yet (ROADMAP.md)")
-        if isinstance(y0, torch.Tensor):
-            y = y0.to(self.device, torch.float64)
-        else:
-            y = torch.as_tensor(np.asarray(y0, dtype=np.float64),
-                                device=self.device)
+            return self._solve_fused(y0, x0, x1, args, output, h_equal)
+        y = self._y_on_device(y0)
         if y.shape[0] != self.ndim:
             raise ValueError("y0 dimension must equal ndim")
         if x1 <= x0:
@@ -202,13 +208,141 @@ class OdeSolver:
                 "variable stepping did not converge with n_step_max steps")
         return y
 
+    def _y_on_device(self, y0):
+        if isinstance(y0, torch.Tensor):
+            return y0.to(self.device, torch.float64)
+        return torch.as_tensor(np.asarray(y0, dtype=np.float64),
+                               device=self.device)
+
+    def _build_fused(self, lanes=1, dense_x=None):
+        """The fused whole-integration solver of the current method:
+        Radau5 (radau5_fused.py) or an embedded ERK (erk_fused.py)."""
+        if self.params.method == Method.RADAU5:
+            from russell_tpu_torch.ode.radau5_fused import FusedRadau5
+            return FusedRadau5(self.actual, self.params, lanes, dense_x)
+        if dense_x is not None and self.params.method not in (
+                Method.DOPRI5, Method.DOPRI8):
+            raise ValueError("fused dense output requires Radau5, DoPri5 "
+                             "or DoPri8")
+        if (isinstance(self.actual, ExplicitRungeKutta)
+                and self.actual.info.embedded):
+            from russell_tpu_torch.ode.erk_fused import FusedErk
+            return FusedErk(self.actual, self.params, self.device, lanes,
+                            dense_x)
+        raise ValueError("fused solve requires Radau5 or an embedded "
+                         "explicit Runge-Kutta method")
+
+    def _fused_for(self, lanes, dense_x=None):
+        key = (lanes, None if dense_x is None else tuple(dense_x.tolist()))
+        fn = self._fused.get(key)
+        if fn is None:
+            fn = self._fused[key] = self._build_fused(lanes, dense_x)
+        return fn
+
+    def _solve_fused(self, y0, x0, x1, args, output, h_equal):
+        if h_equal is not None:
+            raise ValueError("fused solve does not support h_equal")
+        if args is not None:
+            raise ValueError("fused solve requires args=None (close over "
+                             "static data in the system functions)")
+        dense_x = None
+        if output is not None:
+            # the integration runs on the device: only dense stations ride
+            # along; step output and callbacks need the host-stepped path
+            if (output.step_callback is not None
+                    or output.step_file_key is not None
+                    or output.step_recording
+                    or self.params.stiffness.save_results):
+                raise ValueError(
+                    "fused solve supports dense output only (no step "
+                    "recording/callbacks/stiffness); use fused=False")
+            output.initialize(x0, x1, False)
+            if not output.with_dense_output():
+                raise ValueError("the attached Output has no dense output "
+                                 "configured; use fused=False")
+            dense_x = np.asarray(output.dense_x(), dtype=np.float64)
+        y = self._y_on_device(y0)
+        if y.shape[0] != self.ndim:
+            raise ValueError("y0 dimension must equal ndim")
+        if x1 <= x0:
+            raise ValueError("x1 must be greater than x0")
+        fn = self._fused_for(1, dense_x)
+        h0 = min(self.params.step.h_ini, x1 - x0)
+        ys, st = fn.solve(x0, y[None], x1, h0)
+        host = {k: v.tolist()[0] for k, v in st.items()
+                if k not in ("dense_y", "dense_h")}
+        stats = self.work.stats
+        for k in ("n_function", "n_jacobian", "n_factor", "n_lin_sol",
+                  "n_steps", "n_accepted", "n_rejected", "n_iterations",
+                  "n_iterations_max"):
+            if k in host:
+                setattr(stats, k, host[k])
+        stats.h_accepted = host["h_accepted"]
+        status = host["status"]
+        if status == 2:
+            raise RuntimeError("the stepsize becomes too small")
+        if status == 3:
+            raise RuntimeError(
+                "Newton-Raphson method did not complete successfully")
+        if status != 1:
+            raise RuntimeError(
+                "variable stepping did not converge with n_step_max steps")
+        y = ys[0]
+        self._check_finite(y)
+        if output is not None:
+            self._playback_dense(output, st, host, y)
+        return y
+
+    def _playback_dense(self, output, st, host, y_final):
+        """Hand the device-filled stations to the Output's callback, file
+        and recording hooks in station order (the streaming order of
+        output.rs:269-285; a callback that returns True stops the
+        playback: the integration has already finished)."""
+        from russell_tpu_torch.ode.output import OutCount, OutData
+        dense = st["dense_y"][0].to("cpu").numpy().copy()
+        hh = st["dense_h"][0].to("cpu").numpy().copy()
+        xs = output.dense_x()
+        n = len(xs)
+        # last station: the final y at the last accepted h (output.rs last())
+        dense[n - 1] = y_final.to("cpu").numpy()
+        hh[n - 1] = host["h_prev"]
+        stats = self.work.stats
+        stopped = False
+        for i in range(n):
+            if output.dense_callback is not None:
+                if output.dense_callback(stats, hh[i], xs[i], dense[i],
+                                         None):
+                    stopped = True
+                    break
+            if output.dense_file_key is not None:
+                OutData(hh[i], xs[i], dense[i]).write_json(
+                    f"{output.dense_file_key}_"
+                    f"{output.dense_file_count}.json")
+                output.dense_file_count += 1
+            if output.dense_recording:
+                for m, ym in output._dense_y.items():
+                    ym[i] = float(dense[i][m])
+        output.dense_index = n - 1
+        if output.dense_file_key is not None and not stopped:
+            OutCount(output.dense_file_count).write_json(
+                f"{output.dense_file_key}_count.json")
+
     def solve_batch(self, y0_batch, x0, x1, h0: Optional[float] = None):
-        """Solve the same system from many initial conditions at once: in
-        the reference package a vmap of the fused integration. Not ported
-        yet: it comes with the fused loop (ROADMAP.md)."""
-        raise NotImplementedError("solve_batch (the batched fused "
-                                  "integration) is not ported yet "
-                                  "(ROADMAP.md)")
+        """Solve the same system from B initial values at once: lanes of
+        one fused integration (the reference package vmaps its fused
+        loop), each with its own stepsize and Newton path. Radau5 lanes
+        factorize through the DENSE route.
+
+        Returns (y (B, ndim), stats): a dict of (B,) tensors with
+        ``status`` (1 for a lane that reached x1) and the counters."""
+        y0s = self._y_on_device(y0_batch)
+        if y0s.dim() != 2 or y0s.shape[1] != self.ndim:
+            raise ValueError("y0_batch must be (B, ndim)")
+        if x1 <= x0:
+            raise ValueError("x1 must be greater than x0")
+        fn = self._fused_for(y0s.shape[0])
+        h = h0 if h0 is not None else min(self.params.step.h_ini, x1 - x0)
+        return fn.solve(x0, y0s, x1, h)
 
     @staticmethod
     def _check_finite(y):

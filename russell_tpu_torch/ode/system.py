@@ -106,6 +106,20 @@ class System:
 
         return (ii, jj), num_vals
 
+    # -- lanes (solve_batch) -------------------------------------------------
+
+    def lane_function(self):
+        """``F(x (B,), y (B, ndim)) -> (B, ndim)``: the rhs of B
+        independent lanes (``torch.func.vmap``; the rhs must then be
+        functional, as for autodiff)."""
+        f = self.function
+        return torch.func.vmap(lambda x, y: f(x, y, None))
+
+    def lane_jacobian(self, jac_fn):
+        """``J(x (B,), y (B, ndim)) -> (B, nnz)`` for the values function
+        ``jac_fn`` of ``jac_values_fn``, over B lanes."""
+        return torch.func.vmap(lambda x, y: jac_fn(x, y, None))
+
     # -- mass ----------------------------------------------------------------
 
     def set_mass(self, mass: CooMatrix) -> None:

@@ -11,6 +11,11 @@ imported, so the CPU tests, which have no ``nvcc``, import it freely. The
 wrappers that launch the kernels live beside their plain PyTorch versions
 (``sparse/splu.py``, ``sparse/kernels.py``). A kernel for several value
 types has one C entry point for each (``<name>_f64``, ``<name>_c128``).
+``KERNELS`` are the ports of the reference's TPU kernels (and of its
+clamped inverse); ``LIBRARIES`` adds the fused ODE loops' two:
+``graph_cond``, CUDA graph conditional nodes (``ode/_device_loop.py``),
+and ``lane_pow``, the controllers' correctly rounded pow
+(``ode/_lanes.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from russell_tpu_torch.native import BUILD_DIR
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "build",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "LIBRARIES", "build",
            "build_all", "library", "build_info", "stream_of", "launch_check"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -60,8 +65,19 @@ _SIGNATURES = {
     # n_perturbed, sign, stream
     "gj_inv": {"gj_inv_f64": [_P, _L, _L, _P, _I, _I, _P, _P, _P, _P, _P,
                               _P]},
+    # parent stream, child stream, pred, capture mode, body graph out;
+    # child stream; graph, count out; capturing stream, count out
+    "graph_cond": {"cond_if_begin": [_P, _P, _P, _I, _P],
+                   "cond_if_end": [_P],
+                   "graph_node_count": [_P, _P],
+                   "capture_node_count": [_P, _P]},
+    # x, exponent, n, out, stream
+    "lane_pow": {"pow_cr_f64": [_P, ctypes.c_double, _I, _P, _P]},
 }
-KERNELS = tuple(_SIGNATURES)
+LIBRARIES = tuple(_SIGNATURES)
+# the fused loops' graph conditional nodes and their controllers' pow
+_LOOP_LIBRARIES = ("graph_cond", "lane_pow")
+KERNELS = tuple(n for n in LIBRARIES if n not in _LOOP_LIBRARIES)
 
 _libs: dict = {}
 _build_info: dict = {}
@@ -81,7 +97,7 @@ def _paths(name):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
-def build_all(names=KERNELS) -> dict:
+def build_all(names=LIBRARIES) -> dict:
     """Compile ``csrc/<name>.cu`` for each of ``names`` that has no
     up-to-date library, one ``nvcc`` per source, all started together;
     returns {name: library path}. Raises with nvcc's output on failure."""

@@ -13,7 +13,11 @@ UMFPACK / cuDSS backends). The split is the same:
   the GRIDMF multifrontal factorization and its sweeps, and fixed-count
   iterative refinement against the scaled matrix.
 
-``Genie.DENSE``, ``Genie.SPLU`` and ``Genie.GRIDMF`` are ported.
+``Genie.DENSE``, ``Genie.SPLU`` and ``Genie.GRIDMF`` are ported. The DENSE
+route also factorizes and solves a batch of matrices of one pattern (entry
+values (B, nnz), right-hand sides (B, n)), which ``solve_batch`` uses;
+``prepare`` uploads every index array of a plan before a CUDA graph
+capture, which may not copy from the host.
 ``Genie.AUTO`` routes as the reference does: n <= ``dense_threshold`` to
 DENSE (with or without a ``grid`` hint), a grid hint with a cell-local
 pattern above it to GRIDMF. Every other AUTO case (the reference's
@@ -35,7 +39,7 @@ from russell_tpu_torch.sparse.enums import Genie, Ordering, Scaling
 from russell_tpu_torch.sparse import gridmf as _gridmf
 from russell_tpu_torch.sparse import splu as _splu
 
-__all__ = ["SolvePlan", "analyze", "numeric_factorize",
+__all__ = ["SolvePlan", "analyze", "prepare", "numeric_factorize",
            "numeric_factorize_pair", "factor_solve", "factor_solve_pair"]
 
 # Device memory (GiB) that the three f64 value planes of GRIDMF factors of
@@ -230,98 +234,133 @@ def _device_indices(plan: SolvePlan, device):
         torch.as_tensor(plan.cols, device=d)))
 
 
+def prepare(plan: SolvePlan, device, stream=None):
+    """Upload every array the plan's numeric phase reads to ``device``
+    (each is uploaded once per (plan, device) anyway), and for SPLU the
+    pair kernel's ticket buffer of the CUDA ``stream`` that will run the
+    factorization: afterwards a factorize or solve copies nothing from
+    the host, so it can be captured into a CUDA graph."""
+    device = torch.device(device)
+    _device_indices(plan, device)
+    if plan.genie == Genie.DENSE:
+        _dense_passes_on(plan, device)
+    elif plan.genie == Genie.GRIDMF:
+        _gridmf._device_plan(plan.gridmf_plan, device)
+    elif plan.genie == Genie.SPLU:
+        _splu._device_plan(plan.splu_plan, device)
+        if stream is not None and device.type == "cuda":
+            _splu.prepare_stream(plan.splu_plan, device, stream)
+
+
 def _segment_max(vals, seg, n):
-    """Per-segment max of ``vals`` (segments with no entry give 0, which
-    the callers treat like the reference's -inf: no scaling)."""
-    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, seg, vals, "amax", include_self=False)
+    """Per-segment max of ``vals`` along its last dimension (segments with
+    no entry give 0, which the callers treat like the reference's -inf: no
+    scaling)."""
+    out = torch.zeros(vals.shape[:-1] + (n,), dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_reduce_(-1, seg.expand(vals.shape), vals, "amax",
+                               include_self=False)
 
 
 def _segment_sum(vals, seg, n):
-    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg, vals)
+    out = torch.zeros(vals.shape[:-1] + (n,), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(-1, seg, vals)
 
 
 def _equilibrate(plan: SolvePlan, data):
     """Max-norm row/col scaling computed on the device; returns
-    (data', rs, cs)."""
+    (data', rs, cs). A leading batch dimension of ``data`` gives one
+    scaling per matrix."""
     n = plan.n
     rows, cols = _device_indices(plan, data.device)
     rdt = data.real.dtype if data.is_complex() else data.dtype
     if plan.scaling == Scaling.NO:
-        rs = torch.ones(n, dtype=rdt, device=data.device)
+        rs = torch.ones(data.shape[:-1] + (n,), dtype=rdt,
+                        device=data.device)
         return data, rs, rs
     absd = data.abs()
     rmax = _segment_max(absd, rows, n)
     rs = torch.where(rmax > 0, 1.0 / rmax, 1.0)
-    absd2 = absd * rs[rows]
+    absd2 = absd * rs[..., rows]
     cmax = _segment_max(absd2, cols, n)
     cs = torch.where(cmax > 0, 1.0 / cmax, 1.0)
     if plan.scaling == Scaling.ROW_COL_ITER:
         for _ in range(2):
-            absd3 = absd * rs[rows] * cs[cols]
+            absd3 = absd * rs[..., rows] * cs[..., cols]
             rmax = _segment_max(absd3, rows, n)
             rs = rs * torch.where(rmax > 0, 1.0 / torch.sqrt(rmax), 1.0)
-            absd3 = absd * rs[rows] * cs[cols]
+            absd3 = absd * rs[..., rows] * cs[..., cols]
             cmax = _segment_max(absd3, cols, n)
             cs = cs * torch.where(cmax > 0, 1.0 / cmax, 1.0)
-    return data * (rs[rows] * cs[cols]).to(data.dtype), rs, cs
+    return data * (rs[..., rows] * cs[..., cols]).to(data.dtype), rs, cs
 
 
 def _logdet_update(diag, piv):
-    """(log|det|, phase) of one LU factor's U diagonal and its pivots
-    (``torch.linalg`` pivots are 1-based, where the reference package's
-    are 0-based)."""
-    k = diag.shape[0]
+    """(log|det|, phase) of LU factors' U diagonals and their pivots, one
+    per matrix of a batch (``torch.linalg`` pivots are 1-based, where the
+    reference package's are 0-based)."""
+    k = diag.shape[-1]
     swaps = torch.sum(piv != torch.arange(1, k + 1, dtype=piv.dtype,
-                                          device=piv.device))
+                                          device=piv.device), dim=-1)
     absd = diag.abs()
     sign = (1 - 2 * (swaps % 2)).to(absd.dtype)
     safe = torch.where(absd > 0, absd, 1.0)
-    logdet = torch.sum(torch.where(absd > 0, torch.log(safe), -torch.inf))
+    logdet = torch.sum(torch.where(absd > 0, torch.log(safe), -torch.inf),
+                       dim=-1)
     if diag.is_complex():
         phase = torch.prod(torch.where(absd > 0, diag / safe.to(diag.dtype),
-                                       0.0)) * sign
+                                       0.0), dim=-1) * sign
     else:
-        phase = torch.prod(torch.sign(diag)) * sign
+        phase = torch.prod(torch.sign(diag), dim=-1) * sign
     return logdet, phase
 
 
-def _dense_factorize(plan: SolvePlan, data):
-    n = plan.n
-    data, rs, cs = _equilibrate(plan, data)
-    a = torch.zeros(n * n, dtype=data.dtype, device=data.device)
-    passes = _on_device(plan, "dense_passes", data.device, lambda d: [
+def _dense_passes_on(plan: SolvePlan, device):
+    return _on_device(plan, "dense_passes", device, lambda d: [
         (torch.as_tensor(ids, device=d), torch.as_tensor(slots, device=d))
         for ids, slots in plan.dense_passes])
-    for ids, slots in passes:
-        a[slots] = a[slots] + data[ids]
-    lu, piv, _ = torch.linalg.lu_factor_ex(a.reshape(n, n))
-    diag = torch.diagonal(lu)
+
+
+def _dense_factorize(plan: SolvePlan, data):
+    """LU of the entries ``data`` (nnz,), or of a batch (B, nnz) of them."""
+    n = plan.n
+    data, rs, cs = _equilibrate(plan, data)
+    batch = data.shape[:-1]
+    a = torch.zeros(batch + (n * n,), dtype=data.dtype, device=data.device)
+    for ids, slots in _dense_passes_on(plan, data.device):
+        a[..., slots] = a[..., slots] + data[..., ids]
+    lu, piv, _ = torch.linalg.lu_factor_ex(a.reshape(batch + (n, n)))
+    diag = torch.diagonal(lu, dim1=-2, dim2=-1)
     logdet, phase = _logdet_update(diag, piv)
     return {"lu": lu, "piv": piv, "rs": rs, "cs": cs, "logdet": logdet,
-            "phase": phase, "min_pivot": diag.abs().min(),
+            "phase": phase, "min_pivot": diag.abs().amin(dim=-1),
             "data": data}  # scaled entries (kept for refinement)
 
 
 def _dense_solve(plan: SolvePlan, fac, b):
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
-    x = torch.linalg.lu_solve(fac["lu"], fac["piv"], y[:, None])[:, 0]
+    x = torch.linalg.lu_solve(fac["lu"], fac["piv"], y[..., None])[..., 0]
     return fac["cs"].to(out_dtype) * x
 
 
-def _check_plan(plan: SolvePlan):
+def _check_plan(plan: SolvePlan, values=None):
     if plan.genie not in (Genie.DENSE, Genie.SPLU, Genie.GRIDMF):
         raise NotImplementedError(f"genie {plan.genie} is not ported yet "
                                   "(ROADMAP.md)")
+    if values is not None and values.dim() > 1 and plan.genie != Genie.DENSE:
+        raise NotImplementedError(
+            f"a batch of matrices factorizes through Genie.DENSE only; a "
+            f"batched numeric phase of {plan.genie.name} over one plan is "
+            "not ported yet (ROADMAP.md queue 1, item 17)")
 
 
 def numeric_factorize(plan: SolvePlan, data):
     """Numeric factorization of the entry values ``data`` (f64 or
     complex128 tensor, on the device to factorize on) laid out as
-    (plan.rows, plan.cols)."""
-    _check_plan(plan)
+    (plan.rows, plan.cols); DENSE also takes a batch (B, nnz)."""
+    _check_plan(plan, data)
     if plan.genie == Genie.DENSE:
         return _dense_factorize(plan, data)
     data, rs, cs = _equilibrate(plan, data)
@@ -341,7 +380,7 @@ def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
     packed schedule (splu_factorize_multi) — the analog of the reference's
     concurrent real/complex factorization (radau5.rs, P5); DENSE and GRIDMF
     factor them one after the other, as the reference package does."""
-    _check_plan(plan)
+    _check_plan(plan, data_r)
     if plan.genie != Genie.SPLU:
         return (numeric_factorize(plan, data_r),
                 numeric_factorize(plan, data_c))
@@ -359,7 +398,7 @@ def _residual(plan: SolvePlan, fac, x, b):
     rows, cols = _device_indices(plan, x.device)
     dtype = x.dtype
     u = x / fac["cs"].to(dtype)
-    ax = _segment_sum(fac["data"] * u[cols], rows, plan.n)
+    ax = _segment_sum(fac["data"] * u[..., cols], rows, plan.n)
     return (fac["rs"].to(dtype) * b.to(dtype) - ax) / fac["rs"].to(dtype)
 
 
@@ -378,8 +417,9 @@ def _solve_once(plan: SolvePlan, fac, b):
 def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
     """Solve A x = b from a numeric factorization, with ``refine_steps``
     (default ``plan.refine_steps``) rounds of iterative refinement
-    against the scaled matrix. Radau5 passes 0 for its Newton solves."""
-    _check_plan(plan)
+    against the scaled matrix. Radau5 passes 0 for its Newton solves.
+    DENSE factors of a batch take right-hand sides (B, n)."""
+    _check_plan(plan, b)
     if refine_steps is None:
         refine_steps = plan.refine_steps
     x = _solve_once(plan, fac, b)
@@ -394,7 +434,7 @@ def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
     packed-substitution pass per refinement round covers both; DENSE and
     GRIDMF solve them one after the other, as the reference package
     does)."""
-    _check_plan(plan)
+    _check_plan(plan, b_r)
     if refine_steps is None:
         refine_steps = plan.refine_steps
     if plan.genie != Genie.SPLU:

@@ -369,8 +369,9 @@ def _inv_embed(parent_F: int, child: _Level, side: int, pad: int):
 def _device_plan(plan: GridMfPlan, device):
     """Every index array of the numeric phase on ``device`` (int32 where
     it fits, ``idx32``), uploaded once per (plan, device) and kept on the
-    plan. Per depth d: ``asm`` / ``gd`` (the assembly and ghost-diagonal
-    positions in the depth's flat fronts), ``ev`` (elim vars, ghosts -> n),
+    plan: ``presum``, the passes of ``_presum``; per depth d: ``asm`` /
+    ``gd`` (the assembly and ghost-diagonal positions in the depth's flat
+    fronts), ``ev`` (elim vars, ghosts -> n),
     and for d > 0 ``restrict`` (both sides' child keep positions in the
     parent front, ghosts -> the parent's zero pad slot) and, on depth d - 1,
     ``inv`` (per side, the parent front's child keep position, or the
@@ -398,8 +399,15 @@ def _device_plan(plan: GridMfPlan, device):
             ent["inv"] = tuple(t(_inv_embed(lv.F, child, side, child.r))
                                for side in (0, 1))
         levels.append(ent)
-    dp = cache[key] = {"eperm": t(plan.entry_perm),
-                       "eseg": t(plan.entry_seg), "levels": levels}
+    # the pre-sum's passes: pass k takes the k-th entry of every unique
+    # position that has more than k (entries are sorted by position)
+    seg = plan.entry_seg
+    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
+    rank = np.arange(len(seg)) - np.repeat(starts, np.diff(
+        np.r_[starts, len(seg)]))
+    presum = [(t(plan.entry_perm[rank == k]), t(seg[rank == k]))
+              for k in range(int(rank.max()) + 1 if len(seg) else 0)]
+    dp = cache[key] = {"presum": presum, "levels": levels}
     return dp
 
 
@@ -409,11 +417,15 @@ def _device_plan(plan: GridMfPlan, device):
 
 
 def _presum(plan: GridMfPlan, dp, data):
-    """One gather + one segment sum: duplicate entries collapse onto their
-    unique front positions (entries sorted by segment)."""
-    d = data.index_select(0, dp["eperm"])
-    out = torch.zeros(plan.n_uniq, dtype=d.dtype, device=d.device)
-    return out.index_add_(0, dp["eseg"], d)
+    """Duplicate entries collapse onto their unique front positions,
+    summed in entry order: one gather and one index_add per duplicate
+    rank, each over distinct positions, so no two adds to one address
+    race on the card and every run gives the same bits (the Brusselator's
+    diagonal has three entries: Jacobian, Laplacian centre, mass)."""
+    out = torch.zeros(plan.n_uniq, dtype=data.dtype, device=data.device)
+    for perm, seg in dp["presum"]:
+        out.index_add_(0, seg, data.index_select(0, perm))
+    return out
 
 
 def _assemble(lv: _Level, dl, uniq, ghost=True):
@@ -425,7 +437,8 @@ def _assemble(lv: _Level, dl, uniq, ghost=True):
     flat = torch.zeros(lv.n_nodes * F * F, dtype=uniq.dtype,
                        device=uniq.device)
     if ghost and len(lv.ghost_diag):
-        flat[dl["gd"]] = 1.0
+        # a device scalar: a Python one is copied from the host
+        flat[dl["gd"]] = flat.new_ones(())
     if lv.asm_len:
         flat.index_put_((dl["asm"],),
                         uniq[lv.asm_off:lv.asm_off + lv.asm_len])

@@ -572,6 +572,15 @@ def _stream_tickets(device, stream, n):
     return t
 
 
+def prepare_stream(plan: SpluPlan, device, stream):
+    """Create the ticket buffer of the CUDA ``stream`` at the plan's
+    widest row before a CUDA graph capture on it (a buffer created during
+    a capture would come from the graph's memory pool)."""
+    dp = _device_plan(plan, device)
+    n = max(ln for _, ln, *_ in dp["rows"])
+    _stream_tickets(torch.device(device), stream.cuda_stream, n)
+
+
 def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
     """Segment-summed block-pair products of one factorize row:
     ``out[s] = sum_{i: pair_seg[i] == s} B[pair_l[i]] @ B[pair_u[i]]`` for
@@ -959,7 +968,7 @@ def _init_states(plan: SpluPlan, datas, dp):
         if cplx:
             i_re1, i_re2, i_im1, i_im2 = dp["kform"]
             flat = torch.zeros(nrow_store * 4 * bb, dtype=rdt, device=dev)
-            flat[dp["ones_k"]] = 1.0
+            flat[dp["ones_k"]] = flat.new_ones(())
             dre, dim = data.real, data.imag
             flat.index_add_(0, i_re1, dre)
             flat.index_add_(0, i_re2, dre)
@@ -968,7 +977,7 @@ def _init_states(plan: SpluPlan, datas, dp):
             blocks = flat.view(nrow_store, 4 * bb)
         else:
             flat = torch.zeros(nrow_store * bb, dtype=rdt, device=dev)
-            flat[dp["ones_r"]] = 1.0
+            flat[dp["ones_r"]] = flat.new_ones(())
             flat.index_add_(0, dp["scatter_idx"], data)
             blocks = flat.view(nrow_store, bb)
         deltas.append(plan.pivot_epsilon * (1.0 + data.abs().max()))

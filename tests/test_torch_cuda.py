@@ -830,3 +830,118 @@ def test_ode_methods_with_output_on_card_match_cpu(cuda, method):
         np.testing.assert_allclose(out.dense_y(m) or out.step_y(m),
                                    outc.dense_y(m) or outc.step_y(m),
                                    rtol=1e-10)
+
+
+# -- the fused loops: a step attempt captured as one CUDA graph --------------
+
+
+def test_when_records_if_nodes_that_the_replay_decides(cuda):
+    from russell_tpu_torch.ode._device_loop import DeviceLoop, when
+    results = []
+    for dev in ("cpu", cuda):
+        x = torch.zeros(3, dtype=torch.float64, device=dev)
+        tgt = torch.tensor([3.0, 5.0, 8.0], dtype=torch.float64, device=dev)
+        cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def step():
+            act = x < tgt
+
+            def body():
+                x.add_(torch.where(act, 0.5, 0.0))
+                big = act & (x > 4)
+                when(big.any(), lambda: cnt.add_(big.long()))
+
+            when(act.any(), body)
+            done.copy_(~(x < tgt).any())
+
+        loop = DeviceLoop(step, [x, cnt], done, dev)
+        loop.run()
+        results.append((x.tolist(), cnt.tolist()))
+    assert results[0] == results[1]
+    assert loop.if_nodes == 2 and loop.nodes > 0
+
+
+def test_lane_pow_kernel_is_the_c_library_pow(cuda):
+    from russell_tpu_torch.ode._lanes import lane_pow
+    rng = np.random.default_rng(3)
+    v = np.concatenate([rng.uniform(1e-3, 2.0, 2000),
+                        10 ** rng.uniform(-10, 1, 2000)])
+    t = torch.as_tensor(v, device=cuda)
+    for e in (0.17, 0.04, 0.25, 0.8, 3.0, -0.2):
+        got = lane_pow(t, e).cpu().numpy()
+        want = np.array([x ** e for x in v])
+        # the C library is correctly rounded but for rare near-halfway
+        # results, where the two may differ in the last bit
+        assert (got != want).sum() <= 10, e
+        np.testing.assert_allclose(got, want, rtol=2.3e-16, atol=0)
+
+
+def test_radau5_fused_matches_fortran_on_card(cuda):
+    system, x0, y0, x1, args = samples.van_der_pol(1e-6, False)
+    params = Params(Method.RADAU5)
+    params.step.h_ini = 1e-6
+    sol = OdeSolver(params, system, cuda)
+    y = sol.solve(y0, x0, x1, fused=True)
+    st = sol.stats()
+    assert abs(float(y[0]) - 1.706163410178079E+00) < 1e-12
+    assert (st.n_function, st.n_jacobian, st.n_factor, st.n_lin_sol,
+            st.n_steps, st.n_accepted, st.n_rejected,
+            st.n_iterations_max) == (2249, 162, 253, 668, 280, 242, 8, 6)
+    loop = sol._fused[(1, None)].loop
+    assert loop.graph is not None and loop.if_nodes > 0
+
+
+@pytest.mark.parametrize("genie", ["GRIDMF", "SPLU"])
+def test_radau5_fused_on_card_matches_host_stepped(cuda, genie):
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 16)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie[genie]
+    sol = OdeSolver(params, system, cuda)
+    yh = sol.solve(y0, t0, 1.0)
+    keys = ("n_function", "n_jacobian", "n_factor", "n_lin_sol", "n_steps",
+            "n_accepted", "n_rejected", "n_iterations_max")
+    host = {k: getattr(sol.stats(), k) for k in keys}
+    yf = sol.solve(y0, t0, 1.0, fused=True)
+    assert {k: getattr(sol.stats(), k) for k in keys} == host
+    np.testing.assert_allclose(yf.cpu().numpy(), yh.cpu().numpy(), rtol=0,
+                               atol=1e-12)
+
+
+def test_solve_batch_lanes_on_card_equal_single_solves(cuda):
+    system, x0, y0, x1, args = samples.van_der_pol(1e-4, False)
+    sol = OdeSolver(Params(Method.RADAU5), system, cuda)
+    y0s = np.tile(np.asarray(y0)[None, :], (8, 1))
+    y0s[:, 0] += np.linspace(-0.2, 0.2, 8)
+    ys, st = sol.solve_batch(y0s, x0, 1.0)
+    assert st["status"].tolist() == [1] * 8
+    for b in (0, 5):
+        y = sol.solve(y0s[b], x0, 1.0, fused=True)
+        np.testing.assert_allclose(ys[b].cpu().numpy(), y.cpu().numpy(),
+                                   rtol=0, atol=1e-12)
+        assert int(st["n_accepted"][b]) == sol.stats().n_accepted
+
+
+def test_capture_names_a_system_function_that_reads_the_device(cuda):
+    system, x0, y0, args, _ = samples.hairer_wanner_eq1()
+    f = system.function
+
+    def reads_host(x, y, a):
+        return f(x, y, a) * float(y.abs().max() > -1.0)
+
+    system.function = reads_host
+    sol = OdeSolver(Params(Method.DOPRI5), system, cuda)
+    with pytest.raises(RuntimeError, match="reads_host"):
+        sol.solve(y0, x0, 1.0, fused=True)
+
+
+def test_dense_complex_lu_captures_in_every_solver(cuda):
+    # cuSOLVER's complex LU makes no allocation node in the conditional
+    # body once CUBLAS_WORKSPACE_CONFIG is set (russell_tpu_torch does)
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 20)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie.DENSE
+    ys = [OdeSolver(params, system, cuda).solve(y0, t0, 0.2, fused=True)
+          for _ in range(3)]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])

@@ -117,20 +117,31 @@ def test_unported_paths_raise(what):
     """The paths that earlier slices refused. ``method`` (DoPri5),
     ``output``, ``genie`` (AUTO, which routes van der Pol to DENSE) and
     ``numerical_jacobian`` are ported now and must give the reference
-    package's counters, through AUTO's DENSE route; ``fused`` and
-    ``solve_batch`` still raise, naming ROADMAP.md."""
+    package's counters, through AUTO's DENSE route. ``fused`` is ported
+    too and must give radau5.f's counters through SPLU; ``solve_batch``
+    through SPLU still raises, naming ROADMAP.md (a batch factorizes
+    through DENSE only)."""
     system, x0, y0, x1, args = samples.van_der_pol(1e-6, False)
     params = Params(Method.DOPRI5 if what == "method" else Method.RADAU5)
     params.newton.genie = (Genie.SPLU if what in ("fused", "solve_batch")
                            else Genie.AUTO)
     params.newton.use_numerical_jacobian = what == "numerical_jacobian"
-    if what in ("fused", "solve_batch"):
+    if what == "fused":
+        params.step.h_ini = 1e-6
+        sol = OdeSolver(params, system, "cpu")
+        y = sol.solve(y0, x0, x1, fused=True)
+        st = sol.stats()
+        assert sol.actual.plan.genie == Genie.SPLU
+        assert abs(float(y[0]) - 1.706163410178079E+00) < 1e-12
+        assert abs(float(y[1]) - (-8.927971289301175E-01)) < 1e-11
+        assert (st.n_function, st.n_jacobian, st.n_factor, st.n_lin_sol,
+                st.n_steps, st.n_accepted, st.n_rejected,
+                st.n_iterations_max) == (2249, 162, 253, 668, 280, 242, 8, 6)
+        return
+    if what == "solve_batch":
         sol = OdeSolver(params, system, "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if what == "fused":
-                sol.solve(y0, x0, x1, fused=True)
-            else:
-                sol.solve_batch(np.stack([y0, y0]), x0, x1)
+            sol.solve_batch(np.stack([y0, y0]), x0, x1)
         return
     # short runs: the reference package runs them too (DoPri5 takes steps
     # of ~3e-6 on this stiff problem)
