@@ -134,6 +134,26 @@ complex128.
    fused solve (y at atol 1e-12, counters equal). Each kernel of the
    kernels line gains its nodes per captured attempt and its launches in
    the cold fused runs (``fused_path``).
+21. lin_solver_path: ``LinSolver`` on the card at the reference's sparse
+   benchmark sizes, each result held to SciPy's SuperLU on the host (x,
+   log|det| and the determinant's sign or complex phase): GENMF on
+   geometric_264k (``samples.irregular_geometric(263_743)``, seed 0,
+   ``Genie.GENMF`` by name as the reference's benchmark runs it; AUTO's
+   own route is recorded) with the host analysis, a cold and three warm
+   factorizations (walls, device ms, launches, busy share, ``gj_inv``'s
+   launches and ms, GFLOP/s over the plan's flops, peak memory), a warm
+   solve, the relative error <= 1e-10 and x, log|det| within 1e-9, then
+   complex values on the same plan; BANDED on laplacian_2d_317 (AUTO: k
+   320, nb 315, cyclic reduction) and the sequential scan on it (x's equal
+   at 1e-10), and a complex128 run; SPLU on laplacian_3d_50 (the
+   reference's SPLU size, BENCHMARKS.md §2) with
+   ``splu_pairs``, ``gather_rows`` and ``gj_inv`` counted from 0 over the
+   run; every path's second factorize-and-solve bit-identical; and the
+   ``solve_matrix_market`` CLI in a subprocess on its default device (the
+   card) on a MatrixMarket file of ``irregular_geometric(30_000)`` with
+   ``--genie genmf``. ``gj_inv``'s entry on the kernels line gains its
+   GENMF-264k launches and ms per factorization, and the SPLU kernels'
+   their launches per factorization on laplacian_3d_50.
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -153,7 +173,8 @@ its blocks, which builds the live layout) with DIR's package and with
 this tree's, each in its own process, in turns P C C P, ROUNDS times,
 then the medians, the ratios and the number of calls that pays for one
 layout build. ``--replay [--tree DIR]`` is one such process.
-``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
+``--lin-solver-path`` runs only phase 21 (after the device and build
+phases). ``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
 plan for each chunk size K of CHUNK_SWEEP, which is how
 ``splu.CHUNK_PAIRS`` was chosen; ``--strip-sweep`` times ``spgemm`` at
 npoint 513 for each strip budget of STRIP_SWEEP, which is how
@@ -165,6 +186,7 @@ BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -921,6 +943,30 @@ def check_gj_inv(w, m, seed, delta):
     return err, ld_err
 
 
+def check_gj_inv_shapes(tops):
+    """``check_gj_inv`` at every (w, m) of the base calls under each plan's
+    top-level blocks ``tops`` ({plan: {(w, m): calls}}), each shape once.
+    Returns (max |Dinv - plain|, max relative log|det| error)."""
+    from russell_tpu_torch.sparse import splu
+    delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
+    max_err, ld_err, checked = 0.0, 0.0, set()
+    for name, top in tops.items():
+        calls = base_calls(top)
+        for (w, m) in sorted(calls):
+            if (w, m) in checked:
+                continue
+            checked.add((w, m))
+            err, lde = check_gj_inv(w, m, w * 100 + m, delta)
+            max_err, ld_err = max(max_err, err), max(ld_err, lde)
+        say("gj_inv_shapes", plan=name, gj_max_m=splu.GJ_MAX_M,
+            calls=sum(calls.values()),
+            shapes=[[w, m, c] for (w, m), c in sorted(calls.items())])
+    say("gj_inv_check", plans=list(tops), shapes=len(checked),
+        max_abs_err=max_err, logdet_max_rel_err=ld_err, bit_identical=True)
+    torch.cuda.empty_cache()
+    return max_err, ld_err
+
+
 def summed_times(calls, fn, reps=REPS, cold=False):
     """Sum over {(w, m): calls} of calls x the device time of ``fn(D)``
     on ``gj_inputs(w, m)`` (back to back, or L2-cold)."""
@@ -1001,20 +1047,7 @@ def phase_gj_inv(splu_plan, gplans):
     tops = {"splu_129": splu_top_blocks(splu_plan)}
     for key, gp in gplans.items():
         tops[f"gridmf_{key}"] = gridmf_top_blocks(gp)
-    max_err, ld_err, checked = 0.0, 0.0, set()
-    for name, top in tops.items():
-        calls = base_calls(top)
-        for (w, m) in sorted(calls):
-            if (w, m) in checked:
-                continue
-            checked.add((w, m))
-            err, lde = check_gj_inv(w, m, w * 100 + m, delta)
-            max_err, ld_err = max(max_err, err), max(ld_err, lde)
-        say("gj_inv_shapes", plan=name, gj_max_m=splu.GJ_MAX_M,
-            calls=sum(calls.values()),
-            shapes=[[w, m, c] for (w, m), c in sorted(calls.items())])
-    say("gj_inv_check", shapes=len(checked), max_abs_err=max_err,
-        logdet_max_rel_err=ld_err, bit_identical=True)
+    max_err, ld_err = check_gj_inv_shapes(tops)
     pairs = {name: inv_block_pair(name, tops[name]) for name in (
         "gridmf_129", "gridmf_513", "splu_129")}
     # the kernel alone at the npoint-129 GRIDMF pair's base calls
@@ -2438,9 +2471,10 @@ def phase_fused_path(gridmf_host, splu_host, erk_host):
     rec.update(nodes_per_kernel=nodes, y_max_abs_err_vs_host=y_err,
                host_stepped_warm_wall_s=splu_host["wall_s"])
     say("fused_path", part="splu_129", npoint=NPOINT, **rec)
-    if not y_err <= 1e-12:
+    if not y_err == 0.0:
         raise AssertionError(f"fused SPLU 129: y off the host-stepped run's"
-                             f" by {y_err} (atol 1e-12)")
+                             f" by {y_err} (the ordered sums give the same "
+                             "bits)")
     for k in ("splu_pairs", "gather_rows", "gj_inv"):
         if rec["launches_cold_run"][k] <= 0 or nodes[k] <= 0:
             raise AssertionError(f"fused SPLU 129: {k} was not launched")
@@ -2595,6 +2629,587 @@ def phase_fused_path(gridmf_host, splu_host, erk_host):
     return res
 
 
+# -- lin_solver_path ---------------------------------------------------------
+
+GEOMETRIC_N = 263_743   # geometric_264k (BENCHMARKS.md §2)
+LAPLACIAN_2D_NPOINT = 317
+LAPLACIAN_3D_NPOINT = 50  # laplacian_3d_50, the reference's SPLU size
+CLI_N = 30_000
+LS_WARM_RUNS = 3
+# the LinSolver path against SciPy's SuperLU: x and log|det|
+LS_RTOL = {"genmf": 1e-9, "banded": 1e-10, "splu": 1e-10}
+
+
+def perm_sign(p):
+    """The sign of the permutation ``p``: (-1)^(n - number of cycles)."""
+    p = np.asarray(p)
+    seen = np.zeros(len(p), dtype=bool)
+    cycles = 0
+    for i in range(len(p)):
+        if not seen[i]:
+            cycles += 1
+            j = i
+            while not seen[j]:
+                seen[j] = True
+                j = p[j]
+    return -1.0 if (len(p) - cycles) % 2 else 1.0
+
+
+def superlu_oracle(coo, vals, bs):
+    """SciPy's SuperLU on the host, independent of the port's numerics:
+    x for each right-hand side of ``bs``, log|det| and the determinant's
+    phase (sign for a real matrix). The matrix is symmetrically permuted
+    by nested dissection first (``ordering.nd_ordering``; SuperLU's own
+    MMD and COLAMD orderings take minutes at n 264k) and SuperLU keeps
+    that column order, pivoting rows as it needs."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    from russell_tpu_torch.sparse.ordering import nd_ordering
+    t0 = time.perf_counter()
+    ii, jj, _ = coo.triplets()
+    n = coo.nrow
+    p = nd_ordering(n, ii, jj)
+    ip = np.empty(n, dtype=np.int64)
+    ip[p] = np.arange(n)
+    a = sp.csc_matrix((vals, (ip[ii], ip[jj])), shape=(n, n))
+    lu = spla.splu(a, permc_spec="NATURAL",
+                   options={"SymmetricMode": True})
+    xs = []
+    for b in bs:
+        y = lu.solve(np.asarray(b)[p])
+        x = np.empty_like(y)
+        x[p] = y
+        xs.append(x)
+    d = lu.U.diagonal()
+    ad = np.abs(d)
+    phase = complex(np.prod(d / ad)) * perm_sign(lu.perm_r) * perm_sign(
+        lu.perm_c)
+    return xs, float(np.sum(np.log(ad))), phase, time.perf_counter() - t0
+
+
+def det_log_phase(m, e):
+    """(log|det|, phase) of a LinSolver determinant (mantissa, 10, e)."""
+    return (np.log(abs(m)) + e * np.log(10.0)), complex(m) / abs(m)
+
+
+def fac_log_phase(plan, fac):
+    """(log|det|, phase) of the unscaled matrix from factor's factors."""
+    from russell_tpu_torch.sparse import factor
+    log_scale = float(torch.log(fac["rs"]).sum() + torch.log(fac["cs"]).sum())
+    return (float(fac["logdet"]) - log_scale,
+            complex(factor.det_phase(plan, fac)))
+
+
+def check_oracle(name, x, logdet, phase, ox, ologdet, ophase, rtol):
+    """Hold x, log|det| and the phase to SuperLU's at ``rtol``; returns
+    the errors."""
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    x_err = float(np.abs(x - ox).max() / np.abs(ox).max())
+    ld_err = abs(logdet - ologdet) / abs(ologdet)
+    ph_err = abs(phase - ophase)
+    if not (x_err <= rtol and ld_err <= rtol and ph_err <= rtol):
+        raise AssertionError(
+            f"{name}: off SuperLU's (rtol {rtol}): x {x_err}, log|det| "
+            f"{ld_err}, phase {phase} vs {ophase}")
+    return {"x_rel_err_vs_superlu": x_err,
+            "logdet_rel_err_vs_superlu": ld_err,
+            "phase_err_vs_superlu": ph_err}
+
+
+def timed_factorizations(fact, warm=LS_WARM_RUNS):
+    """``fact()`` (which waits for its result) ``warm`` times after a cold
+    call made by the caller: the walls, then one more under the profiler
+    (device ms, device launches, busy share, gj_inv's launches and ms) and
+    the peak memory of them all."""
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        fact()
+        walls.append(time.perf_counter() - t0)
+    n0 = gj_inv_launches()
+    ms, p_wall, launches = kernel_device_ms(fact)
+    dev_ms = sum(ms.values())
+    return {"warm_wall_s": walls,
+            "warm_median_s": statistics.median(walls),
+            "warm_spread_s": max(walls) - min(walls),
+            "device_ms": dev_ms, "device_launches": launches,
+            "profiled_wall_s": p_wall,
+            "device_busy_share": dev_ms / (1e3 * p_wall),
+            "gj_inv_launches": gj_inv_launches() - n0,
+            "gj_inv_device_ms": summed(ms, "gj_inv"),
+            "top_kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])
+                                   [:5])}
+
+
+def timed_solves(solve, reps=3):
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def kernel_counts():
+    from russell_tpu_torch.sparse import splu
+    return {"splu_pairs": splu.splu_pairs.launches,
+            "gather_rows": splu.gather_rows.launches,
+            "gj_inv": gj_inv_launches()}
+
+
+@contextlib.contextmanager
+def held_to_plain():
+    """Within the block, every launch of gj_inv, splu_pairs and gather_rows
+    is held against its plain version on the same inputs, as the kernel
+    checks do: gj_inv's Dinv bit-identical, min|pivot|, n_perturbed and
+    the sign exact, log|det| at rtol 1e-14; splu_pairs at rtol 1e-12
+    (``assert_close``); gather_rows bit-identical. Yields {kernel: {"calls",
+    "shapes", "max_abs_err"}} (gj_inv: also "logdet_max_rel_err"), filled
+    as the block runs. The wrappers keep counting their launches."""
+    from russell_tpu_torch.sparse import splu
+    names = {"gj_inv": "_gj_inv", "splu_pairs": "splu_pairs",
+             "gather_rows": "gather_rows"}
+    orig = {k: getattr(splu, a) for k, a in names.items()}
+    held = {k: {"calls": 0, "shapes": collections.Counter(),
+                "max_abs_err": 0.0} for k in names}
+    held["gj_inv"]["logdet_max_rel_err"] = 0.0
+
+    def note(k, shape, err):
+        h = held[k]
+        h["calls"] += 1
+        h["shapes"][shape] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], err)
+
+    def gj_inv(D, delta):
+        got = orig["gj_inv"](D, delta)
+        want = splu._gj_inv_plain(D, delta)
+        w, m = D.shape[0], D.shape[-1]
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(
+                f"gj_inv ({w}, {m}) on the path: Dinv differs from the plain "
+                f"version by up to {float((got[0] - want[0]).abs().max())}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0,
+                                   msg=lambda s: f"gj_inv ({w}, {m}) on the "
+                                   f"path, log|det|: {s}")
+        for name, g, p in (("min|pivot|", got[2], want[2]),
+                           ("n_perturbed", got[3], want[3]),
+                           ("sign", got[4], want[4])):
+            if not torch.equal(g, p):
+                raise AssertionError(f"gj_inv ({w}, {m}) on the path: {name} "
+                                     "differs from the plain version")
+        if w:   # the wrapper launches nothing for an empty batch
+            note("gj_inv", (w, m), 0.0)
+            h = held["gj_inv"]
+            h["logdet_max_rel_err"] = max(h["logdet_max_rel_err"], float((
+                (got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-300)
+            ).max()))
+        return got
+
+    def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
+        got = orig["splu_pairs"](blocks, pair_l, pair_u, pair_seg, work,
+                                 n_live, be)
+        want = splu._splu_pairs_plain(blocks, pair_l, pair_u, pair_seg,
+                                      n_live, be)
+        err, _ = assert_close(f"splu_pairs on the path ({n_live} lanes, "
+                              f"{pair_l.numel()} pairs, be {be})", got, want)
+        note("splu_pairs", (n_live, be), err)
+        return got
+
+    def gather_rows(blocks, idx):
+        got = orig["gather_rows"](blocks, idx)
+        if not torch.equal(got, splu._gather_rows_plain(blocks, idx)):
+            raise AssertionError(f"gather_rows on the path ({idx.numel()} "
+                                 "rows) differs from blocks[idx]")
+        note("gather_rows", (idx.numel(), blocks.shape[1]), 0.0)
+        return got
+
+    checks = {"gj_inv": gj_inv, "splu_pairs": splu_pairs,
+              "gather_rows": gather_rows}
+    for k, a in names.items():
+        checks[k].launches = orig[k].launches
+        setattr(splu, a, checks[k])
+    try:
+        yield held
+    finally:
+        for k, a in names.items():
+            orig[k].launches = checks[k].launches
+            setattr(splu, a, orig[k])
+
+
+def held_record(held, launches):
+    """The record of a ``held_to_plain`` block that ran one factorization
+    whose per-kernel launch counts were ``launches``: it fails unless every
+    launch was held."""
+    rec = {}
+    for k, n in launches.items():
+        h = held[k]
+        if h["calls"] != n:
+            raise AssertionError(f"{k}: {h['calls']} launches held against "
+                                 f"the plain version, {n} in a factorization")
+        if n:
+            rec[k] = {"calls": h["calls"], "shapes": len(h["shapes"]),
+                      "max_abs_err": h["max_abs_err"]}
+            if "logdet_max_rel_err" in h:
+                rec[k]["logdet_max_rel_err"] = h["logdet_max_rel_err"]
+    return rec
+
+
+def ls_genmf(res):
+    """geometric_264k through LinSolver(Genie.GENMF), real; then the same
+    pattern with complex values through factor on the solver's plan."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          VerifyLinSys, factor, samples)
+    coo = samples.irregular_geometric(GEOMETRIC_N, seed=0)
+    ii, jj, vv = coo.triplets()
+    n = coo.nrow
+    rng = np.random.default_rng(SEED)
+    b = rng.standard_normal(n)
+    cv = vv + 0.3j * rng.standard_normal(len(vv))
+    cb = b + 1j * rng.standard_normal(n)
+    # AUTO's route for this matrix (host only): the reference package's
+    # benchmark names GENMF (tools/bench_matrix_market.py:72)
+    t0 = time.perf_counter()
+    auto = factor.analyze(n, ii, jj)
+    auto_s = time.perf_counter() - t0
+    auto_rec = {"auto_routes_to": auto.genie.value,
+                "auto_analyze_s": auto_s, "auto_block_k": auto.block_k}
+    del auto
+    reset_launch_counts()
+    s = LinSolver(Genie.GENMF, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s.factorize(coo, LinSolParams())
+    cold = time.perf_counter() - t0
+    counts = kernel_counts()
+    if counts["gj_inv"] <= 0:
+        raise AssertionError("GENMF 264k: gj_inv was not launched")
+    gp = s.plan.genmf_plan
+    rec = {"matrix": "geometric_264k", "n": n, "nnz": int(len(ii)),
+           "solver": s.stats.main["solver"], **auto_rec,
+           **gp.stats_dict(),
+           "analyze_s": s.stats.time_nanoseconds["initialize"] / 1e9,
+           "cold_factorize_s": s.stats.time_nanoseconds["factorize"] / 1e9,
+           "cold_total_s": cold, "launches_cold": counts}
+    rec.update(timed_factorizations(lambda: s.factorize(coo)))
+    rec["GFLOP_per_s_wall"] = gp.flops / rec["warm_median_s"] / 1e9
+    rec["GFLOP_per_s_device"] = gp.flops / rec["device_ms"] / 1e6
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    x = s.solve(b)
+    rec["warm_solve_s"] = timed_solves(lambda: s.solve(b))
+    m, _, e = s.determinant()
+    logdet, phase = det_log_phase(m, e)
+    rec["relative_error"] = VerifyLinSys.from_system(
+        coo, x.cpu().numpy(), b).relative_error
+    if not rec["relative_error"] <= 1e-10:
+        raise AssertionError(f"GENMF 264k: relative error "
+                             f"{rec['relative_error']}")
+    rec["min_pivot"] = s.stats.output["min_pivot"]
+    rec["n_perturbed"] = s.stats.output["n_perturbed_pivots"]
+    # bits: another factorize-and-solve
+    s.factorize(coo)
+    rec["bit_identical_repeat"] = bool(torch.equal(s.solve(b), x))
+    # gj_inv against its plain version: at every launch of a factorization,
+    # and at the base shapes of both runs' pivot blocks with clamped lanes
+    t0 = time.perf_counter()
+    with held_to_plain() as held:
+        s.factorize(coo)
+    rec["held_to_plain"] = held_record(held, {"gj_inv": rec[
+        "gj_inv_launches"]})
+    ld_err = check_gj_inv_shapes({
+        "genmf_264k": collections.Counter(
+            (c.n_nodes, c.e) for c in gp.classes),
+        "genmf_264k_complex": collections.Counter(
+            (c.n_nodes, 2 * c.e) for c in gp.classes)})[1]
+    rec["gj_inv_shapes_logdet_max_rel_err"] = ld_err
+    rec["kernel_checks_s"] = time.perf_counter() - t0
+    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    rec.update(check_oracle("GENMF 264k", x, logdet, phase, oxs[0], ologdet,
+                            ophase, LS_RTOL["genmf"]), superlu_s=t_o,
+               logdet=logdet, det_phase=str(phase))
+    say("lin_solver_path", part="genmf_264k", **rec)
+    if not rec["bit_identical_repeat"]:
+        raise AssertionError("GENMF 264k: a second factorize-and-solve "
+                             "changed x")
+    res["genmf_264k"] = rec
+    plan = s.plan
+    del s, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # complex values on the same plan, through the planes
+    cvt = torch.as_tensor(cv, device="cuda")
+    cbt = torch.as_tensor(cb, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def fact():
+        fac = factor.numeric_factorize(plan, cvt)
+        float(fac["min_pivot"])
+        return fac
+
+    t0 = time.perf_counter()
+    fac = fact()
+    crec = {"cold_factorize_s": time.perf_counter() - t0}
+    crec.update(timed_factorizations(fact))
+    crec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    fac = fact()
+    x = factor.factor_solve(plan, fac, cbt)
+    crec["warm_solve_s"] = timed_solves(
+        lambda: factor.factor_solve(plan, fac, cbt))
+    logdet, phase = fac_log_phase(plan, fac)
+    crec["relative_error"] = VerifyLinSys.from_system(
+        coo.__class__.from_arrays(n, n, ii, jj, cv), x.cpu().numpy(),
+        cb).relative_error
+    if not crec["relative_error"] <= 1e-10:
+        raise AssertionError(f"GENMF 264k complex: relative error "
+                             f"{crec['relative_error']}")
+    fac2 = fact()
+    crec["bit_identical_repeat"] = bool(torch.equal(
+        factor.factor_solve(plan, fac2, cbt), x))
+    del fac2
+    with held_to_plain() as held:
+        fact()
+    crec["held_to_plain"] = held_record(held, {"gj_inv": crec[
+        "gj_inv_launches"]})
+    oxs, ologdet, ophase, t_o = superlu_oracle(coo, cv, [cb])
+    crec.update(check_oracle("GENMF 264k complex", x, logdet, phase, oxs[0],
+                             ologdet, ophase, LS_RTOL["genmf"]),
+                superlu_s=t_o, logdet=logdet, det_phase=str(phase),
+                min_pivot=float(fac["min_pivot"]),
+                n_perturbed=int(fac["n_perturbed"]))
+    say("lin_solver_path", part="genmf_264k_complex", **crec)
+    if not crec["bit_identical_repeat"]:
+        raise AssertionError("GENMF 264k complex: a second factorize-and-"
+                             "solve changed x")
+    res["genmf_264k_complex"] = crec
+    del fac, x, cvt, cbt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ls_banded(res):
+    """laplacian_2d_317 through LinSolver(Genie.AUTO) (BANDED, cyclic
+    reduction), the sequential scan on the same matrix, and a complex run
+    through cyclic reduction."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          VerifyLinSys, factor, samples)
+    coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
+    ii, jj, vv = coo.triplets()
+    n = coo.nrow
+    rng = np.random.default_rng(SEED + 1)
+    b = rng.standard_normal(n)
+    s = LinSolver(Genie.AUTO, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    s.factorize(coo, LinSolParams())
+    plan = s.plan
+    if not (plan.genie == Genie.BANDED and plan.block_k == 320
+            and plan.nb == 315 and plan.use_bcr):
+        raise AssertionError(f"laplacian_2d_317: AUTO took {plan.genie} "
+                             f"k {plan.block_k} nb {plan.nb} bcr "
+                             f"{plan.use_bcr}, not BANDED 320/315/BCR")
+    rec = {"matrix": "laplacian_2d_317", "n": n, "nnz": int(len(ii)),
+           "block_k": plan.block_k, "nb": plan.nb,
+           "analyze_s": s.stats.time_nanoseconds["initialize"] / 1e9,
+           "cold_factorize_s": s.stats.time_nanoseconds["factorize"] / 1e9}
+    rec.update(timed_factorizations(lambda: s.factorize(coo)))
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    x = s.solve(b)
+    rec["warm_solve_s"] = timed_solves(lambda: s.solve(b))
+    m, _, e = s.determinant()
+    logdet, phase = det_log_phase(m, e)
+    rec["relative_error"] = VerifyLinSys.from_system(
+        coo, x.cpu().numpy(), b).relative_error
+    s.factorize(coo)
+    rec["bit_identical_repeat"] = bool(torch.equal(s.solve(b), x))
+    cv = vv + 0.3j * rng.standard_normal(len(vv))
+    cb = b + 1j * rng.standard_normal(n)
+    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    rec.update(check_oracle("BANDED BCR 317", x, logdet, phase, oxs[0],
+                            ologdet, ophase, LS_RTOL["banded"]),
+               superlu_s=t_o)
+    say("lin_solver_path", part="banded_bcr_317", **rec)
+    if not (rec["relative_error"] <= 1e-10 and rec["bit_identical_repeat"]):
+        raise AssertionError(f"BANDED BCR 317: relative error "
+                             f"{rec['relative_error']} or bits changed")
+    res["banded_bcr_317"] = rec
+    x_bcr = x
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sequential scan on the same matrix
+    splan = factor.analyze(n, ii, jj, genie=Genie.BANDED,
+                           banded_kernel="scan")
+    vt = torch.as_tensor(vv, device="cuda")
+    bt = torch.as_tensor(b, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def fact(p=splan, v=vt):
+        fac = factor.numeric_factorize(p, v)
+        float(fac["min_pivot"])
+        return fac
+
+    t0 = time.perf_counter()
+    fact()
+    srec = {"cold_factorize_s": time.perf_counter() - t0}
+    srec.update(timed_factorizations(fact))
+    srec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    fac = fact()
+    x = factor.factor_solve(splan, fac, bt)
+    srec["warm_solve_s"] = timed_solves(
+        lambda: factor.factor_solve(splan, fac, bt))
+    logdet, phase = fac_log_phase(splan, fac)
+    srec["x_rel_err_vs_bcr"] = float((x - x_bcr).abs().max()
+                                     / x_bcr.abs().max())
+    srec.update(check_oracle("BANDED scan 317", x, logdet, phase, oxs[0],
+                             ologdet, ophase, LS_RTOL["banded"]),
+                n_perturbed=int(fac["n_perturbed"]),
+                min_pivot=float(fac["min_pivot"]),
+                bcr_over_scan_warm=rec["warm_median_s"]
+                / srec["warm_median_s"])
+    say("lin_solver_path", part="banded_scan_317", **srec)
+    if not srec["x_rel_err_vs_bcr"] <= LS_RTOL["banded"]:
+        raise AssertionError(f"BANDED 317: scan and BCR x differ by "
+                             f"{srec['x_rel_err_vs_bcr']}")
+    res["banded_scan_317"] = srec
+    del fac, x, splan
+    gc.collect()
+
+    # complex128 through cyclic reduction
+    cvt = torch.as_tensor(cv, device="cuda")
+    cbt = torch.as_tensor(cb, device="cuda")
+    t0 = time.perf_counter()
+    fac = fact(plan, cvt)
+    crec = {"cold_factorize_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    fac = fact(plan, cvt)
+    crec["warm_factorize_s"] = time.perf_counter() - t0
+    x = factor.factor_solve(plan, fac, cbt)
+    logdet, phase = fac_log_phase(plan, fac)
+    crec["relative_error"] = VerifyLinSys.from_system(
+        coo.__class__.from_arrays(n, n, ii, jj, cv), x.cpu().numpy(),
+        cb).relative_error
+    oxs, ologdet, ophase, t_o = superlu_oracle(coo, cv, [cb])
+    crec.update(check_oracle("BANDED BCR 317 complex", x, logdet, phase,
+                             oxs[0], ologdet, ophase, LS_RTOL["banded"]),
+                superlu_s=t_o)
+    say("lin_solver_path", part="banded_bcr_317_complex", **crec)
+    if not crec["relative_error"] <= 1e-10:
+        raise AssertionError(f"BANDED 317 complex: relative error "
+                             f"{crec['relative_error']}")
+    res["banded_bcr_317_complex"] = crec
+    del fac, x, plan, cvt, cbt, vt, bt, x_bcr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ls_splu(res):
+    """laplacian_3d through LinSolver(Genie.SPLU): splu_pairs, gather_rows
+    and gj_inv on the path, two runs bit-identical."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          VerifyLinSys, samples)
+    coo = samples.laplacian_3d(LAPLACIAN_3D_NPOINT)
+    ii, jj, vv = coo.triplets()
+    n = coo.nrow
+    b = np.random.default_rng(SEED + 2).standard_normal(n)
+    reset_launch_counts()
+    s = LinSolver(Genie.SPLU, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    s.factorize(coo, LinSolParams())
+    counts = kernel_counts()
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"SPLU via LinSolver: {k} was not launched")
+    rec = {"matrix": f"laplacian_3d_{LAPLACIAN_3D_NPOINT}", "n": n,
+           "nnz": int(len(ii)), "nblk": s.plan.splu_plan.nblk,
+           "rows": len(s.plan.splu_plan.packed["t0"]),
+           "analyze_s": s.stats.time_nanoseconds["initialize"] / 1e9,
+           "cold_factorize_s": s.stats.time_nanoseconds["factorize"] / 1e9,
+           "launches_per_factorization": counts}
+    rec.update(timed_factorizations(lambda: s.factorize(coo)))
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    x = s.solve(b)
+    rec["warm_solve_s"] = timed_solves(lambda: s.solve(b))
+    m, _, e = s.determinant()
+    logdet, phase = det_log_phase(m, e)
+    rec["relative_error"] = VerifyLinSys.from_system(
+        coo, x.cpu().numpy(), b).relative_error
+    blocks = s.fac["blocks"].clone()
+    s.factorize(coo)
+    rec["bit_identical_repeat"] = bool(torch.equal(s.fac["blocks"], blocks)
+                                       and torch.equal(s.solve(b), x))
+    # every kernel launch of a factorization against its plain version
+    t0 = time.perf_counter()
+    with held_to_plain() as held:
+        s.factorize(coo)
+    rec["held_to_plain"] = held_record(held, counts)
+    rec["kernel_checks_s"] = time.perf_counter() - t0
+    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    rec.update(check_oracle("SPLU via LinSolver", x, logdet, phase, oxs[0],
+                            ologdet, ophase, LS_RTOL["splu"]),
+               superlu_s=t_o)
+    say("lin_solver_path", part="splu_3d", **rec)
+    if not (rec["relative_error"] <= 1e-10 and rec["bit_identical_repeat"]):
+        raise AssertionError(f"SPLU via LinSolver: relative error "
+                             f"{rec['relative_error']} or bits changed")
+    res["splu_3d"] = rec
+    del s, x, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ls_cli(res):
+    """solve_matrix_market in a subprocess with its default flags (AUTO, on
+    the card) on a MatrixMarket file of irregular_geometric(CLI_N); its
+    solver must be the one factor.analyze picks for that matrix."""
+    import tempfile
+    from russell_tpu_torch.sparse import factor, samples, write_matrix_market
+    root = os.path.dirname(os.path.abspath(__file__))
+    coo = samples.irregular_geometric(CLI_N, seed=0)
+    ii, jj, _ = coo.triplets()
+    auto = factor.analyze(coo.nrow, ii, jj).genie.value
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"geometric_{CLI_N}.mtx")
+        write_matrix_market(coo, path)
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "russell_tpu_torch.bin.solve_matrix_market",
+             path, "--determinant"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    out = proc.stdout
+    if proc.returncode != 0 or "{" not in out:
+        raise AssertionError(f"solve_matrix_market exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    st = json.loads(out[out.index("{"):])
+    rec = {"rc": proc.returncode, "wall_s": wall, "auto_routes_to": auto,
+           "solver": st["main"]["solver"], "platform": st["main"]["platform"],
+           "relative_error": st["verify"]["relative_error"],
+           "time_ns": st["time_nanoseconds"]}
+    say("lin_solver_path", part="cli", n=CLI_N, **rec)
+    if (rec["solver"].lower() != auto
+            or not rec["relative_error"] <= 1e-10):
+        raise AssertionError(f"solve_matrix_market: {rec}")
+    res["cli"] = rec
+
+
+def phase_lin_solver_path():
+    """LinSolver on the card at the reference's sparse benchmark sizes
+    (GENMF geometric_264k real and complex, BANDED laplacian_2d_317 by
+    cyclic reduction and by the scan, SPLU laplacian_3d_50) against SciPy's
+    SuperLU, then the solve_matrix_market CLI."""
+    t0 = time.perf_counter()
+    res = {}
+    ls_genmf(res)
+    ls_banded(res)
+    ls_splu(res)
+    ls_cli(res)
+    say("lin_solver_path", part="done", wall_s=time.perf_counter() - t0)
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -2638,6 +3253,7 @@ def main():
     bsr_launches, bres = phase_bsr_path()
     cres = phase_bsr_complex()
     fres = phase_fused_path(gridmf_host, splu_host, erk_host)
+    lres = phase_lin_solver_path()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -2671,6 +3287,10 @@ def main():
             "bound_ms": sum(r[4] for r in res), "bound_by": by,
             "replay_ms_per_factorize_pair": rep[f"{name}_ms"],
             "fused_path": fused_entry(fres, name),
+            "launches_lin_solver_path_splu_3d_per_factorization": lres[
+                "splu_3d"]["launches_per_factorization"][name],
+            "lin_solver_path_splu_3d_held_to_plain": lres["splu_3d"][
+                "held_to_plain"][name],
             "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
@@ -2687,6 +3307,23 @@ def main():
         "launches": gruns[-1]["gj_inv_launches"], **gres,
         "launches_splu_main_path": runs["warm"]["launches"]["gj_inv"],
         "fused_path": fused_entry(fres, "gj_inv"),
+        "lin_solver_path": {
+            "genmf_264k_launches_per_factorization": lres["genmf_264k"][
+                "gj_inv_launches"],
+            "genmf_264k_ms_per_factorization": lres["genmf_264k"][
+                "gj_inv_device_ms"],
+            "genmf_264k_complex_launches_per_factorization": lres[
+                "genmf_264k_complex"]["gj_inv_launches"],
+            "genmf_264k_complex_ms_per_factorization": lres[
+                "genmf_264k_complex"]["gj_inv_device_ms"],
+            "splu_3d_launches_per_factorization": lres["splu_3d"][
+                "launches_per_factorization"]["gj_inv"],
+            "held_to_plain": {part: lres[part]["held_to_plain"]["gj_inv"]
+                              for part in ("genmf_264k",
+                                           "genmf_264k_complex",
+                                           "splu_3d")},
+            "genmf_264k_shapes_logdet_max_rel_err": lres["genmf_264k"][
+                "gj_inv_shapes_logdet_max_rel_err"]},
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -2949,6 +3586,10 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         base_sweep()
+    elif "--lin-solver-path" in sys.argv:
+        phase_device()
+        phase_build()
+        phase_lin_solver_path()
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

@@ -1,5 +1,5 @@
-"""SPLU plans and factors, DENSE factors, BSR matrices and SpGEMM plans to
-and from the reference package's.
+"""SPLU and GENMF plans, SPLU / DENSE / BANDED / GENMF factors, BSR
+matrices and SpGEMM plans to and from the reference package's.
 
 ``russell_tpu`` (JAX) is the reference this package is held against.
 These helpers carry a SPLU plan and a SPLU factorization, a BSR matrix and
@@ -15,6 +15,14 @@ holds ``lu``, ``piv``, ``rs``, ``cs``, ``logdet``, ``phase``,
 ``min_pivot`` and ``data``; its ``piv`` is 0-based in the reference
 package (``jax.scipy.linalg.lu_factor``) and 1-based here
 (``torch.linalg.lu_factor_ex``), and the converters shift it.
+
+A BANDED factor dict (the sequential scan: ``lus``, ``pivs``, ``Cs``,
+``E``; block cyclic reduction: ``levels``, a list of dicts of ``lus``,
+``pivs``, ``Ee``, ``Fe``, ``Eo``, ``Fo``, and ``root``, a dict of ``lus``
+and ``pivs``) and a GENMF factor dict (``classes``, a list of dicts of
+the planes ``sir``, ``sii``, ``lr``, ``li``, ``br``, ``bi``, each possibly
+None) are nested: ``tree_to_torch`` / ``tree_to_numpy`` carry them across
+whole, shifting every ``piv`` / ``pivs`` between 0- and 1-based.
 """
 
 from __future__ import annotations
@@ -27,11 +35,13 @@ import torch
 import russell_tpu_torch
 from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
                                               bsr_from_arrays)
+from russell_tpu_torch.sparse.genmf import GenMfPlan, _GClass, _GLink
 from russell_tpu_torch.sparse.splu import SpluPlan
 
 __all__ = ["splu_plan_from", "splu_plan_fields", "factor_to_torch",
            "factor_to_numpy", "dense_factor_to_torch", "dense_factor_to_numpy",
-           "bsr_fields", "bsr_from", "spgemm_plan_from"]
+           "genmf_plan_fields", "genmf_plan_from", "tree_to_torch",
+           "tree_to_numpy", "bsr_fields", "bsr_from", "spgemm_plan_from"]
 
 
 def splu_plan_fields(plan) -> dict:
@@ -92,6 +102,80 @@ def dense_factor_to_numpy(fac: dict) -> dict:
     out = factor_to_numpy(fac)
     out["piv"] = out["piv"] - 1
     return out
+
+
+def genmf_plan_fields(plan) -> dict:
+    """The fields of a GENMF plan (either package's) as keyword arguments
+    for either package's ``GenMfPlan``; ``classes`` becomes a list of dicts
+    (the fields of each class, its ``links`` a list of dicts of the
+    fields of each link), arrays as numpy."""
+    def fields(obj, cls):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+    out = fields(plan, GenMfPlan)
+    classes = []
+    for c in plan.classes:
+        d = fields(c, _GClass)
+        d["links"] = [fields(link, _GLink) for link in c.links]
+        classes.append(d)
+    out["classes"] = classes
+    return out
+
+
+def genmf_plan_from(plan) -> GenMfPlan:
+    """This package's ``GenMfPlan`` with the fields of ``plan`` (e.g. one
+    made by ``russell_tpu.sparse.genmf.genmf_analyze``)."""
+    f = genmf_plan_fields(plan)
+    f["classes"] = [_GClass(**{**c, "links": [_GLink(**link)
+                                              for link in c["links"]]})
+                    for c in f["classes"]]
+    return GenMfPlan(**f)
+
+
+_PIVOTS = ("piv", "pivs")
+
+
+def tree_to_torch(obj, device="cuda"):
+    """A factor dict of numpy arrays (or anything ``np.asarray`` reads),
+    nested in dicts and lists with None leaves, as tensors on ``device``
+    in this package's dtypes; ``piv`` / ``pivs`` 1-based int32."""
+    device = russell_tpu_torch.device(device)
+
+    def conv(v, key=None):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x, k) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        a = np.asarray(v)
+        if key in _PIVOTS:
+            a = a.astype(np.int32) + 1
+        elif key == "n_perturbed":
+            a = a.astype(np.int32)
+        elif a.dtype.kind == "f":
+            a = a.astype(np.float64)
+        elif a.dtype.kind == "c":
+            a = a.astype(np.complex128)
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return conv(obj)
+
+
+def tree_to_numpy(obj):
+    """A nested factor dict of tensors as numpy arrays on the host, with
+    ``piv`` / ``pivs`` 0-based as in the reference package."""
+    def conv(v, key=None):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x, k) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        a = v.detach().cpu().numpy()
+        return a - 1 if key in _PIVOTS else a
+
+    return conv(obj)
 
 
 def _host(v):

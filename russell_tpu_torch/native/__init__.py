@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["load", "mindeg_order", "nd_order", "block_fill", "BUILD_DIR"]
+__all__ = ["load", "rcm_order", "mindeg_order", "nd_order", "block_fill", "BUILD_DIR"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "symbolic.cpp")
@@ -61,6 +61,8 @@ def load() -> Optional[ctypes.CDLL]:
         return None
     I64 = ctypes.c_int64
     P64 = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+    lib.rcm_order.argtypes = [I64, I64, P64, P64, P64]
+    lib.rcm_order.restype = ctypes.c_int
     lib.mindeg_order.argtypes = [I64, I64, P64, P64, P64]
     lib.mindeg_order.restype = ctypes.c_int
     lib.nd_order.argtypes = [I64, I64, P64, P64, I64, P64, P64,
@@ -70,6 +72,18 @@ def load() -> Optional[ctypes.CDLL]:
     lib.block_fill.restype = I64
     _lib = lib
     return _lib
+
+
+def rcm_order(n: int, rows, cols) -> Optional[np.ndarray]:
+    lib = load()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    out = np.empty(n, dtype=np.int64)
+    if lib.rcm_order(n, len(rows), rows, cols, out) != 0:
+        return None
+    return out
 
 
 def mindeg_order(n: int, rows, cols) -> Optional[np.ndarray]:

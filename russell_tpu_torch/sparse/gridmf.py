@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from russell_tpu_torch.sparse.ordering import idx32 as _idx32
+from russell_tpu_torch.sparse.ordering import idx32 as _idx32, rank_passes
 from russell_tpu_torch.sparse.splu import _inv_block
 
 __all__ = ["GridMfPlan", "gridmf_analyze", "gridmf_factorize",
@@ -400,13 +400,10 @@ def _device_plan(plan: GridMfPlan, device):
                                for side in (0, 1))
         levels.append(ent)
     # the pre-sum's passes: pass k takes the k-th entry of every unique
-    # position that has more than k (entries are sorted by position)
+    # position that has more than k
     seg = plan.entry_seg
-    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
-    rank = np.arange(len(seg)) - np.repeat(starts, np.diff(
-        np.r_[starts, len(seg)]))
-    presum = [(t(plan.entry_perm[rank == k]), t(seg[rank == k]))
-              for k in range(int(rank.max()) + 1 if len(seg) else 0)]
+    presum = [(t(plan.entry_perm[ids]), t(seg[ids]))
+              for ids in rank_passes(seg)]
     dp = cache[key] = {"presum": presum, "levels": levels}
     return dp
 

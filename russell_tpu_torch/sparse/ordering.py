@@ -5,11 +5,10 @@ russell_sparse/src/enums.rs:71-158). The *symbolic* phase runs on the host
 (it is pointer-chasing, not FLOPs) and produces a static permutation that
 shapes the numeric factorization:
 
+- RCM (reverse Cuthill-McKee) minimizes bandwidth, feeding the
+  block-tridiagonal factorization (Genie.BANDED)
 - ND (nested dissection) gives SPLU a low-depth elimination tree
 - MINDEG (approximate minimum degree flavor) minimizes fill for Genie.SPLU
-
-RCM and the bandwidth helper of the reference module feed Genie.BANDED
-and come with it (ROADMAP.md).
 
 Pure NumPy, copied from ``russell_tpu.sparse.ordering`` so that both
 packages build identical plans; the C++ engine in ``russell_tpu_torch.native``
@@ -20,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["mindeg_ordering", "nd_ordering", "symmetrize_pattern", "idx32"]
+__all__ = ["rcm_ordering", "mindeg_ordering", "nd_ordering", "bandwidth",
+           "symmetrize_pattern", "idx32", "rank_passes", "segment_index"]
 
 
 def symmetrize_pattern(n, rows, cols):
@@ -41,6 +41,59 @@ def symmetrize_pattern(n, rows, cols):
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
     return indptr, c
+
+
+def bandwidth(rows, cols, perm=None) -> int:
+    """Max |perm[i]-perm[j]| over the nonzero pattern (0 for diagonal)."""
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    if len(rows) == 0:
+        return 0
+    if perm is not None:
+        iperm = np.empty(len(perm), dtype=np.int64)
+        iperm[perm] = np.arange(len(perm))
+        rows = iperm[rows]
+        cols = iperm[cols]
+    return int(np.max(np.abs(rows - cols)))
+
+
+def rcm_ordering(n, rows, cols) -> np.ndarray:
+    """Reverse Cuthill-McKee: returns ``perm`` with new_index = position of
+    old index in ``perm`` (i.e. A_new = A[perm][:, perm]).
+
+    Uses the native C++ engine when available (russell_tpu_torch.native)."""
+    from russell_tpu_torch import native
+    nat = native.rcm_order(n, rows, cols)
+    if nat is not None:
+        return nat
+    indptr, adj = symmetrize_pattern(n, rows, cols)
+    degree = np.diff(indptr)
+    visited = np.zeros(n, dtype=bool)
+    order = np.empty(n, dtype=np.int64)
+    pos = 0
+    # process every connected component
+    remaining = np.argsort(degree, kind="stable")
+    rem_idx = 0
+    while pos < n:
+        while rem_idx < n and visited[remaining[rem_idx]]:
+            rem_idx += 1
+        start = remaining[rem_idx]
+        # BFS from a pseudo-peripheral-ish start (min degree in component)
+        visited[start] = True
+        order[pos] = start
+        pos += 1
+        head = pos - 1
+        while head < pos:
+            u = order[head]
+            head += 1
+            nbrs = adj[indptr[u]:indptr[u + 1]]
+            nbrs = nbrs[~visited[nbrs]]
+            if len(nbrs):
+                nbrs = nbrs[np.argsort(degree[nbrs], kind="stable")]
+                visited[nbrs] = True
+                order[pos:pos + len(nbrs)] = nbrs
+                pos += len(nbrs)
+    return order[::-1].copy()  # reverse CM
 
 
 def nd_ordering(n, rows, cols, leaf: int = 64,
@@ -192,3 +245,33 @@ def idx32(a):
             and (a.size == 0 or int(a.max()) < 2 ** 31)):
         return a.astype(np.int32)
     return a
+
+
+def rank_passes(keys):
+    """Entry ids grouped by duplicate rank: pass k holds the k-th entry (in
+    entry order) of every key that has more than k entries. Each pass
+    targets distinct keys, so a scatter-add per pass never races on the
+    card, and the passes add a key's entries left to right, as a
+    sequential scatter-add does: the same bits on every run and on the
+    CPU as before."""
+    keys = np.asarray(keys)
+    order = np.argsort(keys, kind="stable")
+    k_sorted = keys[order]
+    starts = np.flatnonzero(np.r_[True, k_sorted[1:] != k_sorted[:-1]])
+    rank = np.arange(len(keys)) - np.repeat(starts, np.diff(
+        np.r_[starts, len(keys)]))
+    return [order[rank == k]
+            for k in range(int(rank.max()) + 1 if len(keys) else 0)]
+
+
+def segment_index(keys, n):
+    """(order, offsets) of a segment sum over ``keys`` (``splu.segment_sum``):
+    the entry ids sorted by key, in entry order within a key (None when
+    the keys are already sorted), and the ``n + 1`` offsets of the ``n``
+    keys' runs in that order."""
+    keys = np.asarray(keys, dtype=np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys, minlength=n), out=offsets[1:])
+    if len(keys) < 2 or bool(np.all(keys[1:] >= keys[:-1])):
+        return None, offsets
+    return np.argsort(keys, kind="stable"), offsets

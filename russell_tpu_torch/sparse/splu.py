@@ -43,12 +43,13 @@ import numpy as np
 import torch
 
 from russell_tpu_torch.sparse import _cuda
-from russell_tpu_torch.sparse.ordering import mindeg_ordering
+from russell_tpu_torch.sparse.ordering import (mindeg_ordering, rank_passes,
+                                              segment_index)
 
 __all__ = ["SpluPlan", "splu_analyze", "splu_factorize",
            "splu_factorize_multi", "splu_solve", "splu_solve_multi",
            "splu_pairs", "gather_rows", "reset_launch_counts", "PairWork",
-           "CHUNK_PAIRS", "GJ_MAX_M"]
+           "CHUNK_PAIRS", "GJ_MAX_M", "splu_det_phase"]
 
 # most pairs in one chunk of splu_pairs' work list (_pair_chunks): the
 # longest chain one CTA walks in series (chosen from the sweep over K of
@@ -667,6 +668,22 @@ def gather_rows(blocks, idx):
     return out
 
 
+def segment_sum(vals, order, offsets):
+    """Per-segment sums along dim 0 of ``vals`` (real or complex), the
+    segments given by ``ordering.segment_index``: ``order`` (or None) puts
+    the rows in segment order and ``offsets`` bounds each segment's run.
+    ``torch.segment_reduce`` adds a segment's rows in that order without
+    atomics, so the card gives the same bits on every run, and the CPU
+    adds them left to right from zero, as ``index_add_`` does."""
+    v = vals if order is None else vals.index_select(0, order)
+    if v.is_complex():
+        return torch.view_as_complex(torch.segment_reduce(
+            torch.view_as_real(v.contiguous()), "sum", offsets=offsets,
+            axis=0, unsafe=True))
+    return torch.segment_reduce(v, "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
 def reset_launch_counts():
     splu_pairs.launches = 0
     gather_rows.launches = 0
@@ -732,9 +749,14 @@ def _device_solve(sched, nb, device):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
                                device=device)
 
+    # each row's items summed per target (segment_sum)
+    sums = []
+    for r in range(len(n_src)):
+        order, offsets = segment_index(seg[r, :n_src[r]], n_tgt[r])
+        sums.append((None if order is None else t(order), t(offsets)))
     return {"rows": list(zip(n_src.tolist(), n_tgt.tolist())),
-            "src": t(src), "col": t(sched["col"]), "seg": t(seg),
-            "tgt": t(sched["tgt_g"])}
+            "src": t(src), "col": t(sched["col"]), "tgt": t(sched["tgt_g"]),
+            "sums": sums}
 
 
 def _device_plan(plan: SpluPlan, device):
@@ -800,6 +822,7 @@ def _device_plan(plan: SpluPlan, device):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    kform = _kform_indices(plan)
     chunk_t = t(chunk_a, torch.int32)
     lane_off_t = t(lane_off_a, torch.int32)
     dp = {
@@ -817,9 +840,13 @@ def _device_plan(plan: SpluPlan, device):
         "dinv": t(pk["dinv"], torch.int32),
         "dloc": t(dloc_r),
         "fresh": t(fresh, torch.bool),
-        "scatter_idx": t(plan.scatter_idx),
+        # the entries' storage positions in passes of one duplicate rank:
+        # (entry ids, real-layout positions, the four K-form positions)
+        "scatter_passes": [
+            (t(ids), t(plan.scatter_idx[ids]),
+             tuple(t(k[ids]) for k in kform))
+            for ids in rank_passes(plan.scatter_idx)],
         "ones_r": t(ones_r),
-        "kform": tuple(t(k) for k in _kform_indices(plan)),
         "ones_k": t(ones_k),
         "perm": t(plan.perm),
         "diag_g": t(np.append(plan.diag_idx, 0)),
@@ -965,20 +992,24 @@ def _init_states(plan: SpluPlan, datas, dp):
             raise TypeError(f"SPLU factorizes float64/complex128, got "
                             f"{data.dtype}")
         dev = data.device
+        # duplicate entries add in entry order, one duplicate rank a pass
+        # (no two adds of a pass meet, so no race on the card)
         if cplx:
-            i_re1, i_re2, i_im1, i_im2 = dp["kform"]
             flat = torch.zeros(nrow_store * 4 * bb, dtype=rdt, device=dev)
             flat[dp["ones_k"]] = flat.new_ones(())
-            dre, dim = data.real, data.imag
-            flat.index_add_(0, i_re1, dre)
-            flat.index_add_(0, i_re2, dre)
-            flat.index_add_(0, i_im1, dim)
-            flat.index_add_(0, i_im2, -dim)
+            for ids, _, (i_re1, i_re2, i_im1, i_im2) in dp["scatter_passes"]:
+                d = data.index_select(0, ids)
+                dre, dim = d.real, d.imag
+                flat.index_add_(0, i_re1, dre)
+                flat.index_add_(0, i_re2, dre)
+                flat.index_add_(0, i_im1, dim)
+                flat.index_add_(0, i_im2, -dim)
             blocks = flat.view(nrow_store, 4 * bb)
         else:
             flat = torch.zeros(nrow_store * bb, dtype=rdt, device=dev)
             flat[dp["ones_r"]] = flat.new_ones(())
-            flat.index_add_(0, dp["scatter_idx"], data)
+            for ids, pos, _ in dp["scatter_passes"]:
+                flat.index_add_(0, pos, data.index_select(0, ids))
             blocks = flat.view(nrow_store, bb)
         deltas.append(plan.pivot_epsilon * (1.0 + data.abs().max()))
         states.append([blocks,
@@ -1065,6 +1096,31 @@ def splu_factorize_multi(plan: SpluPlan, datas):
             for blocks, ld, mp, npert, ph in states]
 
 
+def splu_det_phase(plan: SpluPlan, fac):
+    """The COMPLEX determinant phase of a factorization, as a (2,) float64
+    tensor (re, im) on the factors' device (the reference package's
+    ``splu_det_phase``; MUMPS ICNTL(33) full complex determinant).
+
+    A real layout's phase is the exact sign the factorization tracked. A
+    K-embedded one stores each diagonal block as the embedding of the
+    complex INVERSE pivot block Minv_k; the symmetric fill-reducing
+    permutation has sign^2 = 1 and static pivoting swaps no rows, so
+    phase(det A) = conj(prod_k phase(det Minv_k)), each from
+    ``torch.linalg.slogdet`` of Minv_k = R + i I in complex128."""
+    b = plan.b
+    bl = fac["blocks"]
+    if bl.shape[1] != 4 * b * b:          # real layout: phase is exact
+        return torch.stack([fac["phase"].to(bl.dtype),
+                            torch.zeros((), dtype=bl.dtype,
+                                        device=bl.device)])
+    b2 = 2 * b
+    dp = _device_plan(plan, bl.device)
+    D = bl[dp["diag_g"][:-1]].view(-1, b2, b2)
+    M = torch.complex(D[:, :b, :b], D[:, b:, :b])
+    tot = torch.linalg.slogdet(M).sign.prod().conj()
+    return torch.stack([tot.real, tot.imag])
+
+
 # ---------------------------------------------------------------------------
 # solve
 # ---------------------------------------------------------------------------
@@ -1115,17 +1171,14 @@ def splu_solve_multi(plan: SpluPlan, facs, bvecs):
             tgt = sched["tgt"][r, :n_tgt]
             src = sched["src"][r, :n_src]
             col = sched["col"][r, :n_src]
-            seg = sched["seg"][r, :n_src]
+            order, offsets = sched["sums"][r]
             for v, bl, rhs, cplx in zip(vs, blks, rhs_list, cplxs):
                 be = 2 * b if cplx else b
                 rr = rhs[tgt]
                 if n_src:
                     S = bl[src].view(n_src, be, be)
                     prod = torch.bmm(S, v[col].unsqueeze(-1)).squeeze(-1)
-                    summed = torch.zeros((n_tgt, be), dtype=bl.dtype,
-                                         device=dev)
-                    summed.index_add_(0, seg, prod)
-                    rr = rr - summed
+                    rr = rr - segment_sum(prod, order, offsets)
                 if apply_dinv:
                     Dv = bl[dp["diag_g"][tgt]].view(n_tgt, be, be)
                     rr = torch.bmm(Dv, rr.unsqueeze(-1)).squeeze(-1)

@@ -945,3 +945,145 @@ def test_dense_complex_lu_captures_in_every_solver(cuda):
           for _ in range(3)]
     for y in ys[1:]:
         assert torch.equal(y, ys[0])
+
+
+# -- LinSolver and its BANDED / GENMF / SPLU routes --------------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the CPU runs: torch's CPU build can deadlock
+    in batched LAPACK calls run on more than one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _irregular(n, seed, cplx):
+    ii, jj, vv = ssamples.irregular_geometric(n, seed=seed).triplets()
+    if cplx:
+        vv = vv + 0.3j * np.random.default_rng(seed).normal(size=len(vv))
+    return n, ii, jj, vv
+
+
+def _factor_on(plan, vals, b, dev):
+    fac = factor.numeric_factorize(plan, torch.as_tensor(vals, device=dev))
+    x = factor.factor_solve(plan, fac, torch.as_tensor(b, device=dev))
+    return fac, x
+
+
+def _assert_same_solution(fc, xc, fg, xg, plan):
+    torch.testing.assert_close(xg.cpu(), xc, rtol=1e-12,
+                               atol=1e-12 * float(xc.abs().max()))
+    torch.testing.assert_close(fg["logdet"].cpu(), fc["logdet"], rtol=1e-12,
+                               atol=0)
+    torch.testing.assert_close(fg["min_pivot"].cpu(), fc["min_pivot"],
+                               rtol=1e-12, atol=0)
+    if "n_perturbed" in fc:
+        assert int(fg["n_perturbed"]) == int(fc["n_perturbed"])
+    pg, pc = factor.det_phase(plan, fg), factor.det_phase(plan, fc)
+    assert abs(pg - pc) < 1e-12
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_genmf_on_card_matches_cpu(cuda, one_thread, cplx):
+    n, ii, jj, vv = _irregular(3000, 4, cplx)
+    plan = factor.analyze(n, ii, jj, genie=Genie.GENMF)
+    assert max(c.e for c in plan.genmf_plan.classes) > splu.GJ_MAX_M
+    b = np.sin(np.arange(n)) + (1j * np.cos(np.arange(n)) if cplx else 0.0)
+    fc, xc = _factor_on(plan, vv, b, "cpu")
+    n0 = splu._gj_inv.launches
+    fg, xg = _factor_on(plan, vv, b, cuda)
+    assert splu._gj_inv.launches > n0     # the pivot inverses are kernels
+    for ci, (a, g) in enumerate(zip(fc["classes"], fg["classes"])):
+        for k, v in a.items():
+            if v is None:
+                assert g[k] is None
+                continue
+            torch.testing.assert_close(g[k].cpu(), v, rtol=0,
+                                       atol=1e-12 * float(v.abs().max()),
+                                       msg=f"class {ci} {k}")
+    _assert_same_solution(fc, xc, fg, xg, plan)
+    # a second factorize-and-solve gives the same bits
+    fg2, xg2 = _factor_on(plan, vv, b, cuda)
+    assert torch.equal(xg2, xg)
+    assert torch.equal(fg2["logdet"], fg["logdet"])
+    for a, g in zip(fg["classes"], fg2["classes"]):
+        assert all(v is None or torch.equal(v, g[k]) for k, v in a.items())
+
+
+@pytest.mark.parametrize("kernel,cplx", [("scan", False), ("bcr", False),
+                                         ("bcr", True), ("scan", True)])
+def test_banded_on_card_matches_cpu(cuda, one_thread, kernel, cplx):
+    ii, jj, vv = ssamples.laplacian_2d(40).triplets()
+    n = 1600
+    if cplx:
+        vv = vv + 0.3j * np.random.default_rng(2).normal(size=len(vv))
+    plan = factor.analyze(n, ii, jj, genie=Genie.BANDED,
+                          banded_kernel=kernel)
+    assert plan.nb == 40 and plan.use_bcr == (kernel == "bcr")
+    b = np.linspace(1.0, 2.0, n)
+    fc, xc = _factor_on(plan, vv, b, "cpu")
+    fg, xg = _factor_on(plan, vv, b, cuda)
+    _assert_same_solution(fc, xc, fg, xg, plan)
+    fg2, xg2 = _factor_on(plan, vv, b, cuda)
+    assert torch.equal(xg2, xg)
+
+
+def test_splu_repeats_are_bit_identical(cuda):
+    # the ordered sums of the assembly and the solve: no race on the card
+    plan, jv = _brusselator_plan(33)
+    n = plan.n
+    rng = np.random.default_rng(3)
+    vr = np.concatenate([-jv, np.full(n, 37.0)])
+    vc = vr + 0.3j * rng.normal(size=len(vr))
+    b = rng.normal(size=n)
+    for vals in (vr, vc):
+        runs = [_factor_on(plan, vals, b, cuda) for _ in range(2)]
+        (f1, x1), (f2, x2) = runs
+        assert torch.equal(f1["blocks"], f2["blocks"])
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_segment_sum_on_card_repeats_and_matches_cpu(cuda, cplx):
+    from russell_tpu_torch.sparse.ordering import segment_index
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 300, 20_000)
+    vals = torch.as_tensor(rng.standard_normal((20_000, 8)))
+    if cplx:
+        vals = torch.complex(vals, torch.as_tensor(
+            rng.standard_normal((20_000, 8))))
+    order, offsets = (torch.as_tensor(a) for a in segment_index(keys, 310))
+    want = splu.segment_sum(vals, order, offsets)
+    got = [splu.segment_sum(vals.to(cuda), order.to(cuda), offsets.to(cuda))
+           for _ in range(3)]
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    torch.testing.assert_close(got[0].cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("genie,kw", [
+    ("auto", {"dense_threshold": 100, "max_block": 8}),
+    ("banded", {}), ("splu", {"compute_error_estimates": True}),
+    ("dense", {})])
+def test_lin_solver_on_card_matches_cpu(cuda, one_thread, genie, kw):
+    from russell_tpu_torch.sparse import LinSolParams, LinSolver
+    coo = ssamples.irregular_geometric(800, seed=5)
+    if genie in ("banded", "dense"):
+        coo = ssamples.laplacian_2d(20)
+    rhs = np.cos(np.arange(coo.nrow))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = LinSolver(Genie(genie), device=dev)
+        s.factorize(coo, LinSolParams(compute_determinant=True, **kw))
+        out[dev] = (s, s.solve(rhs).cpu())
+    (sc, xc), (sg, xg) = out["cpu"], out["cuda"]
+    assert sg.plan.genie == sc.plan.genie
+    if genie == "auto":
+        assert sg.plan.genie == Genie.GENMF
+    torch.testing.assert_close(xg, xc, rtol=1e-12,
+                               atol=1e-12 * float(xc.abs().max()))
+    mc, _, ec = sc.determinant()
+    mg, _, eg = sg.determinant()
+    assert ec == eg and abs(mg - mc) <= 1e-11 * abs(mc)
+    assert sg.stats.main["blas_lib"] == "cuBLAS/cuSOLVER"

@@ -176,38 +176,82 @@ def test_other_genies_raise(plans, genie, grid):
     """The genies other than SPLU. GRIDMF plans with its grid hint at any
     n; AUTO at n = 50 <= dense_threshold takes the reference's DENSE route,
     with or without the grid hint, as DENSE itself does (ported since the
-    DENSE slice); GENMF and BANDED still raise, naming ROADMAP.md."""
+    DENSE slice); GENMF and BANDED (ported since the LinSolver slice) plan
+    as the reference's do, and none of them raises."""
     n, ii, jj, *_ = plans
     if genie == Genie.GRIDMF:
         plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
         assert plan.genie == Genie.GRIDMF
         assert plan.effective_ordering == "nd-grid"
         return
+    plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
+    jplan = jfactor.analyze(n, ii, jj, genie=JGenie[genie.name], grid=grid,
+                            mixed_precision=False)
+    assert plan.genie.value == jplan.genie.value
+    assert plan.scaling.value == jplan.scaling.value
+    assert plan.refine_steps == jplan.refine_steps
+    assert plan.effective_ordering == jplan.effective_ordering
     if genie in (Genie.AUTO, Genie.DENSE):
-        plan = tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
-        jplan = jfactor.analyze(n, ii, jj, genie=JGenie[genie.name],
-                                grid=grid)
-        assert plan.genie == Genie.DENSE and jplan.genie == JGenie.DENSE
-        assert plan.scaling.value == jplan.scaling.value == "no"
-        assert plan.refine_steps == jplan.refine_steps == 0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfactor.analyze(n, ii, jj, genie=genie, grid=grid)
+        assert plan.genie == Genie.DENSE
+        assert plan.scaling.value == "no" and plan.refine_steps == 0
+    if genie == Genie.GENMF:
+        assert plan.genie == Genie.GENMF
 
 
 def test_auto_above_dense_threshold_raises(plans):
-    # the reference routes these to BANDED or GENMF: later slices, and
-    # nothing falls back to another route
+    # the name is kept from when the port raised here; the reference routes
+    # these to BANDED or GENMF, and so does the port since the LinSolver
+    # slice: nothing raises or falls back to another route
     n, ii, jj, *_ = plans
-    with pytest.raises(NotImplementedError, match="BANDED and GENMF"):
-        tfactor.analyze(n, ii, jj, genie=Genie.AUTO, dense_threshold=8)
     ii2, jj2 = np.r_[ii, 0], np.r_[jj, n - 1]  # not cell-local
-    with pytest.raises(NotImplementedError, match="BANDED and GENMF"):
-        tfactor.analyze(n, ii2, jj2, genie=Genie.AUTO, grid=(5, 5, 2),
-                        dense_threshold=8)
+    for rows, cols, grid in ((ii, jj, None), (ii2, jj2, (5, 5, 2))):
+        for max_block in (4096, 4):
+            kw = dict(grid=grid, dense_threshold=8, max_block=max_block)
+            plan = tfactor.analyze(n, rows, cols, genie=Genie.AUTO, **kw)
+            jplan = jfactor.analyze(n, rows, cols, genie=JGenie.AUTO,
+                                    mixed_precision=False, **kw)
+            assert plan.genie.value == jplan.genie.value
+            assert plan.genie in (Genie.BANDED, Genie.GENMF, Genie.DENSE)
+            assert (plan.genie == Genie.GENMF) == (max_block == 4)
 
 
 def test_mixed_precision_raises(plans):
     n, ii, jj, *_ = plans
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfactor.analyze(n, ii, jj, genie=Genie.SPLU, mixed_precision=True)
+
+
+@pytest.mark.parametrize("shape", ["real", "complex", "batched", "sorted"])
+def test_segment_sum_adds_in_entry_order(shape):
+    # the residual's row sums and the SPLU solve's item sums: the bits of a
+    # sequential index_add_ in entry order, empty segments zero
+    from russell_tpu_torch.sparse.ordering import segment_index
+    from russell_tpu_torch.sparse.splu import segment_sum
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 40, 500)
+    if shape == "sorted":
+        keys = np.sort(keys)
+    vals = torch.as_tensor(rng.standard_normal((500, 3))
+                           * 10.0 ** rng.integers(-6, 6, (500, 1)))
+    if shape == "complex":
+        vals = torch.complex(vals, torch.as_tensor(
+            rng.standard_normal((500, 3))))
+    elif shape == "batched":
+        vals = vals.T
+    order, offsets = segment_index(keys, 45)
+    assert (order is None) == (shape == "sorted")
+    if shape == "batched":
+        got = segment_sum(vals.movedim(-1, 0),
+                          None if order is None else torch.as_tensor(order),
+                          torch.as_tensor(offsets)).movedim(0, -1)
+        want = torch.zeros((3, 45), dtype=vals.dtype).index_add_(
+            -1, torch.as_tensor(keys), vals)
+    else:
+        got = segment_sum(vals,
+                          None if order is None else torch.as_tensor(order),
+                          torch.as_tensor(offsets))
+        want = torch.zeros((45, 3), dtype=vals.dtype).index_add_(
+            0, torch.as_tensor(keys), vals)
+    assert torch.equal(got, want)
+    assert not bool(got[..., 40:].abs().any() if shape == "batched"
+                    else got[40:].abs().any())

@@ -253,9 +253,13 @@ def test_non_cell_local_pattern_is_rejected():
         factor.analyze(n, rows, cols, genie=Genie.GRIDMF, grid=(nr, nc, 1))
     with pytest.raises(ValueError, match="grid"):
         factor.analyze(n, rows, cols, genie=Genie.GRIDMF)
-    # AUTO above dense_threshold: not GRIDMF, and no other route
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factor.analyze(n, rows, cols, grid=(nr, nc, 1))
+    # AUTO above dense_threshold: not GRIDMF, but the reference's other
+    # route for the pattern (ported since the LinSolver slice)
+    plan = factor.analyze(n, rows, cols, grid=(nr, nc, 1))
+    jplan = jfactor.analyze(n, rows, cols, grid=(nr, nc, 1),
+                            mixed_precision=False)
+    assert plan.genie != Genie.GRIDMF
+    assert plan.genie.value == jplan.genie.value
 
 
 # (f) Radau5 through GRIDMF

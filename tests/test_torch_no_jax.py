@@ -42,7 +42,12 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.ode.system",
             "russell_tpu_torch.ode._device_loop",
             "russell_tpu_torch.ode.radau5_fused",
-            "russell_tpu_torch.ode.erk_fused"} <= set(names)
+            "russell_tpu_torch.ode.erk_fused",
+            "russell_tpu_torch.sparse.bcr", "russell_tpu_torch.sparse.genmf",
+            "russell_tpu_torch.sparse.lin_solver",
+            "russell_tpu_torch.sparse.ordering",
+            "russell_tpu_torch.bin",
+            "russell_tpu_torch.bin.solve_matrix_market"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
