@@ -11,7 +11,8 @@ GRIDMF and Radau5 through the DENSE route. The BSR path is the sparse products o
 ``russell_tpu_torch.sparse`` — ``bsr_from_coo`` → ``bsr_matvec`` /
 ``bsr_matmat`` and ``spgemm_plan`` → ``spgemm`` — whose CUDA kernels are
 ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``, in float64 and
-complex128.
+complex128. The PDE and continuation tools (``russell_tpu_torch.pde``,
+``nonlin``) reach the card through ``LinSolver`` and ``factor``.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: all six kernels compiled from ``russell_tpu_torch/csrc``, one
@@ -154,6 +155,39 @@ complex128.
    ``--genie genmf``. ``gj_inv``'s entry on the kernels line gains its
    GENMF-264k launches and ms per factorization, and the SPLU kernels'
    their launches per factorization on laplacian_3d_50.
+22. pde_path: the PDE tools on the card. Poisson (``d2_problem_01``) on a
+   PDE_NPOINT^2 grid (1,046,529 unknowns): the SPS system ``Fdm2d``
+   builds, through one ``LinSolver`` with its grid hint (AUTO -> GRIDMF at
+   leaf 64): host assembly, analysis, a cold and three warm
+   factorizations (walls, device ms, launches, busy share, ``gj_inv``'s
+   launches and ms, peak memory), one more with every ``gj_inv`` launch
+   held to its plain version, a solve, the relative residual <= 1e-10
+   and the error against the analytic phi <= PDE_ERR; then two
+   ``solve_sps`` calls, bit-identical to each other and to that x. The
+   same problem at PDE_SPLU_NPOINT^2 through ``Genie.SPLU`` with
+   ``splu_pairs``, ``gather_rows`` and ``gj_inv`` counted from zero over a
+   ``solve_sps``, x within 1e-10 of GRIDMF's, and a second ``solve_sps``
+   with every launch held to its plain version (``held_to_plain``),
+   bit-identical; ``Spc2d`` on Kopriva's problem at PDE_SPC_N^2 and
+   ``SpcMap2d`` on the quarter ring through DENSE, against the analytic
+   solutions. The kernels line gains each kernel's pde_path launches.
+23. nonlin_path: the continuation solvers on the card. The 2-D Bratu
+   problem by arclength at npoint 17 (russell_tpu's eight counters and
+   step lambdas, written here as constants; the fold polished by
+   extended-system Newton in torch on the card, within 1e-5 of
+   6.80217410) and at BRATU_BIG with the default Config (ndim 65,025;
+   AUTO's route, steps, factorizations, walls, the busy share of the
+   solve over its first steps, the sample and the Solver built outside
+   that window; lambda rises to its largest recorded value and falls
+   while u_mid reaches 6; from the step at that value the fold polished
+   by extended-system Newton through ``factor`` on the card, within
+   BRATU_BIG_FOLD_TOL of Bolstad & Keller's value less the h^2 and h^4
+   terms fitted to russell_tpu's folds at npoint 17 and 33, and above
+   every recorded lambda; a second run with equal counters and bit-equal
+   u); natural
+   continuation on the 1-D Bratu and the B-spline problems with
+   russell_tpu's counters. No hand kernel is on this path (DENSE and
+   BANDED run cuSOLVER and cuBLAS).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -174,13 +208,13 @@ this tree's, each in its own process, in turns P C C P, ROUNDS times,
 then the medians, the ratios and the number of calls that pays for one
 layout build. ``--replay [--tree DIR]`` is one such process.
 ``--lin-solver-path`` runs only phase 21 (after the device and build
-phases). ``--chunk-sweep`` times ``splu_pairs`` over every row of the npoint-129
-plan for each chunk size K of CHUNK_SWEEP, which is how
-``splu.CHUNK_PAIRS`` was chosen; ``--strip-sweep`` times ``spgemm`` at
-npoint 513 for each strip budget of STRIP_SWEEP, which is how
-``kernels.SPGEMM_STRIP_BYTES`` was chosen; ``--base-sweep`` runs the
-factorize pairs that reach ``gj_inv`` for each recursion base of
-BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
+phases), ``--pde-nonlin`` only phases 22 and 23. ``--chunk-sweep`` times
+``splu_pairs`` over every row of the npoint-129 plan for each chunk size
+K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
+``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
+STRIP_SWEEP, which is how ``kernels.SPGEMM_STRIP_BYTES`` was chosen;
+``--base-sweep`` runs the factorize pairs that reach ``gj_inv`` for each
+recursion base of BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
 """
 
 from __future__ import annotations
@@ -348,21 +382,23 @@ def kernel_device_ms(fn):
     """Run ``fn`` once under torch.profiler (CUDA activity) and return
     ({kernel name: summed device ms} of every kernel it ran, the host wall
     of the run in s, the number of device events it ran: kernels, copies
-    and fills)."""
+    and fills, each counted whatever its duration: an event recorded with
+    0 device time is a launch too)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out, launches = {}, 0
+    out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
         if t > 0:
             out[e.key] = out.get(e.key, 0.0) + t / 1e3
-            launches += e.count
+    launches = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     return out, wall, launches
 
 
@@ -3210,6 +3246,596 @@ def phase_lin_solver_path():
     return res
 
 
+
+# -- pde_path ------------------------------------------------------------------
+
+PDE_NPOINT = 1025       # Poisson at 1,046,529 unknowns: AUTO -> GRIDMF
+PDE_SPLU_NPOINT = 513   # the same problem through Genie.SPLU
+PDE_SPC_N = 48          # Spc2d on Kopriva's problem, through DENSE
+PDE_RING_N = 15         # SpcMap2d on the quarter ring (tests/test_pde.py)
+# the leaf fronts' eliminated cells that gridmf_analyze makes for this grid
+# at leaf 64 (49 at leaf 16): AUTO takes leaf 64 (3 x 3.06 GiB <= 15)
+PDE_LEAF64_E = 225
+PDE_RES_RTOL = 1e-10
+# tests/test_pde.py:101-107's 5e-5 at 41 x 41, scaled by h^2 (with room)
+PDE_ERR = 2e-7
+PDE_SPC_ERR = 1e-9      # tests/test_pde.py's bound for Kopriva at 24 x 24
+PDE_RING_ERR = 1e-9     # tests/test_pde.py's bound for the ring
+
+
+def poisson_fdm(npoint, genie=None):
+    """``d2_problem_01(True)`` (Poisson, homogeneous Dirichlet, analytic phi)
+    on an npoint x npoint grid, solving on the card: (fdm, source, phi)."""
+    from russell_tpu_torch.pde import Fdm2d, Grid2d, problem_samples
+    (xmin, xmax, ymin, ymax, kx, ky, ebcs, nbcs, src, ana, _) = \
+        problem_samples.d2_problem_01(True)
+    grid = Grid2d.new_uniform(xmin, xmax, ymin, ymax, npoint, npoint)
+    fdm = Fdm2d(grid, ebcs, nbcs, kx, ky, device="cuda")
+    if genie is not None:
+        fdm.set_solver_options(genie)
+    return fdm, src, ana
+
+
+def max_error(solver, a, ana):
+    """max |a[m] - ana(x_m, y_m)| over the solver's nodes."""
+    err = [0.0]
+
+    def cb(m, x, y):
+        err[0] = max(err[0], abs(a[m] - ana(x, y)))
+
+    solver.for_each_coord(cb)
+    return err[0]
+
+
+def timed_user_solve(fdm, src):
+    """``fdm.solve_sps(0, src)`` — the user's call: host assembly, analysis,
+    factorization and solve — with its wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = fdm.solve_sps(0.0, src)
+    return a, time.perf_counter() - t0
+
+
+def pde_gridmf(res):
+    """Poisson at PDE_NPOINT through one LinSolver on the SPS system that
+    ``Fdm2d.solve_sps`` builds (AUTO + the grid hint: GRIDMF): assembly,
+    analysis, a cold and three warm factorizations, one more with every
+    gj_inv launch held to its plain version, a solve, the residual
+    and the error against phi; then ``solve_sps`` twice, bit-identical to
+    each other and to the LinSolver's x."""
+    from russell_tpu_torch.sparse import Genie, LinSolParams, LinSolver
+    from russell_tpu_torch.sparse import gridmf
+    fdm, src, ana = poisson_fdm(PDE_NPOINT)
+    t0 = time.perf_counter()
+    kk_bar, kk_check = fdm.get_matrices_sps(0.0)
+    _, a_check, f_bar = fdm.get_vectors_sps(src)
+    rhs = f_bar - kk_check.mat_vec_mul(a_check)
+    assembly_s = time.perf_counter() - t0
+    hint = fdm._sps_grid_hint()
+    if hint != (PDE_NPOINT - 2, PDE_NPOINT - 2, 1):
+        raise AssertionError(f"pde_path: grid hint {hint}")
+    reset_launch_counts()
+    s = LinSolver(Genie.AUTO, device="cuda")
+    params = LinSolParams()
+    params.grid = hint
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s.factorize(kk_bar, params)
+    cold = time.perf_counter() - t0
+    if s.plan.genie != Genie.GRIDMF:
+        raise AssertionError(f"pde_path: AUTO took {s.plan.genie}")
+    gp = s.plan.gridmf_plan
+    leaf_e = gp.levels[-1].e
+    if leaf_e != PDE_LEAF64_E:
+        raise AssertionError(f"pde_path: leaf fronts of {leaf_e} cells, not "
+                             "leaf 64's")
+    launches = kernel_counts()
+    if launches["gj_inv"] <= 0:
+        raise AssertionError("pde_path: gj_inv was not launched")
+    rec = {"npoint": PDE_NPOINT, "n": kk_bar.nrow, "nnz": kk_bar.nnz,
+           "solver": s.stats.main["solver"], "grid_hint": list(hint),
+           "assembly_s": assembly_s,
+           "analyze_s": s.stats.time_nanoseconds["initialize"] / 1e9,
+           "leaf_e": leaf_e, "depths": len(gp.levels),
+           "store_gb_per_plane": gridmf.gridmf_store_gb(gp),
+           "cold_factorize_s": s.stats.time_nanoseconds["factorize"] / 1e9,
+           "cold_total_s": cold, "launches_cold_factorization": launches}
+    rec.update(timed_factorizations(lambda: s.factorize(kk_bar)))
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    # one more factorization with every gj_inv launch held to its plain
+    # version: the leaf fronts and the Schur-split separators at this grid
+    # are shapes that no other phase checks
+    t0 = time.perf_counter()
+    with held_to_plain() as held:
+        s.factorize(kk_bar)
+    rec["held_to_plain"] = held_record(held, launches)
+    rec["held_wall_s"] = time.perf_counter() - t0
+    x = s.solve(rhs)
+    rec["warm_solve_s"] = timed_solves(lambda: s.solve(rhs))
+    b = torch.as_tensor(rhs, device="cuda")
+    rec["relative_residual"] = residual(s.plan, s._vals_full, x, b)
+    a_ls = fdm.get_joined_vector_sps(x.cpu().numpy(), a_check)
+    rec["max_error_vs_phi"] = max_error(fdm, a_ls, ana)
+    del s, x, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    a1, rec["solve_sps_wall_s"] = timed_user_solve(fdm, src)
+    a2, rec["solve_sps_again_wall_s"] = timed_user_solve(fdm, src)
+    rec["bit_identical_repeat"] = bool(np.array_equal(a1, a2))
+    rec["solve_sps_equals_lin_solver"] = bool(np.array_equal(a1, a_ls))
+    say("pde_path", part=f"gridmf_{PDE_NPOINT}", **rec)
+    if not (rec["relative_residual"] <= PDE_RES_RTOL
+            and rec["max_error_vs_phi"] <= PDE_ERR):
+        raise AssertionError(f"pde_path GRIDMF: residual "
+                             f"{rec['relative_residual']}, error "
+                             f"{rec['max_error_vs_phi']}")
+    if not (rec["bit_identical_repeat"] and rec["solve_sps_equals_lin_solver"]):
+        raise AssertionError("pde_path GRIDMF: solve_sps changed bits")
+    res[f"gridmf_{PDE_NPOINT}"] = rec
+
+
+def pde_splu(res):
+    """The same problem at PDE_SPLU_NPOINT through ``Genie.SPLU``, its
+    kernels counted from zero over a ``solve_sps``; x held to the GRIDMF
+    solution at that size; a second ``solve_sps`` with every launch held
+    to its plain version, bit-identical to the first."""
+    from russell_tpu_torch.sparse import Genie
+    fdm, src, ana = poisson_fdm(PDE_SPLU_NPOINT, Genie.SPLU)
+    reset_launch_counts()
+    a, wall = timed_user_solve(fdm, src)
+    counts = kernel_counts()
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"pde_path SPLU: {k} was not launched")
+    gfdm, _, _ = poisson_fdm(PDE_SPLU_NPOINT)
+    reset_launch_counts()
+    ag, gwall = timed_user_solve(gfdm, src)
+    rec = {"npoint": PDE_SPLU_NPOINT, "n": fdm.equations.nu(),
+           "solve_sps_wall_s": wall, "launches_solve_sps": counts,
+           "gridmf_solve_sps_wall_s": gwall,
+           "gridmf_gj_inv_launches": kernel_counts()["gj_inv"],
+           "rel_diff_vs_gridmf": float(np.abs(a - ag).max()
+                                       / np.abs(ag).max()),
+           "max_error_vs_phi": max_error(fdm, a, ana)}
+    t0 = time.perf_counter()
+    with held_to_plain() as held:
+        a2 = fdm.solve_sps(0.0, src)
+    rec["held_to_plain"] = held_record(held, counts)
+    rec["held_wall_s"] = time.perf_counter() - t0
+    rec["bit_identical_repeat"] = bool(np.array_equal(a, a2))
+    say("pde_path", part=f"splu_{PDE_SPLU_NPOINT}", **rec)
+    if not (rec["rel_diff_vs_gridmf"] <= 1e-10
+            and rec["bit_identical_repeat"]):
+        raise AssertionError(f"pde_path SPLU: {rec}")
+    res[f"splu_{PDE_SPLU_NPOINT}"] = rec
+
+
+def quarter_ring():
+    """The quarter annulus r in [1, 2], theta in [0, pi/2] of
+    tests/test_pde.py, as a Transfinite2d."""
+    import math
+    from russell_tpu_torch.pde import Transfinite2d
+    a, b_ = 1.0, 2.0
+    q = math.pi / 4
+
+    def th(s):
+        return (s + 1.0) * q
+
+    B = [lambda s: np.array([a * math.cos(th(s)), a * math.sin(th(s))]),
+         lambda s: np.array([b_ * math.cos(th(s)), b_ * math.sin(th(s))]),
+         lambda r: np.array([(a + b_) / 2 + (b_ - a) / 2 * r, 0.0]),
+         lambda r: np.array([0.0, (a + b_) / 2 + (b_ - a) / 2 * r])]
+    dB = [lambda s: np.array([-a * math.sin(th(s)) * q,
+                              a * math.cos(th(s)) * q]),
+          lambda s: np.array([-b_ * math.sin(th(s)) * q,
+                              b_ * math.cos(th(s)) * q]),
+          lambda r: np.array([(b_ - a) / 2, 0.0]),
+          lambda r: np.array([0.0, (b_ - a) / 2])]
+    ddB = [lambda s: np.array([-a * math.cos(th(s)) * q ** 2,
+                               -a * math.sin(th(s)) * q ** 2]),
+           lambda s: np.array([-b_ * math.cos(th(s)) * q ** 2,
+                               -b_ * math.sin(th(s)) * q ** 2]),
+           lambda r: np.array([0.0, 0.0]),
+           lambda r: np.array([0.0, 0.0])]
+    return Transfinite2d(B, dB, ddB)
+
+
+def pde_spectral(res):
+    """Spc2d on Kopriva's problem at PDE_SPC_N^2 and SpcMap2d on the
+    quarter ring at PDE_RING_N^2, through DENSE on the card, against the
+    analytic solutions."""
+    import math
+    from russell_tpu_torch.pde import (EssentialBcs2d, NaturalBcs2d, Side,
+                                       Spc2d, SpcMap2d, problem_samples)
+    (xmin, xmax, ymin, ymax, kx, ky, ebcs, nbcs, src, ana) = \
+        problem_samples.d2_problem_07()
+    t0 = time.perf_counter()
+    spc = Spc2d(xmin, xmax, ymin, ymax, PDE_SPC_N, PDE_SPC_N, ebcs, nbcs,
+                kx, ky, device="cuda")
+    a = spc.solve_sps(0.0, src)
+    rec = {"spc2d_n": PDE_SPC_N, "spc2d_unknowns": spc.equations.nu(),
+           "spc2d_wall_s": time.perf_counter() - t0,
+           "spc2d_max_error": max_error(spc, a, ana)}
+    ring_ana = lambda x, y: math.log(math.hypot(x, y)) / math.log(2.0)
+    ebcs = EssentialBcs2d()
+    ebcs.set(Side.XMIN, lambda x, y: 0.0)
+    ebcs.set(Side.XMAX, lambda x, y: 1.0)
+    ebcs.set(Side.YMIN, ring_ana)
+    ebcs.set(Side.YMAX, ring_ana)
+    t0 = time.perf_counter()
+    ring = SpcMap2d(PDE_RING_N, PDE_RING_N, quarter_ring(), ebcs,
+                    NaturalBcs2d(), k=1.0, device="cuda")
+    a = ring.solve_sps(0.0, lambda x, y: 0.0)
+    rec.update(ring_n=PDE_RING_N, ring_wall_s=time.perf_counter() - t0,
+               ring_max_error=max_error(ring, a, ring_ana))
+    say("pde_path", part="spectral", **rec)
+    if not (rec["spc2d_max_error"] <= PDE_SPC_ERR
+            and rec["ring_max_error"] <= PDE_RING_ERR):
+        raise AssertionError(f"pde_path spectral: {rec}")
+    res["spectral"] = rec
+
+
+def phase_pde_path():
+    """Fdm2d, Spc2d and SpcMap2d on the card: Poisson at PDE_NPOINT^2
+    through AUTO -> GRIDMF, at PDE_SPLU_NPOINT^2 through SPLU, and the
+    spectral solvers. Kernel launches are counted from zero within each
+    run and reported per run."""
+    t0 = time.perf_counter()
+    res = {}
+    pde_gridmf(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pde_splu(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pde_spectral(res)
+    res["wall_s"] = time.perf_counter() - t0
+    say("pde_path", part="done", wall_s=res["wall_s"])
+    return res
+
+
+# -- nonlin_path ---------------------------------------------------------------
+
+NONLIN_COUNTERS = ("n_steps", "n_accepted", "n_rejected", "n_function",
+                   "n_jacobian", "n_factor", "n_lin_sol", "n_iteration_total")
+# russell_tpu's CPU runs (f64) of the configurations below
+BRATU_17_COUNTERS = (11, 11, 0, 40, 36, 36, 82, 40)
+BRATU_17_STEP_L = (
+    0.0, 0.4960955796883189, 1.2515741593031895, 2.279314040278554,
+    3.562074739662457, 4.979582019300316, 6.241583538730863,
+    6.801253135163321, 6.042066376691407, 4.545577772064729,
+    2.6130363866949895, 1.0499269471279535)
+BRATU_17_FOLD = 6.80217410        # the npoint-17 discrete fold
+BRATU_1D_COUNTERS = (14, 14, 0, 40, 34, 34, 33, 40)
+BSPLINE_COUNTERS = (62, 62, 0, 124, 63, 63, 62, 124)
+BRATU_BIG = 257                   # ndim 65,025
+BRATU_BK = 6.80812442259          # Bolstad & Keller's lambda_crit
+# the discrete folds of russell_tpu's CPU runs (f64): arclength as
+# tests/test_nonlin.py runs it, then its dense extended-system polish
+BRATU_REF_FOLDS = {17: 6.80217409562718, 33: 6.806652729201835}
+# |fold at BRATU_BIG - bratu_fold_expected(BRATU_BIG)|: the h^6 term left
+# out of the fit is about 1e-9 there
+BRATU_BIG_FOLD_TOL = 1e-7
+BRATU_BIG_PROFILED_STEPS = 3
+
+
+def bratu_fold_expected(npoint):
+    """The 2-D Bratu FDM fold at ``npoint``: BRATU_BK less c h^2 - d h^4,
+    with c and d fitted to BRATU_REF_FOLDS (h = 1 / (npoint - 1))."""
+    (n1, f1), (n2, f2) = sorted(BRATU_REF_FOLDS.items())
+    h1, h2 = 1.0 / (n1 - 1), 1.0 / (n2 - 1)
+    c, d = np.linalg.solve([[h1 ** 2, -h1 ** 4], [h2 ** 2, -h2 ** 4]],
+                           [BRATU_BK - f1, BRATU_BK - f2])
+    h = 1.0 / (npoint - 1)
+    return BRATU_BK - c * h ** 2 + d * h ** 4
+
+
+def continuation(sample, args, method, stop, ddl, record=None,
+                 callback=None, profile=False, **cfg):
+    """One ``Solver.solve`` on the card from the sample's start: (u, status,
+    counters tuple, Output, wall s, solver, mid, setup s, profile), the
+    Output's step callback ``callback``. The sample and the Solver (its Gu
+    analysis) are built first, their wall ``setup s``; with ``profile`` only the solve runs under the profiler
+    (``kernel_device_ms``'s triple, else None)."""
+    from russell_tpu_torch import nonlin
+    t0 = time.perf_counter()
+    system, u0, l0, *rest = getattr(nonlin.samples, sample)(*args)
+    mid = rest[0] if rest and isinstance(rest[0], int) else None
+    solver = nonlin.Solver(nonlin.Config(method=method, **cfg), system,
+                           device="cuda")
+    out = nonlin.Output().set_recording(record if record is not None
+                                        else [mid])
+    if callback is not None:
+        out.set_step_callback(callback)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    got = []
+
+    def run():
+        got.append(solver.solve(u0, l0, nonlin.IniDir.POS, stop(mid), ddl,
+                                output=out))
+
+    prof = None
+    t0 = time.perf_counter()
+    if profile:
+        prof = kernel_device_ms(run)
+    else:
+        run()
+    wall = time.perf_counter() - t0
+    u, _, status = got[0]
+    st = solver.stats()
+    return (u, status, tuple(getattr(st, k) for k in NONLIN_COUNTERS), out,
+            wall, solver, mid, setup, prof)
+
+
+def check_counters_nl(name, got, want):
+    if tuple(got) != tuple(want):
+        raise AssertionError(f"nonlin_path {name}: counters "
+                             f"{dict(zip(NONLIN_COUNTERS, got))}, the "
+                             f"reference's {dict(zip(NONLIN_COUNTERS, want))}")
+
+
+def dense_gu(system):
+    """(l, u) -> the system's Gu as a dense matrix on u's device."""
+    n = system.ndim
+
+    def gu(l, u):
+        ii = torch.as_tensor(system.jac_ii, device=u.device)
+        jj = torch.as_tensor(system.jac_jj, device=u.device)
+        vals, _ = system.calc_jac(l, u, None)
+        return torch.zeros((n, n), dtype=u.dtype, device=u.device).index_put(
+            (ii, jj), vals, accumulate=True)
+    return gu
+
+
+def fold_polish(system, u, l, gu):
+    """The fold of G by extended-system Newton in torch on u's device:
+    [G; Gu v; v_k - 1] = 0 over z = (u, v, lambda), with ``gu(l, u)`` the
+    dense Gu (``dense_gu``), as tests/test_nonlin.py polishes it in jax;
+    returns lambda."""
+    n = system.ndim
+    w, vv = torch.linalg.eig(gu(l, u))
+    v = vv[:, torch.argmin(w.abs())].real
+    k = int(torch.argmax(v.abs()))
+    z = torch.cat([u, v / v[k], torch.tensor([l], dtype=u.dtype,
+                                             device=u.device)])
+
+    def ff(z):
+        uu, vv_, ll = z[:n], z[n:2 * n], z[2 * n]
+        return torch.cat([system.calc_gg(ll, uu, None), gu(ll, uu) @ vv_,
+                          (vv_[k] - 1.0)[None]])
+
+    for _ in range(30):
+        dz = torch.linalg.solve(torch.func.jacfwd(ff)(z), -ff(z))
+        z = z + dz
+        if float(dz.abs().max()) < 1e-11:
+            break
+    return float(z[2 * n])
+
+
+def fold_polish_sparse(system, plan, u, l, max_iter=20):
+    """The fold of G by the same extended-system Newton with Gu sparse, on
+    u's device: each iteration factors Gu through ``factor`` on ``plan``
+    (the system's Gu pattern, prepared on that device) and solves the
+    (2n + 1) system by block elimination with four Gu solves (Keller's
+    bordering), then once more on that solve's residual: Gu is near
+    singular at the fold, and one step of refinement keeps the block
+    elimination's error from steering u along Gu's null vector. The second
+    derivatives (Gu v)_u x and (Gu v)_lambda are forward-mode products of
+    Gu's entries (``torch.func.jvp``). The start v comes from inverse
+    iteration on Gu. Returns (lambda, {"iterations", "last_dl", "last_du",
+    "g_max", "guv_max"}), the last two the residuals at the fold."""
+    from russell_tpu_torch.sparse import factor, ordering, splu
+    dev = u.device
+    n = system.ndim
+    order, offsets = ordering.segment_index(system.jac_ii, n)
+    order = None if order is None else torch.as_tensor(order, device=dev)
+    offsets = torch.as_tensor(offsets, device=dev)
+    jj = torch.as_tensor(system.jac_jj, device=dev)
+
+    def times(vals, x):
+        """Gu x for the Gu entries ``vals``."""
+        return splu.segment_sum(vals * x[jj], order, offsets)
+
+    def factored(ll, uu):
+        vals, ggl = system.calc_jac(ll, uu, None)
+        fac = factor.numeric_factorize(plan, vals)
+        return (lambda b: factor.factor_solve(plan, fac, b)), vals, ggl
+
+    l = torch.tensor(l, dtype=u.dtype, device=dev)
+    solve, _, _ = factored(l, u)
+    v = torch.ones_like(u)
+    for _ in range(8):
+        v = solve(v)
+        v = v / v.abs().max()
+    k = int(torch.argmax(v.abs()))
+    v = v / v[k]
+    info = {}
+    for it in range(1, max_iter + 1):
+        solve, vals, ggl = factored(l, u)
+
+        def b_times(x, uu=u, ll=l, vv=v):
+            """(Gu v)_u x: the entries' tangent along x, times v."""
+            return times(torch.func.jvp(
+                lambda w: system.calc_jac(ll, w, None)[0], (uu,), (x,))[1], vv)
+
+        c_l = times(torch.func.jvp(
+            lambda ll: system.calc_jac(ll, u, None)[0], (l,),
+            (torch.ones_like(l),))[1], v)
+        a2 = solve(ggl)
+        b2 = solve(b_times(a2) - c_l)
+
+        def block_solve(r1, r2, r3):
+            """(du, dv, dl) with [Gu 0 G_l; B Gu C_l; 0 e_k 0] (du, dv, dl)
+            = (r1, r2, r3)."""
+            a1 = solve(r1)
+            b1 = solve(r2 - b_times(a1))
+            dl = (r3 - b1[k]) / b2[k]
+            return a1 - dl * a2, b1 + dl * b2, dl
+
+        r = (-system.calc_gg(l, u, None), -times(vals, v), 1.0 - v[k])
+        du, dv, dl = block_solve(*r)
+        cu, cv, cl = block_solve(
+            r[0] - times(vals, du) - ggl * dl,
+            r[1] - b_times(du) - times(vals, dv) - c_l * dl,
+            r[2] - dv[k])
+        du, dv, dl = du + cu, dv + cv, dl + cl
+        u, v, l = u + du, v + dv, l + dl
+        info = {"iterations": it, "last_dl": float(dl.abs()),
+                "last_du": float(du.abs().max())}
+        if info["last_dl"] < 1e-13:
+            break
+    vals, _ = system.calc_jac(l, u, None)
+    info.update(g_max=float(system.calc_gg(l, u, None).abs().max()),
+                guv_max=float(times(vals, v).abs().max()))
+    return float(l), info
+
+
+def phase_nonlin_path():
+    """The continuation solvers on the card: the 2-D Bratu problem by
+    arclength at npoint 17 (the reference's counters and steps, the fold
+    polished in torch) and at BRATU_BIG with the default Config (AUTO's
+    route, steps, walls, the busy share of the first steps, through the
+    fold, the fold polished through ``factor`` and held to the h^2-h^4 fit
+    of the reference's folds; a second run bit-identical), and natural
+    continuation on the 1-D Bratu and the B-spline problems (the
+    reference's counters)."""
+    from russell_tpu_torch import nonlin
+    t0_all = time.perf_counter()
+    arc, nat = nonlin.Method.ARCLENGTH, nonlin.Method.NATURAL
+    res = {}
+    n17 = list(range(225))
+    u, status, cnt, out, wall, solver, mid, _, _ = continuation(
+        "bratu_2d_fdm", (17,), arc, lambda m: nonlin.Stop.max_comp_u(m, 6.0),
+        nonlin.DeltaLambda.auto(0.5), record=n17)
+    ls = np.asarray(out.step_l)
+    j = int(np.argmax(ls))
+    uj = torch.as_tensor(np.array([out.step_u(m)[j] for m in n17]),
+                         device="cuda")
+    system = solver.actual.system
+    t0 = time.perf_counter()
+    lam = fold_polish(system, uj, float(ls[j]), dense_gu(system))
+    rec = {"route": solver.actual.ls.plan.genie.value, "status": status.name,
+           "counters": dict(zip(NONLIN_COUNTERS, cnt)), "wall_s": wall,
+           "step_l_max_abs_err": float(np.abs(ls - BRATU_17_STEP_L).max())
+           if len(ls) == len(BRATU_17_STEP_L) else None,
+           "fold_lambda": lam, "fold_err": abs(lam - BRATU_17_FOLD),
+           "polish_s": time.perf_counter() - t0}
+    say("nonlin_path", part="bratu_2d_17", **rec)
+    check_counters_nl("bratu_2d_17", cnt, BRATU_17_COUNTERS)
+    if not (status.success() and rec["step_l_max_abs_err"] is not None
+            and rec["step_l_max_abs_err"] <= 1e-9 and rec["fold_err"] <= 1e-5):
+        raise AssertionError(f"nonlin_path bratu_2d_17: {rec}")
+    res["bratu_2d_17"] = rec
+
+    top = {}
+
+    def keep_top(stats, h, l, uu, args):
+        if not top or l > top["l"]:
+            top.update(l=l, u=uu.copy())
+        return False
+
+    runs = []
+    for r in range(2):
+        u, status, cnt, out, wall, solver, mid, setup, _ = continuation(
+            "bratu_2d_fdm", (BRATU_BIG,), arc,
+            lambda m: nonlin.Stop.max_comp_u(m, 6.0),
+            nonlin.DeltaLambda.auto(0.5),
+            callback=keep_top if r == 0 else None)
+        runs.append((u, status, cnt, np.asarray(out.step_l),
+                     np.asarray(out.step_u(mid)), wall, solver, setup))
+    u, status, cnt, ls, umid, wall, solver, setup = runs[0]
+    plan = solver.actual.ls.plan
+    t0 = time.perf_counter()
+    lam, polish = fold_polish_sparse(
+        solver.actual.system, plan,
+        torch.as_tensor(top["u"], device="cuda"), top["l"])
+    polish_s = time.perf_counter() - t0
+    # the busy share of the first BRATU_BIG_PROFILED_STEPS steps: the
+    # sample and the Solver are built outside the profiled solve
+    _, _, _, _, _, _, _, p_setup, (ms, p_wall, launches) = \
+        continuation("bratu_2d_fdm", (BRATU_BIG,), arc,
+                     lambda m: nonlin.Stop.steps(BRATU_BIG_PROFILED_STEPS),
+                     nonlin.DeltaLambda.auto(0.5), profile=True)
+    j = int(np.argmax(ls))
+    expected = bratu_fold_expected(BRATU_BIG)
+    rec = {"npoint": BRATU_BIG, "ndim": solver.ndim, "route": plan.genie.value,
+           "block_k": plan.block_k, "nb": plan.nb, "bcr": plan.use_bcr,
+           "tg_control_tol": solver.config.tg_control_tol,
+           "status": status.name,
+           "counters": dict(zip(NONLIN_COUNTERS, cnt)),
+           "setup_s": [r[7] for r in runs], "wall_s": [r[5] for r in runs],
+           "lambda_max": float(ls[j]),
+           "u_mid_at_lambda_max": float(umid[j]), "u_mid_last": float(umid[-1]),
+           "steps_recorded": len(ls),
+           "fold_lambda": lam, "fold_expected": expected,
+           "fold_err": abs(lam - expected), "polish": polish,
+           "polish_s": polish_s,
+           "fold_minus_lambda_max": lam - float(ls[j]),
+           "profiled_steps": BRATU_BIG_PROFILED_STEPS,
+           "profiled_setup_s": p_setup, "profiled_solve_wall_s": p_wall,
+           "device_ms": sum(ms.values()), "device_launches": launches,
+           "device_busy_share": sum(ms.values()) / (1e3 * p_wall),
+           "top_kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])
+                                  [:5]),
+           "repeat_counters_equal": runs[1][2] == cnt,
+           "repeat_bit_identical": bool(np.array_equal(runs[1][0], u)
+                                        and np.array_equal(runs[1][3], ls))}
+    say("nonlin_path", part=f"bratu_2d_{BRATU_BIG}", **rec)
+    rises_then_falls = (0 < j < len(ls) - 1 and np.all(np.diff(ls[:j + 1]) > 0)
+                        and ls[-1] < ls[j])
+    if not (status.success() and rises_then_falls and umid[-1] >= 6.0
+            and rec["fold_err"] <= BRATU_BIG_FOLD_TOL
+            and ls[j] <= lam + 1e-9 and top["l"] == ls[j]
+            and rec["repeat_counters_equal"] and rec["repeat_bit_identical"]):
+        raise AssertionError(f"nonlin_path bratu_2d_{BRATU_BIG}: {rec}")
+    res[f"bratu_2d_{BRATU_BIG}"] = rec
+    del runs, solver
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name, sample, args, stop, ddl, want in (
+            ("bratu_1d_natural", "bratu_1d_spc", (20,),
+             lambda m: nonlin.Stop.max_lambda(3.4),
+             nonlin.DeltaLambda.auto(0.5), BRATU_1D_COUNTERS),
+            ("bspline_natural", "bspline_problem_1", (),
+             lambda m: nonlin.Stop.max_lambda(1.0),
+             nonlin.DeltaLambda.auto(0.01), BSPLINE_COUNTERS)):
+        u, status, cnt, out, wall, solver, _, _, _ = continuation(
+            sample, args, nat, stop, ddl, record=[0])
+        rec = {"route": solver.actual.ls.plan.genie.value,
+               "status": status.name,
+               "counters": dict(zip(NONLIN_COUNTERS, cnt)), "wall_s": wall}
+        say("nonlin_path", part=name, **rec)
+        check_counters_nl(name, cnt, want)
+        if not status.success():
+            raise AssertionError(f"nonlin_path {name}: {rec}")
+        res[name] = rec
+    res["wall_s"] = time.perf_counter() - t0_all
+    say("nonlin_path", part="done", wall_s=res["wall_s"],
+        kernels="none: DENSE and BANDED run cuSOLVER/cuBLAS")
+    return res
+
+
+def pde_entry(pres, name):
+    """A kernel's launches in pde_path: per GRIDMF factorization at
+    PDE_NPOINT (gj_inv only, with the held-to-plain record of one such
+    factorization), over a SPLU solve_sps at PDE_SPLU_NPOINT and the
+    held-to-plain record of the second one."""
+    g = pres[f"gridmf_{PDE_NPOINT}"]
+    sp = pres[f"splu_{PDE_SPLU_NPOINT}"]
+    out = {}
+    if name == "gj_inv":
+        out.update(gridmf_launches_per_factorization=g[
+            "launches_cold_factorization"]["gj_inv"],
+            gridmf_ms_per_factorization=g["gj_inv_device_ms"],
+            gridmf_held_to_plain=g["held_to_plain"]["gj_inv"])
+    out.update(splu_launches_solve_sps=sp["launches_solve_sps"][name],
+               splu_held_to_plain=sp["held_to_plain"][name])
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -3254,6 +3880,8 @@ def main():
     cres = phase_bsr_complex()
     fres = phase_fused_path(gridmf_host, splu_host, erk_host)
     lres = phase_lin_solver_path()
+    pres = phase_pde_path()
+    phase_nonlin_path()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -3291,6 +3919,7 @@ def main():
                 "splu_3d"]["launches_per_factorization"][name],
             "lin_solver_path_splu_3d_held_to_plain": lres["splu_3d"][
                 "held_to_plain"][name],
+            "pde_path": pde_entry(pres, name),
             "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
@@ -3324,6 +3953,7 @@ def main():
                                            "splu_3d")},
             "genmf_264k_shapes_logdet_max_rel_err": lres["genmf_264k"][
                 "gj_inv_shapes_logdet_max_rel_err"]},
+        "pde_path": pde_entry(pres, "gj_inv"),
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -3590,6 +4220,11 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         phase_lin_solver_path()
+    elif "--pde-nonlin" in sys.argv:
+        phase_device()
+        phase_build()
+        phase_pde_path()
+        phase_nonlin_path()
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

@@ -6,8 +6,8 @@ is held against. Module names mirror ``russell_tpu``'s, so each module's
 counterpart is found under the same path.
 
 The port goes slice by slice (ROADMAP.md). So far: the ODE solver
-surface on the DENSE, SPLU and GRIDMF sparse solvers, and the sparse
-formats with the BSR products:
+surface, the sparse formats, solvers and BSR products, and the PDE and
+continuation tools on them:
 
 - ``ode``    : OdeSolver with every method (Radau5, forward and backward
                Euler, the 13 explicit Runge-Kutta tableaux), Output with
@@ -17,13 +17,23 @@ formats with the BSR products:
                (``fused=True``, ``solve_batch``) as a captured CUDA graph
 - ``sparse`` : COO/CSR/CSC matrices, samples, MatrixMarket I/O,
                VerifyLinSys, orderings, SPLU (host plan + numeric scan
-               with its CUDA kernels), GRIDMF, the DENSE, SPLU and GRIDMF
-               paths of ``factor``, the numerical Jacobian, BSR SpMV/SpMM
-               and block SpGEMM (three CUDA kernels)
+               with its CUDA kernels), GRIDMF, GENMF, BANDED, every path of
+               ``factor``, ``LinSolver``, the numerical Jacobian, BSR
+               SpMV/SpMM and block SpGEMM (three CUDA kernels)
+- ``pde``    : grids, boundary conditions, Fdm1d/Fdm2d, Spc1d/Spc2d,
+               SpcMap2d, transfinite maps and metrics; every solve through
+               ``LinSolver``
+- ``nonlin`` : natural and pseudo-arclength continuation, its Gu
+               factorizations and solves through ``factor``
+- ``math``, ``algo``: what ``pde`` and ``nonlin`` import (Chebyshev
+               points and polynomials; the Lagrange interpolant with its
+               D1/D2 matrices, B-splines and the rest of ``algo.misc``)
+- ``bin``    : the ``solve_matrix_market`` CLI
 - ``native`` : the host C++ symbolic engine (orderings, block fill)
 - ``csrc``   : the CUDA kernels, built with nvcc at first use
-- ``interop``: SPLU plans and factors, DENSE factors, BSR matrices and
-               SpGEMM plans to and from ``russell_tpu``'s
+- ``interop``: plans, factors, BSR matrices, SpGEMM plans and
+               continuation configurations and outputs to and from
+               ``russell_tpu``'s
 
 Tensors are f64/complex128 and live on an explicit ``device``: the card
 ("cuda") unless the caller asks for the CPU. This package never imports

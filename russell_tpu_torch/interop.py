@@ -1,5 +1,6 @@
 """SPLU and GENMF plans, SPLU / DENSE / BANDED / GENMF factors, BSR
-matrices and SpGEMM plans to and from the reference package's.
+matrices, SpGEMM plans and continuation configurations and outputs to and
+from the reference package's.
 
 ``russell_tpu`` (JAX) is the reference this package is held against.
 These helpers carry a SPLU plan and a SPLU factorization, a BSR matrix and
@@ -23,6 +24,12 @@ and ``pivs``) and a GENMF factor dict (``classes``, a list of dicts of
 the planes ``sir``, ``sii``, ``lr``, ``li``, ``br``, ``bi``, each possibly
 None) are nested: ``tree_to_torch`` / ``tree_to_numpy`` carry them across
 whole, shifting every ``piv`` / ``pivs`` between 0- and 1-based.
+
+A continuation ``Config`` of the reference package becomes this package's
+field by field (``nonlin_config_from_reference``), its enums mapped by
+name, and either package's ``nonlin.Output`` records read as numpy arrays
+(``output_to_numpy``), so that both solvers run one configuration and
+their outputs compare step by step.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ import numpy as np
 import torch
 
 import russell_tpu_torch
+from russell_tpu_torch.nonlin.config import Config as NonlinConfig
+from russell_tpu_torch.nonlin.config import Method as NonlinMethod
+from russell_tpu_torch.sparse.enums import Genie
 from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
                                               bsr_from_arrays)
 from russell_tpu_torch.sparse.genmf import GenMfPlan, _GClass, _GLink
@@ -41,7 +51,8 @@ from russell_tpu_torch.sparse.splu import SpluPlan
 __all__ = ["splu_plan_from", "splu_plan_fields", "factor_to_torch",
            "factor_to_numpy", "dense_factor_to_torch", "dense_factor_to_numpy",
            "genmf_plan_fields", "genmf_plan_from", "tree_to_torch",
-           "tree_to_numpy", "bsr_fields", "bsr_from", "spgemm_plan_from"]
+           "tree_to_numpy", "bsr_fields", "bsr_from", "spgemm_plan_from",
+           "nonlin_config_from_reference", "output_to_numpy"]
 
 
 def splu_plan_fields(plan) -> dict:
@@ -213,3 +224,35 @@ def spgemm_plan_from(plan) -> SpgemmPlan:
         b_idx=np.asarray(plan.b_idx, dtype=np.int64), c_idx=c_idx,
         c_ptr=_c_ptr(c_idx, plan.c_blocks),
         c_blocks=plan.c_blocks, c_block_ij=np.asarray(plan.c_block_ij))
+
+
+# Config attributes that are not dataclass fields (class-level defaults)
+_NONLIN_EXTRA = ("lin_sol_config", "write_matrix_after_nstep_and_stop")
+
+
+def nonlin_config_from_reference(jconfig) -> NonlinConfig:
+    """This package's ``nonlin.Config`` with every field of ``jconfig`` (a
+    ``russell_tpu.nonlin.Config``): ``method`` and ``genie`` mapped by
+    name, the tolerances and switches copied."""
+    kw = {}
+    for f in dataclasses.fields(NonlinConfig):
+        v = getattr(jconfig, f.name)
+        if f.name == "method":
+            v = NonlinMethod[v.name]
+        elif f.name == "genie":
+            v = Genie[v.name]
+        kw[f.name] = v
+    config = NonlinConfig(**kw)
+    for name in _NONLIN_EXTRA:
+        if name in vars(jconfig):
+            setattr(config, name, getattr(jconfig, name))
+    return config
+
+
+def output_to_numpy(out) -> dict:
+    """The records of a ``nonlin.Output`` (either package's): ``step_h`` and
+    ``step_l`` as arrays, and ``step_u`` a dict {component: array}."""
+    return {"step_h": np.asarray(out.step_h, dtype=np.float64),
+            "step_l": np.asarray(out.step_l, dtype=np.float64),
+            "step_u": {m: np.asarray(out.step_u(m), dtype=np.float64)
+                       for m in sorted(out._step_u)}}

@@ -62,7 +62,7 @@ class FusedRadau5:
                 "solve_batch factorizes its lanes through Genie.DENSE only "
                 f"(this system's plan is {self.plan.genie.name}); a batched "
                 "numeric phase of GRIDMF and SPLU over one plan is not "
-                "ported yet (ROADMAP.md queue 1, item 17)")
+                "ported yet (ROADMAP.md §1, item 9)")
         self.device = dev = stepper.device
         self.B = B = int(lanes)
         self.ndim = n = system.ndim

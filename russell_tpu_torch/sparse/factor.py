@@ -296,7 +296,7 @@ def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
     that is not cell-local, and NotImplementedError when even the real
     plane of the smallest leaf's factors exceeds the budget: the
     reference streams those factors to host memory, which is a later
-    slice (ROADMAP.md queue 1, item 12)."""
+    slice (ROADMAP.md §1, item 12)."""
     for leaf in GRIDMF_LEAVES:
         gplan = _gridmf.gridmf_analyze(n, rows, cols, grid,
                                        leaf_cells=leaf,
@@ -309,7 +309,7 @@ def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
             f"GRIDMF factors of {store_gb:.1f} GiB a value plane exceed the "
             f"{GRIDMF_BUDGET_GB} GiB device budget; the out-of-core path "
             "that streams them to host memory is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
+            "(ROADMAP.md §1, item 12)")
     return gplan
 
 
@@ -613,7 +613,7 @@ def _check_plan(plan: SolvePlan, values=None):
         raise NotImplementedError(
             f"a batch of matrices factorizes through Genie.DENSE only; a "
             f"batched numeric phase of {plan.genie.name} over one plan is "
-            "not ported yet (ROADMAP.md queue 1, item 17)")
+            "not ported yet (ROADMAP.md §1, item 9)")
 
 
 def numeric_factorize(plan: SolvePlan, data):

@@ -566,19 +566,15 @@ def _gj_inputs(w, m, seed, device):
 
 
 def _device_kernels(fn):
-    """Names of the device kernels (and copies) that ``fn`` runs."""
+    """Names of the device kernels (and copies) that ``fn`` runs: every
+    event the profiler recorded on the card, whatever its duration (a
+    launch short enough to be recorded with 0 device time counts too)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            names += [e.key] * e.count
-    return names
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 @pytest.mark.parametrize("m", [1, 16, 17, 32, 33, 64, 67, 128,
@@ -1087,3 +1083,54 @@ def test_lin_solver_on_card_matches_cpu(cuda, one_thread, genie, kw):
     mg, _, eg = sg.determinant()
     assert ec == eg and abs(mg - mc) <= 1e-11 * abs(mc)
     assert sg.stats.main["blas_lib"] == "cuBLAS/cuSOLVER"
+
+
+# -- pde and nonlin on the card ----------------------------------------------
+
+@pytest.mark.parametrize("genie", ["AUTO", "SPLU"])
+def test_fdm_2d_on_card_matches_cpu(cuda, one_thread, genie):
+    # Poisson at 65 x 65 (3,969 unknowns): AUTO takes GRIDMF with the grid
+    # hint (gj_inv on the card); SPLU runs splu_pairs, gather_rows, gj_inv
+    from russell_tpu_torch.pde import Fdm2d, Grid2d, problem_samples
+    (xmin, xmax, ymin, ymax, kx, ky, ebcs, nbcs, src, _ana, _flow) = \
+        problem_samples.d2_problem_01(True)
+    grid = Grid2d.new_uniform(xmin, xmax, ymin, ymax, 65, 65)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fdm = Fdm2d(grid, ebcs, nbcs, kx, ky, device=dev)
+        fdm.set_solver_options(Genie[genie])
+        splu.reset_launch_counts()
+        out[dev] = (fdm.solve_sps(0.0, src), splu._gj_inv.launches,
+                    splu.splu_pairs.launches)
+    (xc, _, _), (xg, gj, pairs) = out["cpu"], out["cuda"]
+    assert gj > 0
+    assert (pairs > 0) == (genie == "SPLU")
+    err = float(np.abs(xg - xc).max() / np.abs(xc).max())
+    assert err <= 1e-10, err
+
+
+def test_bratu_2d_arclength_on_card_matches_cpu(cuda, one_thread):
+    # npoint 17 (ndim 225, AUTO -> DENSE): the eight counters equal to the
+    # CPU run's, the steps' lambda at 1e-9; a second card run gives the
+    # same bits
+    from russell_tpu_torch import nonlin
+    runs = []
+    for dev in ("cpu", "cuda", "cuda"):
+        system, u0, l0, mid = nonlin.samples.bratu_2d_fdm(17)
+        solver = nonlin.Solver(nonlin.Config(method=nonlin.Method.ARCLENGTH),
+                               system, device=dev)
+        out = nonlin.Output().set_recording([mid])
+        u, l, status = solver.solve(u0, l0, nonlin.IniDir.POS,
+                                    nonlin.Stop.max_comp_u(mid, 6.0),
+                                    nonlin.DeltaLambda.auto(0.5), output=out)
+        assert status.success()
+        st = solver.stats()
+        runs.append((u, np.asarray(out.step_l),
+                     [st.n_steps, st.n_accepted, st.n_rejected, st.n_function,
+                      st.n_jacobian, st.n_factor, st.n_lin_sol,
+                      st.n_iteration_total]))
+    (uc, lc, cc), (ug, lg, cg), (ug2, lg2, cg2) = runs
+    assert cg == cc and cg2 == cc
+    np.testing.assert_allclose(lg, lc, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(ug, uc, rtol=1e-9, atol=1e-9)
+    assert np.array_equal(ug2, ug) and np.array_equal(lg2, lg)

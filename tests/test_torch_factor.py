@@ -198,10 +198,9 @@ def test_other_genies_raise(plans, genie, grid):
         assert plan.genie == Genie.GENMF
 
 
-def test_auto_above_dense_threshold_raises(plans):
-    # the name is kept from when the port raised here; the reference routes
-    # these to BANDED or GENMF, and so does the port since the LinSolver
-    # slice: nothing raises or falls back to another route
+def test_auto_above_dense_threshold_routes_as_reference(plans):
+    # the reference routes these to BANDED or GENMF, and so does the port:
+    # nothing raises or falls back to another route
     n, ii, jj, *_ = plans
     ii2, jj2 = np.r_[ii, 0], np.r_[jj, n - 1]  # not cell-local
     for rows, cols, grid in ((ii, jj, None), (ii2, jj2, (5, 5, 2))):

@@ -47,7 +47,24 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.sparse.lin_solver",
             "russell_tpu_torch.sparse.ordering",
             "russell_tpu_torch.bin",
-            "russell_tpu_torch.bin.solve_matrix_market"} <= set(names)
+            "russell_tpu_torch.bin.solve_matrix_market",
+            "russell_tpu_torch.math", "russell_tpu_torch.math.chebyshev",
+            "russell_tpu_torch.algo", "russell_tpu_torch.algo.interp_lagrange",
+            "russell_tpu_torch.algo.misc", "russell_tpu_torch.pde",
+            "russell_tpu_torch.pde.enums", "russell_tpu_torch.pde.grid",
+            "russell_tpu_torch.pde.bcs",
+            "russell_tpu_torch.pde.equation_handler",
+            "russell_tpu_torch.pde.fdm", "russell_tpu_torch.pde.spc",
+            "russell_tpu_torch.pde.spc_map", "russell_tpu_torch.pde.metrics",
+            "russell_tpu_torch.pde.transfinite",
+            "russell_tpu_torch.pde.problem_samples",
+            "russell_tpu_torch.nonlin", "russell_tpu_torch.nonlin.config",
+            "russell_tpu_torch.nonlin.system", "russell_tpu_torch.nonlin.stats",
+            "russell_tpu_torch.nonlin.logger",
+            "russell_tpu_torch.nonlin.output",
+            "russell_tpu_torch.nonlin.solvers",
+            "russell_tpu_torch.nonlin.solver",
+            "russell_tpu_torch.nonlin.samples"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
