@@ -15,7 +15,7 @@ complex128. The PDE and continuation tools (``russell_tpu_torch.pde``,
 ``nonlin``) reach the card through ``LinSolver`` and ``factor``.
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: all six kernels compiled from ``russell_tpu_torch/csrc``, one
+2. build: every kernel compiled from ``russell_tpu_torch/csrc``, one
    nvcc per source, all at once, with ptxas' register and spill lines;
 3. warmup: factorize pairs back to back for WARM_S seconds, so that no
    timing below is the card's first work;
@@ -188,6 +188,37 @@ complex128. The PDE and continuation tools (``russell_tpu_torch.pde``,
    continuation on the 1-D Bratu and the B-spline problems with
    russell_tpu's counters. No hand kernel is on this path (DENSE and
    BANDED run cuSOLVER and cuBLAS).
+24. lab_path: ``core``, ``math``, ``dense`` and ``algo`` at the sizes their
+   users run, each result held to an oracle on the host. Dense f64 at
+   LAB_N (``mat_mat_mul``, ``mat_cholesky``, ``solve_lin_sys``,
+   ``mat_inverse`` with its det against numpy's slogdet,
+   ``mat_eigen_sym``), ``mat_eigen_herm`` in complex128, ``mat_svd`` and
+   ``mat_pseudo_inverse`` at LAB_N_HERM, ``mat_eigen`` batched and
+   ``mat_gen_eigen`` at LAB_N_EIG: each held by its invariant against a
+   seeded vector (residuals relative to the operands' norms <= 1e-12),
+   with the first call's wall and device ms (set-up), the median of
+   LAB_REPS calls after it and GFLOP/s where the flops are defined. Then
+   ``jacobi_eig`` (``csrc/jacobi_eig.cu``) bit for bit against its plain
+   version run on the CPU at JACOBI_PLAIN_N (the largest also through the
+   global-memory route), the plain version on the card once, and
+   ``mat_eigen_sym_jacobi`` at JACOBI_N (its launches counted from 0 over
+   those calls) against ``torch.linalg.eigh`` (eigenvalues, |A V - V w|
+   and |V^T V - I|): time, bound, barriers; its launch at JACOBI_N[0] is
+   held bit for bit to the plain version, run on the CPU in a process of
+   its own while the phase goes on. Then
+   every elementwise public function of ``math`` on LAB_POINTS seeded
+   points with the edge values first (poles, 0, +-1, negative arguments,
+   the Bessel branch limits 8, 17, 26): every LAB_ORACLE_STRIDE-th point
+   against ``scipy.special`` at tests/test_math.py's tolerances (``beta``
+   and ``ln_beta`` at max(a, b) >= 8 at the reference's deviation from
+   scipy there), the first LAB_CPU_POINTS against the port's CPU run
+   (LAB_CPU_TOL where scipy is held more loosely); points/s and launches
+   a call of ``bessel_jn(50)``, ``bessel_in(50)`` and ``elliptic_pi``.
+   Then ``NewtonSolver`` at NEWTON_N (counters and u against the CPU run;
+   u against a numpy Newton oracle), ``InterpChebyshev`` adapted then
+   evaluated on LAB_POINTS points against its CPU evaluation, and
+   ``RootFinder``, ``MinSolver`` and ``Quadrature`` (host work) with the
+   reference's counters. The kernels line gains ``jacobi_eig``.
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -208,7 +239,8 @@ this tree's, each in its own process, in turns P C C P, ROUNDS times,
 then the medians, the ratios and the number of calls that pays for one
 layout build. ``--replay [--tree DIR]`` is one such process.
 ``--lin-solver-path`` runs only phase 21 (after the device and build
-phases), ``--pde-nonlin`` only phases 22 and 23. ``--chunk-sweep`` times
+phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
+(with its kernels line and the last line). ``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -282,6 +314,9 @@ def reset_launch_counts():
     lanes = sys.modules.get("russell_tpu_torch.ode._lanes")
     if lanes is not None:
         lanes.lane_pow.launches = 0
+    dense = sys.modules.get("russell_tpu_torch.dense.matrix_ops")
+    if dense is not None:
+        dense.reset_launch_counts()
 
 
 def gj_inv_launches():
@@ -3818,6 +3853,764 @@ def phase_nonlin_path():
     return res
 
 
+# -- 24. lab_path: core, math, dense and algo on the card ----------------------
+
+LAB_N = 4096              # dense f64 (mat_mat_mul ... mat_eigen_sym)
+LAB_N_HERM = 2048         # mat_eigen_herm (c128), mat_svd, pseudo-inverse
+LAB_N_EIG = 1024          # mat_eigen (a batch of LAB_EIG_BATCH), gen_eigen
+LAB_EIG_BATCH = 2
+LAB_RES_TOL = 1e-12       # residuals relative to the norms of the operands
+LAB_REPS = 3              # timed dense calls after the first (set-up) one
+LAB_POINTS = 1 << 24      # special functions: 128 MiB an f64 tensor
+LAB_ORACLE_STRIDE = 64    # every 64th point against scipy (2^18 points)
+LAB_SLOW_STRIDE = 1024    # for jn/yn/in of order 50, whose scipy is slow
+LAB_CPU_POINTS = 4096     # points of the port's CPU run
+# the card against the CPU run where scipy is held more loosely
+LAB_CPU_TOL = {"beta(b>=8)": 1e-13, "ln_beta(b>=8)": 1e-13}
+JACOBI_PLAIN_N = (2, 8, 32)   # kernel against its plain version on the CPU
+JACOBI_N = (128, 256)         # 128 runs the global-memory route
+# the main path's launch at JACOBI_N[0] against the plain version on the
+# CPU, run in a process of its own beside the rest of the phase
+JACOBI_HELD_TIMEOUT_S = 600
+NEWTON_N = (64, 2048)
+# the reference's counters (russell_tpu on the CPU): RootFinder on x^4 - 1
+# (chebyshev, refine) then brent on sin in [2, 4]: (n_function, n_jacobian,
+# n_iterations); MinBracketing from 0 and MinSolver.brent on
+# (x - 2)^2 + 1 + 0.1 sin 5x: (n_function, n_iterations) each; Quadrature
+# of sqrt(1 - x^2) on [-1, 1]: (n_function, n_iterations)
+LAB_ROOT_COUNTERS = (58, 0, 7)
+LAB_MIN_COUNTERS = ((12, 10), (14, 14))
+LAB_QUAD_COUNTERS = (1770, 30)
+
+
+def lab_timed(fn):
+    """(fn(), host wall s, device ms): one call between two CUDA events,
+    ending in a synchronize."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def lab_check(name, err, tol):
+    if not err <= tol:
+        raise AssertionError(f"lab_path {name}: {err:.3e} > {tol:.1e}")
+    return err
+
+
+def lab_counters(name, got, want):
+    if tuple(got) != tuple(want):
+        raise AssertionError(f"lab_path {name}: counters {got}, the "
+                             f"reference's {want}")
+
+
+def inf_norm(x):
+    x = np.asarray(x)
+    return float(np.abs(x).sum(axis=-1).max()) if x.ndim > 1 else float(
+        np.abs(x).max())
+
+
+def lab_matrix(n, gen, dtype=torch.float64):
+    """I + 0.1 G / sqrt(n), G seeded standard normal on the card: well
+    conditioned, det finite."""
+    g = torch.randn((n, n), generator=gen, dtype=dtype, device="cuda")
+    return torch.eye(n, dtype=dtype, device="cuda") + (0.1 / n ** 0.5) * g
+
+
+def lab_dense():
+    """The dense surface at users' sizes, each result held on the host by
+    its invariant against seeded vectors y (Freivalds): residuals relative
+    to the operands' inf-norms <= LAB_RES_TOL. Each call's first run on
+    its shapes is set-up (``first_wall_s``, ``first_device_ms``: cuSOLVER
+    or MAGMA handles and workspaces); its time is the median of LAB_REPS
+    calls after it, one at a time."""
+    from russell_tpu_torch.core import Norm
+    from russell_tpu_torch.dense import (
+        mat_cholesky, mat_eigen, mat_eigen_herm, mat_eigen_sym, mat_gen_eigen,
+        mat_inverse, mat_mat_mul, mat_norm, mat_pseudo_inverse, mat_svd,
+        solve_lin_sys)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    out = {}
+    n = LAB_N
+    A, B = lab_matrix(n, gen), lab_matrix(n, gen)
+    S = A @ A.mT
+    Ah, Bh, Sh = A.cpu().numpy(), B.cpu().numpy(), S.cpu().numpy()
+    y = rng.standard_normal(n)
+    nA, nB, nS = inf_norm(Ah), inf_norm(Bh), inf_norm(Sh)
+    lab_check("mat_norm", abs(float(mat_norm(A, Norm.INF)) - nA) / nA, 1e-14)
+
+    def rec(name, fn, flops=None):
+        res, first_wall, first_ms = lab_timed(fn)
+        runs = [lab_timed(fn)[1:] for _ in range(LAB_REPS)]
+        wall = statistics.median(r[0] for r in runs)
+        dev_ms = statistics.median(r[1] for r in runs)
+        r = {"wall_s": wall, "device_ms": dev_ms, "first_wall_s": first_wall,
+             "first_device_ms": first_ms}
+        if flops:
+            r["gflops"] = flops / (dev_ms * 1e6)
+        out[name] = r
+        return res
+
+    C = rec("mat_mat_mul", lambda: mat_mat_mul(1.0, A, B), 2.0 * n ** 3)
+    out["mat_mat_mul"]["residual"] = lab_check(
+        "mat_mat_mul", inf_norm(C.cpu().numpy() @ y - Ah @ (Bh @ y))
+        / (nA * nB * inf_norm(y)), LAB_RES_TOL)
+    L = rec("mat_cholesky", lambda: mat_cholesky(S), n ** 3 / 3.0)
+    Lh = L.cpu().numpy()
+    out["mat_cholesky"]["residual"] = lab_check(
+        "mat_cholesky", inf_norm(Lh @ (Lh.T @ y) - Sh @ y)
+        / (nS * inf_norm(y)), LAB_RES_TOL)
+    b = torch.as_tensor(y, device="cuda")
+    x = rec("solve_lin_sys", lambda: solve_lin_sys(A, b),
+            2.0 * n ** 3 / 3.0 + 2.0 * n ** 2)
+    xh = x.cpu().numpy()
+    out["solve_lin_sys"]["residual"] = lab_check(
+        "solve_lin_sys", inf_norm(Ah @ xh - y) / (nA * inf_norm(xh)),
+        LAB_RES_TOL)
+    inv, det = rec("mat_inverse", lambda: mat_inverse(A), 2.0 * n ** 3)
+    ih = inv.cpu().numpy()
+    sign, logdet = np.linalg.slogdet(Ah)
+    out["mat_inverse"].update(
+        residual=lab_check("mat_inverse", inf_norm(Ah @ (ih @ y) - y)
+                           / (nA * inf_norm(ih) * inf_norm(y)), LAB_RES_TOL),
+        det=float(det), det_rel_err=lab_check(
+            "det", abs(float(det) - sign * np.exp(logdet))
+            / abs(sign * np.exp(logdet)), 1e-10))
+    del C, L, inv, x
+    w, V = rec("mat_eigen_sym", lambda: mat_eigen_sym(S))
+    wh, Vh = w.cpu().numpy(), V.cpu().numpy()
+    out["mat_eigen_sym"].update(
+        residual=lab_check("mat_eigen_sym", inf_norm(
+            Sh @ (Vh @ y) - Vh @ (wh * y)) / (nS * inf_norm(Vh)
+                                            * inf_norm(y)), LAB_RES_TOL),
+        orthogonality=lab_check("mat_eigen_sym orthogonality", inf_norm(
+            Vh.T @ (Vh @ y) - y) / inf_norm(y), 1e-12))
+    del A, B, S, V, Ah, Bh, Sh, Vh
+    torch.cuda.empty_cache()
+    m = LAB_N_HERM
+    G = lab_matrix(m, gen, torch.complex128)
+    H = (G + G.mH) / 2
+    Hh = H.cpu().numpy()
+    yc = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    w, V = rec("mat_eigen_herm", lambda: mat_eigen_herm(H))
+    wh, Vh = w.cpu().numpy(), V.cpu().numpy()
+    out["mat_eigen_herm"]["residual"] = lab_check(
+        "mat_eigen_herm", inf_norm(Hh @ (Vh @ yc) - Vh @ (wh * yc))
+        / (inf_norm(Hh) * inf_norm(Vh) * inf_norm(yc)), LAB_RES_TOL)
+    A2 = lab_matrix(m, gen)
+    A2h = A2.cpu().numpy()
+    y2 = y[:m]
+    s, U, Vt = rec("mat_svd", lambda: mat_svd(A2))
+    sh, Uh, Vth = s.cpu().numpy(), U.cpu().numpy(), Vt.cpu().numpy()
+    out["mat_svd"]["residual"] = lab_check(
+        "mat_svd", inf_norm(Uh @ (sh * (Vth @ y2)) - A2h @ y2)
+        / (inf_norm(A2h) * inf_norm(y2)), LAB_RES_TOL)
+    P = rec("mat_pseudo_inverse", lambda: mat_pseudo_inverse(A2))
+    Ph = P.cpu().numpy()
+    out["mat_pseudo_inverse"]["residual"] = lab_check(
+        "mat_pseudo_inverse", inf_norm(A2h @ (Ph @ y2) - y2)
+        / (inf_norm(A2h) * inf_norm(Ph) * inf_norm(y2)), LAB_RES_TOL)
+    del G, H, V, A2, U, Vt, P
+    torch.cuda.empty_cache()
+    k = LAB_N_EIG
+    Ab = torch.stack([lab_matrix(k, gen) for _ in range(LAB_EIG_BATCH)])
+    Bg = lab_matrix(k, gen)
+    yk = y[:k] + 0j
+
+    def eig_residual(name, planes, a, bmat=None):
+        lr, li, vr, vi = (t.cpu().numpy() for t in planes)
+        lam, Vc = lr + 1j * li, vr + 1j * vi
+        res = 0.0
+        for i in range(lam.shape[0] if lam.ndim > 1 else 1):
+            li_, Vi = (lam[i], Vc[i]) if lam.ndim > 1 else (lam, Vc)
+            ai = a[i] if a.ndim > 2 else a
+            rhs = Vi @ (li_ * yk)
+            if bmat is not None:
+                rhs = bmat @ rhs
+            res = max(res, inf_norm(ai @ (Vi @ yk) - rhs) / (
+                inf_norm(ai) * inf_norm(Vi) * inf_norm(yk)
+                * (1.0 if bmat is None else inf_norm(bmat))))
+        return lab_check(name, res, LAB_RES_TOL)
+
+    planes = rec("mat_eigen_batched", lambda: mat_eigen(Ab))
+    if not all(t.device == Ab.device for t in planes):
+        raise AssertionError("mat_eigen: planes left the card")
+    out["mat_eigen_batched"]["residual"] = eig_residual(
+        "mat_eigen", planes, Ab.cpu().numpy())
+    planes = rec("mat_gen_eigen", lambda: mat_gen_eigen(Ab[0], Bg))
+    out["mat_gen_eigen"]["residual"] = eig_residual(
+        "mat_gen_eigen", planes, Ab[0].cpu().numpy(), Bg.cpu().numpy())
+    del Ab, Bg, planes
+    torch.cuda.empty_cache()
+    return out
+
+
+def jacobi_work(n, sweeps):
+    """(bytes, flops, barriers) of one decomposition: A read and V and w
+    written once; per rotation 18 n + 13 flops (rows and columns of A and
+    V: 6 flops an updated pair of entries; the rotation's scalars); two
+    barriers a rotation."""
+    rot = sweeps * n * (n - 1) // 2
+    return 8 * (2 * n * n + n), rot * (18 * n + 13), 2 * rot + 1
+
+
+def lab_sym(n, seed):
+    if n == 2:
+        return np.array([[2.0, 1.0], [1.0, 2.0]])  # equal diagonal
+    a = np.random.default_rng(seed).standard_normal((n, n))
+    return (a + a.T) / 2
+
+
+def lab_jacobi():
+    """jacobi_eig bit for bit against its plain version (run on the CPU)
+    at JACOBI_PLAIN_N, and through the global-memory route at the largest;
+    the plain version on the card once; then mat_eigen_sym_jacobi at
+    JACOBI_N (the main window: its launches), eigenvalues within
+    LAB_RES_TOL ||A|| of torch.linalg.eigh, |A V - V w| within
+    LAB_RES_TOL ||A|| and |V^T V - I| within LAB_RES_TOL, with the kernel's
+    time, the bound and eigh's time at each n. Returns the record and the
+    main window's (w, V) on the host, by n."""
+    from russell_tpu_torch.dense import mat_eigen_sym_jacobi, matrix_ops
+    sweeps = matrix_ops.JACOBI_SWEEPS
+    held = []
+    for n in JACOBI_PLAIN_N:
+        a = lab_sym(n, n)
+        t0 = time.perf_counter()
+        wp, Vp = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), sweeps)
+        plain_cpu = (wp, Vp)
+        plain_cpu_s = time.perf_counter() - t0
+        ac = torch.as_tensor(a, device="cuda")
+        routes = [None] + ([16] if n == JACOBI_PLAIN_N[-1] else [])
+        for budget in routes:
+            default = matrix_ops.JACOBI_SMEM_BYTES
+            try:
+                if budget is not None:
+                    matrix_ops.JACOBI_SMEM_BYTES = budget
+                w, V = matrix_ops.jacobi_eig(ac)
+                w.cpu()
+            finally:
+                matrix_ops.JACOBI_SMEM_BYTES = default
+            if not (torch.equal(w.cpu(), wp) and torch.equal(V.cpu(), Vp)):
+                raise AssertionError(f"jacobi_eig n {n}: not the plain "
+                                     "version's bits")
+            held.append({"n": n, "route": "shared" if budget is None
+                         else "global", "bit_identical": True,
+                         "max_abs_err": max(
+                             float((w.cpu() - wp).abs().max()),
+                             float((V.cpu() - Vp).abs().max())),
+                         "plain_cpu_s": plain_cpu_s})
+    n = JACOBI_PLAIN_N[-1]
+    a = torch.as_tensor(lab_sym(n, n), device="cuda")
+    (wpc, Vpc), _, plain_ms = lab_timed(
+        lambda: matrix_ops._jacobi_eig_plain(a, sweeps))
+    if not (torch.equal(wpc.cpu(), plain_cpu[0])
+            and torch.equal(Vpc.cpu(), plain_cpu[1])):
+        raise AssertionError("jacobi_eig's plain version: other bits on the "
+                             "card than on the CPU")
+    nb, fl, barriers = jacobi_work(n, sweeps)
+    bms, by = bound(nb, fl)
+    small = {"n": n, "ms": time_ms(lambda: matrix_ops.jacobi_eig(a), reps=5),
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "barriers": barriers,
+             "library_ms": time_ms(lambda: torch.linalg.eigh(a), reps=5)}
+    mats = {n: torch.as_tensor(lab_sym(n, n), device="cuda")
+            for n in JACOBI_N}
+    matrix_ops.reset_launch_counts()
+    outs = {n: mat_eigen_sym_jacobi(mats[n]) for n in JACOBI_N}
+    outs = {n: (w.cpu(), V.cpu()) for n, (w, V) in outs.items()}
+    launches = matrix_ops.jacobi_eig.launches
+    if launches != len(JACOBI_N):
+        raise AssertionError(f"jacobi_eig: {launches} launches on the path")
+    at_n = {}
+    for n in JACOBI_N:
+        w, V = (t.cuda() for t in outs[n])
+        we = torch.linalg.eigvalsh(mats[n])
+        scale = float(torch.linalg.matrix_norm(mats[n], 2))
+        err = lab_check(f"jacobi n {n}",
+                        float((w - we).abs().max()) / scale, LAB_RES_TOL)
+        resid = lab_check(f"jacobi n {n} |A V - V w|", float(
+            (mats[n] @ V - V * w).abs().max()) / scale, LAB_RES_TOL)
+        orth = lab_check(f"jacobi n {n} |V^T V - I|", float(
+            (V.mT @ V - torch.eye(n, dtype=V.dtype, device=V.device))
+            .abs().max()), LAB_RES_TOL)
+        nb, fl, barriers = jacobi_work(n, sweeps)
+        bms, by = bound(nb, fl)
+        kms = statistics.median(lab_timed(
+            lambda: matrix_ops.jacobi_eig(mats[n]))[2] for _ in range(3))
+        at_n[n] = {"route": "shared" if 16 * n * (n + 1)
+                   <= matrix_ops.JACOBI_SMEM_BYTES else "global",
+                   "ms": kms, "bound_ms": bms, "bound_by": by,
+                   "barriers": barriers, "ns_per_barrier": 1e6 * kms
+                   / barriers, "eig_max_rel_err": err,
+                   "residual": resid, "orthogonality": orth,
+                   "library_ms": time_ms(lambda: torch.linalg.eigh(mats[n]),
+                                         reps=5)}
+    return {"held_to_plain": held, "launches": launches, "small": small,
+            "at_n": at_n}, outs
+
+
+def jacobi_plain_sorted(n, sweeps):
+    """(w, V, seconds): the plain version of jacobi_eig on the CPU (one
+    thread) on lab_sym(n, n), sorted as mat_eigen_sym_jacobi sorts. The
+    phase runs it in a process of its own, beside its other work."""
+    from russell_tpu_torch.dense import matrix_ops
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    w, V = matrix_ops._jacobi_eig_plain(torch.as_tensor(lab_sym(n, n)),
+                                        sweeps)
+    order = torch.argsort(w, stable=True)
+    return w[order], V[:, order], time.perf_counter() - t0
+
+
+def jacobi_main_held(plain, outs):
+    """The main window's launch at JACOBI_N[0] against ``plain`` (the
+    pending jacobi_plain_sorted), bit for bit; a held_to_plain record."""
+    t0 = time.perf_counter()
+    wp, Vp, plain_cpu_s = plain.get(timeout=JACOBI_HELD_TIMEOUT_S)
+    waited_s = time.perf_counter() - t0
+    n = JACOBI_N[0]
+    w, V = outs[n]
+    if not (torch.equal(w, wp) and torch.equal(V, Vp)):
+        raise AssertionError(f"mat_eigen_sym_jacobi n {n} (the main path's "
+                             "launch): not the plain version's bits")
+    return {"n": n, "route": "global", "main_path": True,
+            "bit_identical": True, "max_abs_err": max(
+                float((w - wp).abs().max()), float((V - Vp).abs().max())),
+            "plain_cpu_s": plain_cpu_s, "waited_s": waited_s}
+
+
+def lab_inputs(edges, lo, hi, seed):
+    """LAB_POINTS f64 inputs: ``edges`` first, then seeded uniform draws
+    in [lo, hi), made on the host."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(lo, hi, LAB_POINTS)
+    x[:len(edges)] = edges
+    return x
+
+
+BESSEL_EDGES = (0.0, 1.0, -1.0, -3.0, -8.0, -17.0, -26.0, 8.0, 17.0, 26.0,
+                np.nextafter(8.0, 0), np.nextafter(8.0, 9),
+                np.nextafter(17.0, 0), np.nextafter(17.0, 18),
+                np.nextafter(26.0, 0), np.nextafter(26.0, 27), 200.0)
+
+
+def lab_special_specs():
+    """(name, port call on the inputs, scipy oracle on the host inputs,
+    inputs (name: (edges, lo, hi)), tolerance kind, tolerance, stride):
+    every elementwise public function of ``math``, at the tolerances of
+    tests/test_math.py ("abs": |d| <= tol; "rel1": |d| <= tol max(|w|, 1);
+    "rel": |d| <= tol |w|)."""
+    from russell_tpu_torch import math as pm
+    from scipy import special as ss
+    pos = ((0.0, 1.0, 8.0, 17.0, 26.0, 200.0), 1e-6, 200.0)
+    jx = (BESSEL_EDGES, -200.0, 200.0)
+    ix = ((0.0, 1.0, -1.0, 30.0, -30.0), -30.0, 30.0)
+    kx = ((0.0, -1.0, 1.0, 2.0, 60.0), 1e-5, 60.0)
+    unit = ((-1.0, 0.0, 1.0), -1.0, 1.0)
+
+    def ynan(w, x):
+        """scipy's Y at x < 0 is NaN by the reference's contract too."""
+        w[x < 0] = np.nan
+        return w
+
+    def gamma_ref(x):
+        w = ss.gamma(x)
+        w[(x <= 0) & (x == np.floor(x))] = np.nan
+        return w
+
+    def pi_ref(n, phi, m):
+        s, c = np.sin(phi), np.cos(phi)
+        return s * ss.elliprf(c * c, 1 - m * s * s, 1.0) + n * s ** 3 / 3 \
+            * ss.elliprj(c * c, 1 - m * s * s, 1.0, 1 - n * s * s)
+
+    def cheb(kind, n, d):
+        # T_n, or U_n = sum of 2 T_j over j = n, n-2, ... (T_0 once), as a
+        # Chebyshev series: numpy differentiates and sums it by Clenshaw
+        c = np.zeros(n + 1)
+        if kind == "T":
+            c[n] = 1.0
+        else:
+            c[n % 2::2] = 2.0
+            c[0] = 1.0 if n % 2 == 0 else 0.0
+        cc = np.polynomial.chebyshev.chebder(c, d) if d else c
+        return lambda x: np.polynomial.chebyshev.chebval(x, cc)
+
+    def leg(n, d):
+        c = np.zeros(n + 1)
+        c[n] = 1.0
+        cc = np.polynomial.legendre.legder(c, d) if d else c
+        return lambda x: np.polynomial.legendre.legval(x, cc)
+
+    S = LAB_ORACLE_STRIDE
+    specs = [
+        ("bessel_j0", pm.bessel_j0, ss.j0, {"x": jx}, "abs", 2e-15, S),
+        ("bessel_j1", pm.bessel_j1, ss.j1, {"x": jx}, "abs", 2e-15, S),
+        # Y0/Y1: test_math.py's 2e-14 absolute where |Y| <= 1 and relative
+        # above (near 0, where -2/(pi x) dominates, an ulp of CUDA's log
+        # moves the sum's rounding by an ulp of |Y|)
+        ("bessel_y0", pm.bessel_y0, lambda x: ynan(ss.y0(x), x), {"x": jx},
+         "rel1", 2e-14, S),
+        ("bessel_y1", pm.bessel_y1, lambda x: ynan(ss.y1(x), x), {"x": jx},
+         "rel1", 2e-14, S),
+        ("bessel_jn(20)", lambda x: pm.bessel_jn(20, x),
+         lambda x: ss.jv(20, x), {"x": jx}, "rel1", 1e-14, S),
+        ("bessel_jn(50)", lambda x: pm.bessel_jn(50, x),
+         lambda x: ss.jv(50, x), {"x": jx}, "rel1", 1e-14, LAB_SLOW_STRIDE),
+        ("bessel_yn(20)", lambda x: pm.bessel_yn(20, x),
+         lambda x: ynan(ss.yn(20, x), x), {"x": pos}, "rel1", 1e-13, S),
+        ("bessel_i0", pm.bessel_i0, ss.i0, {"x": ix}, "rel1", 1e-13, S),
+        ("bessel_i1", pm.bessel_i1, ss.i1, {"x": ix}, "rel1", 1e-13, S),
+        ("bessel_in(5)", lambda x: pm.bessel_in(5, x),
+         lambda x: ss.iv(5, x), {"x": ix}, "rel1", 1e-13, S),
+        ("bessel_in(50)", lambda x: pm.bessel_in(50, x),
+         lambda x: ss.iv(50, x), {"x": ix}, "rel1", 1e-13, LAB_SLOW_STRIDE),
+        ("bessel_k0", pm.bessel_k0, ss.k0, {"x": kx}, "rel", 1e-13, S),
+        ("bessel_k1", pm.bessel_k1, ss.k1, {"x": kx}, "rel", 1e-13, S),
+        ("bessel_kn(10)", lambda x: pm.bessel_kn(10, x),
+         lambda x: ss.kn(10, x), {"x": kx}, "rel", 1e-13, S),
+        ("gamma", pm.gamma, gamma_ref,
+         {"x": ((0.0, -1.0, -2.0, -7.0, 1.0, 0.5, -0.5, -2.5), -10.0, 40.0)},
+         "rel", 1e-13, S),
+        ("ln_gamma", pm.ln_gamma, ss.gammaln,
+         {"x": ((0.5, 1.0, 2.0, 3.7), 0.01, 100.0)}, "rel1", 1e-13, S),
+        ("beta", pm.beta, ss.beta, {"a": ((2.0, 0.5), 0.1, 7.9),
+                                    "b": ((3.0, 0.5), 0.1, 7.9)},
+         "rel", 1e-13, S),
+        ("ln_beta", pm.ln_beta, ss.betaln, {"a": ((2.0,), 0.1, 7.9),
+                                            "b": ((3.0,), 0.1, 7.9)},
+         "rel1", 1e-13, S),
+        # max(a, b) >= 8 and large arguments: the reference's algdiv (jax's
+        # copy of cdflib's, ROADMAP.md section 3) is up to 6.4e-7 of
+        # max(|ln B|, 1) off scipy's betaln, so 1.4e-6 relative in B; the
+        # CPU run is held at 1e-13 (LAB_CPU_TOL)
+        ("beta(b>=8)", pm.beta, ss.beta,
+         {"a": ((0.5, 3.0, 30.0, 1e3, 1e6), 0.1, 30.0),
+          "b": ((8.0, 9.0, 1e2, 1e5, 1e7), 8.0, 1e3)}, "rel", 2e-6, S),
+        ("ln_beta(b>=8)", pm.ln_beta, ss.betaln,
+         {"a": ((0.5, 3.0, 30.0, 1e3, 1e6), 0.1, 1e4),
+          "b": ((8.0, 9.0, 1e2, 1e5, 1e7), 8.0, 1e6)}, "rel1", 1e-6, S),
+        ("erf", pm.erf, ss.erf, {"x": ((0.0, 1.0, -1.0), -6.0, 6.0)},
+         "abs", 1e-14, S),
+        ("erfc", pm.erfc, ss.erfc, {"x": ((0.0, 1.0, -1.0), -6.0, 6.0)},
+         "abs", 1e-14, S),
+        ("erf_inv", pm.erf_inv, ss.erfinv,
+         {"x": ((1.0, -1.0, 0.0, 1.5, -2.0), -0.999, 0.999)}, "rel", 1e-9,
+         S),
+        ("erfc_inv", pm.erfc_inv, ss.erfcinv,
+         {"x": ((0.0, 1.0, 2.0), 0.001, 1.999)}, "rel", 1e-9, S),
+        ("logistic", pm.logistic, ss.expit, {"x": ((0.0,), -30.0, 30.0)},
+         "abs", 1e-15, S),
+        ("logistic_deriv1", pm.logistic_deriv1,
+         lambda x: ss.expit(x) * (1 - ss.expit(x)),
+         {"x": ((0.0,), -30.0, 30.0)}, "abs", 1e-15, S),
+        ("sign", pm.sign, np.sign, {"x": ((0.0, -1.0, 1.0), -5.0, 5.0)},
+         "abs", 0.0, S),
+        ("ramp", pm.ramp, lambda x: np.maximum(x, 0.0),
+         {"x": ((0.0, -1.0, 1.0), -5.0, 5.0)}, "abs", 0.0, S),
+        ("heaviside", pm.heaviside, lambda x: np.heaviside(x, 0.5),
+         {"x": ((0.0, -1.0, 1.0), -5.0, 5.0)}, "abs", 0.0, S),
+        ("boxcar", lambda x: pm.boxcar(x, -1.0, 2.0),
+         lambda x: np.heaviside(x + 1.0, 0.5) - np.heaviside(x - 2.0, 0.5),
+         {"x": ((-1.0, 2.0, 0.0), -5.0, 5.0)}, "abs", 0.0, S),
+        ("smooth_ramp", lambda x: pm.smooth_ramp(x, 2.0),
+         lambda x: np.where(-2 * x > 500, 0.0, x + np.log1p(np.exp(-2 * x))
+                            / 2), {"x": ((0.0, -300.0, 300.0), -20.0, 20.0)},
+         "rel1", 1e-14, S),
+        ("smooth_ramp_deriv1", lambda x: pm.smooth_ramp_deriv1(x, 2.0),
+         lambda x: ss.expit(2 * x), {"x": ((0.0, 300.0), -20.0, 20.0)},
+         "abs", 1e-15, S),
+        ("smooth_ramp_deriv2", lambda x: pm.smooth_ramp_deriv2(x, 2.0),
+         lambda x: 2 * ss.expit(2 * x) * ss.expit(-2 * x),
+         {"x": ((0.0, 300.0), -20.0, 20.0)}, "abs", 1e-14, S),
+        ("suq_sin", lambda x: pm.suq_sin(x, 2.5),
+         lambda x: np.sign(np.sin(x)) * np.abs(np.sin(x)) ** 2.5,
+         {"x": ((0.0,), -10.0, 10.0)}, "abs", 1e-14, S),
+        ("suq_cos", lambda x: pm.suq_cos(x, 2.5),
+         lambda x: np.sign(np.cos(x)) * np.abs(np.cos(x)) ** 2.5,
+         {"x": ((0.0,), -10.0, 10.0)}, "abs", 1e-14, S),
+        ("modulo", lambda x: pm.modulo(x, 1.5), lambda x: np.fmod(x, 1.5),
+         {"x": ((-5.5, 5.5, 0.0), -100.0, 100.0)}, "abs", 0.0, S),
+        ("neg_one_pow_n", lambda x: pm.neg_one_pow_n(torch.round(x)),
+         lambda x: np.where(np.round(x) % 2 == 0, 1.0, -1.0),
+         {"x": ((0.0, 1.0, -3.0), -1000.0, 1000.0)}, "abs", 0.0, S),
+        ("elliptic_f", pm.elliptic_f, ss.ellipkinc,
+         {"phi": ((np.pi / 2, 0.0, 1.0), 0.0, np.pi / 2),
+          "m": ((1.0, 0.5, 0.9), 0.0, 0.999)}, "rel", 1e-13, S),
+        ("elliptic_e", pm.elliptic_e, ss.ellipeinc,
+         {"phi": ((np.pi / 2, 0.0, 1.0), 0.0, np.pi / 2),
+          "m": ((1.0, 0.5, 0.9), 0.0, 1.0)}, "rel", 1e-13, S),
+        ("elliptic_pi", pm.elliptic_pi, pi_ref,
+         {"n": ((0.3, -0.5, 0.0), -1.0, 0.9),
+          "phi": ((1.0, 0.7, np.pi / 2), 0.0, np.pi / 2),
+          "m": ((0.5, 0.9, 0.0), 0.0, 0.999)}, "rel", 1e-13, S),
+        ("carlson_rf", pm.carlson_rf, ss.elliprf,
+         {"x": ((0.0,), 0.0, 3.0), "y": ((1.0,), 0.01, 3.0),
+          "z": ((2.0,), 0.01, 3.0)}, "rel", 1e-13, S),
+        ("carlson_rd", pm.carlson_rd, ss.elliprd,
+         {"x": ((0.0,), 0.0, 3.0), "y": ((1.0,), 0.01, 3.0),
+          "z": ((2.0,), 0.01, 3.0)}, "rel", 1e-13, S),
+        ("carlson_rj", pm.carlson_rj, ss.elliprj,
+         {"x": ((0.0,), 0.0, 3.0), "y": ((1.0,), 0.01, 3.0),
+          "z": ((2.0,), 0.01, 3.0), "p": ((0.5,), 0.01, 3.0)}, "rel", 1e-13,
+         S),
+        ("carlson_rc", pm.carlson_rc, ss.elliprc,
+         {"x": ((0.0,), 0.0, 3.0), "y": ((1.0,), 0.01, 3.0)}, "rel", 1e-13,
+         S),
+    ]
+    # the derivatives away from |x| = 1: the reference's formulas divide by
+    # 1 - x^2 (its ODEs), losing digits as |x| -> 1 (1e-4 absolute for
+    # U5'' at 1 - |x| = 3e-6), and take the limits at +-1 exactly
+    inner = ((-1.0, 0.0, 1.0), -0.99, 0.99)
+    for n in (5, 10):
+        for d, suf in ((0, ""), (1, "_deriv1"), (2, "_deriv2")):
+            tol = (1e-12, 1e-10, 1e-9)[d]
+            dom = {"x": unit if d == 0 else inner}
+            specs.append((f"chebyshev_tn{suf}({n})",
+                          (lambda f, n: lambda x: f(n, x))(
+                              getattr(pm, f"chebyshev_tn{suf}"), n),
+                          cheb("T", n, d), dom, "abs",
+                          tol * n ** (2 * d) / 25 ** d, S))
+            specs.append((f"chebyshev_un{suf}({n})",
+                          (lambda f, n: lambda x: f(n, x))(
+                              getattr(pm, f"chebyshev_un{suf}"), n),
+                          cheb("U", n, d), dom, "abs",
+                          tol * n ** (2 * d) / 25 ** d, S))
+            specs.append((f"legendre_pn{suf}({n})",
+                          (lambda f, n: lambda x: f(n, x))(
+                              getattr(pm, f"legendre_pn{suf}"), n),
+                          leg(n, d), dom, "abs",
+                          tol * n ** (2 * d) / 25 ** d, S))
+    return specs
+
+
+def lab_compare(kind, got, want, tol):
+    """Largest deviation under ``kind``; NaN and inf must sit where the
+    oracle has them."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError("NaN where the oracle has none, or none where "
+                             "it has one")
+    fin = np.isfinite(want)
+    if not np.array_equal(got[~fin & ~np.isnan(want)],
+                          want[~fin & ~np.isnan(want)]):
+        raise AssertionError("infinities differ")
+    d = np.abs(got[fin] - want[fin])
+    if kind == "rel1":
+        d = d / np.maximum(np.abs(want[fin]), 1.0)
+    elif kind == "rel":
+        d = d / np.maximum(np.abs(want[fin]), 1e-300)
+    err = float(d.max()) if d.size else 0.0
+    return lab_check(kind, err, tol)
+
+
+def lab_special():
+    """Every elementwise public function of ``math`` on LAB_POINTS seeded
+    points on the card (edge values first): the finite share, every
+    stride-th point and all edges against scipy on the host, the first
+    LAB_CPU_POINTS against the port's CPU run; points/s and device launches
+    of one call of bessel_jn(50), bessel_in(50) and elliptic_pi."""
+    out, failed = {}, []
+    specs = lab_special_specs()
+    for i, (name, fn, ref, ins, kind, tol, stride) in enumerate(specs):
+        host = [lab_inputs(e, lo, hi, SEED + 17 * i + j)
+                for j, (e, lo, hi) in enumerate(ins.values())]
+        dev = [torch.as_tensor(h, device="cuda") for h in host]
+        got, wall, dev_ms = lab_timed(lambda: fn(*dev))
+        if got.shape != (LAB_POINTS,) or got.device != dev[0].device:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} on "
+                                 f"{got.device}")
+        n_edges = max(len(e) for e, _, _ in ins.values())
+        idx = np.unique(np.concatenate([np.arange(n_edges),
+                                        np.arange(0, LAB_POINTS, stride)]))
+        sub = got[torch.as_tensor(idx, device="cuda")].cpu().numpy()
+        cpu = fn(*(torch.as_tensor(h[:LAB_CPU_POINTS]) for h in host))
+        err = cpu_err = None
+        try:
+            err = lab_compare(kind, sub, ref(*(h[idx] for h in host)), tol)
+            # the card against the CPU at the same bound (or LAB_CPU_TOL):
+            # their sin, cos, log and exp differ in the last bits
+            cpu_err = lab_compare(kind, got[:LAB_CPU_POINTS].cpu().numpy(),
+                                  cpu.numpy(), LAB_CPU_TOL.get(name, tol))
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+        out[name] = {"max_err": err, "kind": kind, "tol": tol,
+                     "checked": len(idx), "cpu_max_err": cpu_err,
+                     "finite_share": float(torch.isfinite(got).double()
+                                           .mean()),
+                     "device_ms": dev_ms, "wall_s": wall}
+        del dev, got
+    if failed:
+        raise AssertionError("lab_path special functions: "
+                             + "; ".join(failed))
+    for name in ("bessel_jn(50)", "bessel_in(50)", "elliptic_pi"):
+        spec = next(s for s in specs if s[0] == name)
+        dev = [torch.as_tensor(lab_inputs(e, lo, hi, SEED), device="cuda")
+               for e, lo, hi in spec[3].values()]
+        ms_by, wall, launches = kernel_device_ms(lambda: spec[1](*dev))
+        dms = sum(ms_by.values())
+        out[name].update(launches_a_call=launches, profiled_device_ms=dms,
+                         points_per_s=LAB_POINTS / (out[name]["device_ms"]
+                                                    / 1e3),
+                         device_points_per_s=LAB_POINTS / (dms / 1e3),
+                         busy=dms / (wall * 1e3))
+    torch.cuda.empty_cache()
+    return out
+
+
+def lab_algo():
+    """NewtonSolver on A u + u^3 - b (A SPD) on the card: at n 64 its
+    counters and u against the CPU run, at n 2048 u against a numpy Newton
+    oracle; InterpChebyshev.adapt_function then eval on LAB_POINTS points
+    against its CPU eval; RootFinder, MinSolver and Quadrature (host work)
+    against the reference's counters."""
+    import math as pymath
+    from russell_tpu_torch import algo
+    out = {}
+    for n in NEWTON_N:
+        rng = np.random.default_rng(n)
+        g = rng.standard_normal((n, n))
+        a = g @ g.T / n + np.eye(n)
+        b = rng.standard_normal(n)
+
+        def run(dev):
+            A, B = torch.as_tensor(a, device=dev), torch.as_tensor(b,
+                                                                  device=dev)
+            solver = algo.NewtonSolver(n)
+            u = solver.solve(np.zeros(n), lambda x, u, _: A @ u + u ** 3 - B,
+                             device=dev)
+            st = solver.stats
+            return u, (st.n_function, st.n_jacobian, st.n_iterations)
+
+        (u, cnt), wall, dev_ms = lab_timed(lambda: run("cuda"))
+        if u.device.type != "cuda":
+            raise AssertionError("NewtonSolver: u left the card")
+        rec = {"counters": cnt, "wall_s": wall, "device_ms": dev_ms}
+        if n == NEWTON_N[0]:
+            uc, cc = run("cpu")
+            if cc != cnt:
+                raise AssertionError(f"NewtonSolver n {n}: counters {cnt} "
+                                     f"on the card, {cc} on the CPU")
+            rec["u_max_abs_diff_cpu"] = lab_check(
+                "newton cpu", float((u.cpu() - uc).abs().max()), 1e-12)
+        else:
+            v, its = np.zeros(n), 0
+            while True:
+                its += 1
+                r = a @ v + v ** 3 - b
+                if np.sqrt(np.sum((r / (1e-10 + 1e-10 * np.abs(v))) ** 2)
+                           / n) < 1:
+                    break
+                v = v + np.linalg.solve(a + np.diag(3 * v * v), -r)
+            rec["oracle_iterations"] = its
+            rec["u_max_abs_diff_oracle"] = lab_check(
+                "newton oracle", float(np.abs(u.cpu().numpy() - v).max()),
+                1e-10)
+        out[f"newton_{n}"] = rec
+    f = lambda x, _: pymath.cos(3.0 * x) * pymath.exp(-0.1 * x)  # noqa: E731
+    interp = algo.InterpChebyshev(200, 0.0, 20.0)
+    t0 = time.perf_counter()
+    interp.adapt_function(1e-10, f)
+    adapt_s = time.perf_counter() - t0
+    xs = torch.as_tensor(lab_inputs((0.0, 20.0, -1.0, 21.0), 0.0, 20.0,
+                                    SEED), device="cuda")
+    got, wall, dev_ms = lab_timed(lambda: interp.eval(xs))
+    want = interp.eval(xs.cpu())
+    out["interp_chebyshev"] = {
+        "degree": interp.get_degree(), "adapt_s": adapt_s,
+        "eval_device_ms": dev_ms, "eval_wall_s": wall,
+        "points_per_s": LAB_POINTS / (dev_ms / 1e3) if dev_ms else None,
+        "max_abs_diff_cpu": lab_check("interp eval", float(
+            (got.cpu() - want).abs().max()), 1e-13),
+        "max_abs_err_f": lab_check("interp f", float(np.abs(
+            got[:4096].cpu().numpy() - np.array([f(x, None) for x in xs[:4096]
+                                                 .cpu().numpy().clip(0, 20)])
+        ).max()), 1e-9)}
+    g4 = lambda x, a: x ** 4 - 1.0  # noqa: E731
+    solver = algo.RootFinder().set_enable_stats(True)
+    t0 = time.perf_counter()
+    roots = solver.chebyshev(algo.InterpChebyshev(2, -2.0, 2.0)
+                             .set_function(2, g4))
+    solver.refine(roots, -2.0, 2.0, g4)
+    root = solver.brent(2.0, 4.0, lambda x, a: pymath.sin(x))
+    st = solver.stats
+    cnt = (st.n_function, st.n_jacobian, st.n_iterations)
+    lab_counters("RootFinder", cnt, LAB_ROOT_COUNTERS)
+    out["root_finder"] = {"counters": cnt, "roots": roots, "brent": root,
+                          "host_s": time.perf_counter() - t0}
+    h = lambda x, a: (x - 2.0) ** 2 + 1.0 + 0.1 * pymath.sin(5 * x)  # noqa
+    br = algo.MinBracketing().set_enable_stats(True)
+    bk = br.basic(0.0, h)
+    ms = algo.MinSolver().set_enable_stats(True)
+    xmin = ms.brent(bk.a, bk.c, h)
+    cnt = ((br.stats.n_function, br.stats.n_iterations),
+           (ms.stats.n_function, ms.stats.n_iterations))
+    lab_counters("MinSolver", cnt, LAB_MIN_COUNTERS)
+    out["min_solver"] = {"counters": cnt, "x_min": xmin}
+    q = algo.Quadrature().set_enable_stats(True)
+    v = q.integrate(-1.0, 1.0, lambda x, a: pymath.sqrt(1.0 - x * x))
+    cnt = (q.stats.n_function, q.stats.n_iterations)
+    lab_counters("Quadrature", cnt, LAB_QUAD_COUNTERS)
+    out["quadrature"] = {"counters": cnt, "value": v,
+                         "err": lab_check("quadrature", abs(v - pymath.pi
+                                                            / 2), 1e-9)}
+    return out
+
+
+def phase_lab_path():
+    """Phase 24: core, math, dense and algo at the sizes their users run
+    (the module docstring's item 24). Returns the records; the kernels line
+    takes the Jacobi one. The plain version of the main window's first
+    ``jacobi_eig`` launch runs on the CPU in a process of its own from the
+    start, and is held to that launch at the end."""
+    import multiprocessing
+    from russell_tpu_torch.dense import matrix_ops
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        plain = pool.apply_async(jacobi_plain_sorted,
+                                 (JACOBI_N[0], matrix_ops.JACOBI_SWEEPS))
+        res = {"dense": lab_dense()}
+        say("lab_path", part="dense", **res["dense"])
+        res["jacobi"], outs = lab_jacobi()
+        say("lab_path", part="jacobi",
+            **{k: v for k, v in res["jacobi"].items() if k != "at_n"},
+            at_n={str(k): v for k, v in res["jacobi"]["at_n"].items()})
+        res["special"] = lab_special()
+        say("lab_path", part="special", functions=res["special"])
+        res["algo"] = lab_algo()
+        say("lab_path", part="algo", **res["algo"])
+        held = jacobi_main_held(plain, outs)
+    res["jacobi"]["held_to_plain"].append(held)
+    say("lab_path", part="jacobi_main_held", **held)
+    say("lab_path", part="done", wall_s=time.perf_counter() - t0)
+    return res
+
+
+def jacobi_entry(lres):
+    """The kernels line's jacobi_eig entry: at the largest n held bit for
+    bit (time, plain version's time, bound, eigh's time), and at JACOBI_N."""
+    j = lres["jacobi"]
+    s = j["small"]
+    return {"name": "jacobi_eig", "route": "cuda",
+            "source": "russell_tpu_torch/csrc/jacobi_eig.cu",
+            "replaces": "russell_tpu/dense/matrix_ops.py:148 (plain XLA)",
+            "launches": j["launches"],
+            "max_abs_err": max(h["max_abs_err"] for h in j["held_to_plain"]),
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": s["library_ms"], "barriers": s["barriers"],
+            "held_to_plain": j["held_to_plain"],
+            "at_n": {str(k): v for k, v in j["at_n"].items()},
+            "shapes": f"n {s['n']} (held bit for bit; plain_ms one call of "
+                      "the plain version on the card); at_n: the "
+                      "lab_path's mat_eigen_sym_jacobi calls"}
+
+
 def pde_entry(pres, name):
     """A kernel's launches in pde_path: per GRIDMF factorization at
     PDE_NPOINT (gj_inv only, with the held-to-plain record of one such
@@ -3882,6 +4675,7 @@ def main():
     lres = phase_lin_solver_path()
     pres = phase_pde_path()
     phase_nonlin_path()
+    labres = phase_lab_path()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -3957,6 +4751,7 @@ def main():
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
+    kernels.append(jacobi_entry(labres))
     kernels.append({
         **fres["lane_pow"],
         "launches": fres["gridmf_129"]["launches_cold_run"]["lane_pow"],
@@ -4225,6 +5020,14 @@ if __name__ == "__main__":
         phase_build()
         phase_pde_path()
         phase_nonlin_path()
+    elif "--lab" in sys.argv:
+        phase_device()
+        phase_build()
+        lab_kernels = [jacobi_entry(phase_lab_path())]
+        print(json.dumps({"kernels": lab_kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

@@ -2,8 +2,9 @@
 
 Counterpart of ``russell_tpu.math.chebyshev`` (reference:
 russell_lab/src/math/chebyshev.rs and chebyshev_u.rs). The polynomials
-take a float or a tensor and compute in f64 on the tensor's device; the
-point sets are host numpy arrays, as in the reference.
+follow the device rule of ``core/_place.py``: a tensor computes in f64 on
+its own device, a float, list or numpy array on ``device=`` (the card by
+default). The point sets are host numpy arrays, as in the reference.
 """
 
 from __future__ import annotations
@@ -11,18 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from russell_tpu_torch.core._place import f64
+
 __all__ = ["chebyshev_tn", "chebyshev_tn_deriv1", "chebyshev_tn_deriv2",
            "chebyshev_un", "chebyshev_un_deriv1", "chebyshev_un_deriv2",
            "chebyshev_gauss_points", "chebyshev_lobatto_points"]
 
 
-def _f(x):
-    return torch.as_tensor(x).to(torch.float64)
-
-
-def chebyshev_tn(n: int, x):
+def chebyshev_tn(n: int, x, device=None):
     """Tn(x) via trigonometric/hyperbolic closed forms (chebyshev.rs)."""
-    x = _f(x)
+    x = f64(x, device)
     inside = torch.abs(x) <= 1.0
     xc = torch.clamp(x, -1.0, 1.0)
     t_in = torch.cos(n * torch.arccos(xc))
@@ -32,16 +31,16 @@ def chebyshev_tn(n: int, x):
     return torch.where(inside, t_in, t_out)
 
 
-def chebyshev_tn_deriv1(n: int, x):
+def chebyshev_tn_deriv1(n: int, x, device=None):
     """dTn/dx = n Un-1(x)."""
     if n == 0:
-        return torch.zeros_like(_f(x))
-    return n * chebyshev_un(n - 1, x)
+        return torch.zeros_like(f64(x, device))
+    return n * chebyshev_un(n - 1, x, device)
 
 
-def chebyshev_tn_deriv2(n: int, x):
+def chebyshev_tn_deriv2(n: int, x, device=None):
     """d²Tn/dx²; recurrence-based evaluation stable at x = +-1."""
-    x = _f(x)
+    x = f64(x, device)
     if n < 2:
         return torch.zeros_like(x)
     # T'' via the ODE: (1-x²) Tn'' = x Tn' - n² Tn  away from |x| = 1;
@@ -55,9 +54,9 @@ def chebyshev_tn_deriv2(n: int, x):
     return torch.where(safe, core, lim)
 
 
-def chebyshev_un(n: int, x):
+def chebyshev_un(n: int, x, device=None):
     """Un(x) (2nd kind) via the 3-term recurrence (chebyshev_u.rs)."""
-    x = _f(x)
+    x = f64(x, device)
     um = torch.ones_like(x)
     if n == 0:
         return um
@@ -67,9 +66,9 @@ def chebyshev_un(n: int, x):
     return uc
 
 
-def chebyshev_un_deriv1(n: int, x):
+def chebyshev_un_deriv1(n: int, x, device=None):
     """dUn/dx = ((n+1) T_{n+1} - x U_n)/(x²-1), limits at |x|=1."""
-    x = _f(x)
+    x = f64(x, device)
     if n == 0:
         return torch.zeros_like(x)
     den = x * x - 1.0
@@ -80,9 +79,9 @@ def chebyshev_un_deriv1(n: int, x):
     return torch.where(safe, core, lim)
 
 
-def chebyshev_un_deriv2(n: int, x):
+def chebyshev_un_deriv2(n: int, x, device=None):
     """d²Un/dx² via the ODE (1-x²) Un'' = 3x Un' - n(n+2) Un."""
-    x = _f(x)
+    x = f64(x, device)
     if n < 2:
         return torch.zeros_like(x)
     den = 1.0 - x * x

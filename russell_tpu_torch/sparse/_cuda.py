@@ -9,13 +9,15 @@ library. ``build_all`` starts
 one ``nvcc`` per source, all at once. Nothing here runs when the module is
 imported, so the CPU tests, which have no ``nvcc``, import it freely. The
 wrappers that launch the kernels live beside their plain PyTorch versions
-(``sparse/splu.py``, ``sparse/kernels.py``). A kernel for several value
-types has one C entry point for each (``<name>_f64``, ``<name>_c128``).
+(``sparse/splu.py``, ``sparse/kernels.py``, ``dense/matrix_ops.py``). A
+kernel for several value types has one C entry point for each
+(``<name>_f64``, ``<name>_c128``).
 ``KERNELS`` are the ports of the reference's TPU kernels (and of its
 clamped inverse); ``LIBRARIES`` adds the fused ODE loops' two:
 ``graph_cond``, CUDA graph conditional nodes (``ode/_device_loop.py``),
 and ``lane_pow``, the controllers' correctly rounded pow
-(``ode/_lanes.py``).
+(``ode/_lanes.py``). ``jacobi_eig`` (``dense/matrix_ops.py``) ports the
+reference's plain-XLA cyclic Jacobi eigensolver.
 """
 
 from __future__ import annotations
@@ -73,6 +75,8 @@ _SIGNATURES = {
                    "capture_node_count": [_P, _P]},
     # x, exponent, n, out, stream
     "lane_pow": {"pow_cr_f64": [_P, ctypes.c_double, _I, _P, _P]},
+    # a, n, sweeps, shared route, work A, work V^T, w, V, stream
+    "jacobi_eig": {"jacobi_eig_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P]},
 }
 LIBRARIES = tuple(_SIGNATURES)
 # the fused loops' graph conditional nodes and their controllers' pow

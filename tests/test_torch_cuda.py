@@ -1134,3 +1134,89 @@ def test_bratu_2d_arclength_on_card_matches_cpu(cuda, one_thread):
     np.testing.assert_allclose(lg, lc, rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(ug, uc, rtol=1e-9, atol=1e-9)
     assert np.array_equal(ug2, ug) and np.array_equal(lg2, lg)
+
+
+@pytest.mark.parametrize("n,smem", [(2, None), (6, None), (33, None),
+                                    (33, 1024)])
+def test_jacobi_eig_kernel_matches_plain_version(cuda, n, smem):
+    """jacobi_eig against its plain version, bit for bit: n 2 (equal
+    diagonal: the 45-degree rotation), 6 and 33 through shared memory,
+    and 33 again with JACOBI_SMEM_BYTES lowered so the global-memory route
+    runs."""
+    from russell_tpu_torch.dense import matrix_ops
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    if n == 2:
+        a = np.array([[2.0, 1.0], [1.0, 2.0]])
+    default = matrix_ops.JACOBI_SMEM_BYTES
+    try:
+        if smem is not None:
+            matrix_ops.JACOBI_SMEM_BYTES = smem
+        n0 = matrix_ops.jacobi_eig.launches
+        w, V = matrix_ops.jacobi_eig(torch.as_tensor(a, device=cuda))
+        torch.cuda.synchronize()
+        assert matrix_ops.jacobi_eig.launches == n0 + 1
+    finally:
+        matrix_ops.JACOBI_SMEM_BYTES = default
+    wp, Vp = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), 30)
+    assert torch.equal(w.cpu(), wp) and torch.equal(V.cpu(), Vp)
+    ws, Vs = matrix_ops.mat_eigen_sym_jacobi(torch.as_tensor(a, device=cuda))
+    assert ws.device.type == "cuda"
+    np.testing.assert_allclose(ws.cpu().numpy(), np.linalg.eigvalsh(a),
+                               atol=1e-12 * np.abs(a).max())
+
+
+def test_non_tensor_inputs_land_on_the_card(cuda):
+    """A float or a list given to a function of the slice computes on the
+    card (the default device)."""
+    from russell_tpu_torch.core import linspace
+    from russell_tpu_torch.math import chebyshev_tn, gamma
+    assert gamma(4.5).device.type == "cuda"
+    assert abs(float(gamma(4.5)) - 11.631728396567448) < 1e-13
+    assert linspace(0.0, 1.0, 5).device.type == "cuda"
+    assert chebyshev_tn(3, 0.5).device.type == "cuda"
+    assert chebyshev_tn(3, [0.5, 0.25]).device.type == "cuda"
+    assert gamma(4.5, device="cpu").device.type == "cpu"
+
+
+def test_mat_eigen_batched_on_card(cuda):
+    """mat_eigen of a batched CUDA tensor returns four real CUDA planes,
+    held by |A V - V diag(l)|."""
+    from russell_tpu_torch.dense import mat_eigen
+    a = np.array([[0.0, 1.0], [-2.0, -3.0]])
+    rot = np.array([[0.0, -1.0], [1.0, 0.0]])
+    batch = torch.as_tensor(np.stack([a, a.T, rot]), device=cuda)
+    planes = mat_eigen(batch)
+    assert all(t.device.type == "cuda" and not t.is_complex() for t in planes)
+    lr, li, vr, vi = (t.cpu().numpy() for t in planes)
+    lam, V = lr + 1j * li, vr + 1j * vi
+    A = batch.cpu().numpy()
+    assert np.abs(A @ V - V * lam[:, None, :]).max() < 1e-12
+    np.testing.assert_allclose(np.sort(lr[0]), [-2.0, -1.0], atol=1e-12)
+
+
+def test_newton_solver_on_card_matches_cpu(cuda):
+    """NewtonSolver on A u + u^3 - b (A SPD, n 64): the card's Stats
+    counters equal the CPU run's, u within 1e-12."""
+    from russell_tpu_torch.algo import NewtonSolver
+    rng = np.random.default_rng(64)
+    n = 64
+    g = rng.standard_normal((n, n))
+    a = g @ g.T / n + np.eye(n)
+    b = rng.standard_normal(n)
+
+    def run(dev):
+        A, B = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+        solver = NewtonSolver(n)
+        u = solver.solve(np.zeros(n), lambda x, u, _: A @ u + u ** 3 - B,
+                         device=dev)
+        st = solver.stats
+        return u, (st.n_function, st.n_jacobian, st.n_iterations)
+
+    u_gpu, c_gpu = run(cuda)
+    u_cpu, c_cpu = run("cpu")
+    assert u_gpu.device.type == "cuda"
+    assert c_gpu == c_cpu
+    np.testing.assert_allclose(u_gpu.cpu().numpy(), u_cpu.numpy(),
+                               rtol=0, atol=1e-12)

@@ -64,7 +64,27 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.nonlin.output",
             "russell_tpu_torch.nonlin.solvers",
             "russell_tpu_torch.nonlin.solver",
-            "russell_tpu_torch.nonlin.samples"} <= set(names)
+            "russell_tpu_torch.nonlin.samples",
+            "russell_tpu_torch.core", "russell_tpu_torch.core._place",
+            "russell_tpu_torch.core.check", "russell_tpu_torch.core.enums",
+            "russell_tpu_torch.core.formatters",
+            "russell_tpu_torch.core.generators",
+            "russell_tpu_torch.core.peaks", "russell_tpu_torch.core.read_table",
+            "russell_tpu_torch.core.sort", "russell_tpu_torch.core.stopwatch",
+            "russell_tpu_torch.math._coeffs", "russell_tpu_torch.math.basic",
+            "russell_tpu_torch.math.bessel",
+            "russell_tpu_torch.math.constants",
+            "russell_tpu_torch.math.elliptic",
+            "russell_tpu_torch.math.legendre", "russell_tpu_torch.dense",
+            "russell_tpu_torch.dense.vector_ops",
+            "russell_tpu_torch.dense.matvec_ops",
+            "russell_tpu_torch.dense.matrix_ops",
+            "russell_tpu_torch.algo.stats",
+            "russell_tpu_torch.algo.interp_chebyshev",
+            "russell_tpu_torch.algo.root_finder",
+            "russell_tpu_torch.algo.minimize",
+            "russell_tpu_torch.algo.quadrature",
+            "russell_tpu_torch.algo.newton_solver"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

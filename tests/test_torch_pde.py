@@ -100,6 +100,15 @@ def test_chebyshev_matches_reference():
             want = np.asarray(getattr(jcheb, name)(n, x))
             np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12,
                                        err_msg=f"{name}({n})")
+            # a numpy array or a float goes to the device asked for
+            # (the card by default)
+            got = getattr(pcheb, name)(n, x, device="cpu")
+            assert got.device.type == "cpu"
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                                       atol=1e-12, err_msg=f"{name}({n})")
+            assert float(getattr(pcheb, name)(n, float(x[0]),
+                                              device="cpu")) == \
+                pytest.approx(float(want[0]), rel=1e-12, abs=1e-12)
     for nn in (1, 6, 13):
         assert np.array_equal(pcheb.chebyshev_gauss_points(nn),
                               jcheb.chebyshev_gauss_points(nn))
