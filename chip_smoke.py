@@ -12,7 +12,10 @@ GRIDMF and Radau5 through the DENSE route. The BSR path is the sparse products o
 ``bsr_matmat`` and ``spgemm_plan`` → ``spgemm`` — whose CUDA kernels are
 ``bsr_spmv``, ``bsr_spmm`` and ``spgemm_blocks``, in float64 and
 complex128. The PDE and continuation tools (``russell_tpu_torch.pde``,
-``nonlin``) reach the card through ``LinSolver`` and ``factor``.
+``nonlin``) reach the card through ``LinSolver`` and ``factor``. The
+``stat``, ``tensor``, ``utils`` and CLI layer runs no hand kernel of its
+own; ``bin.brusselator_pde`` at its defaults is the main path (AUTO →
+GRIDMF → ``gj_inv``) through a user's entry point.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ``russell_tpu_torch/csrc``, one
@@ -219,6 +222,36 @@ complex128. The PDE and continuation tools (``russell_tpu_torch.pde``,
    evaluated on LAB_POINTS points against its CPU evaluation, and
    ``RootFinder``, ``MinSolver`` and ``Quadrature`` (host work) with the
    reference's counters. The kernels line gains ``jacobi_eig``.
+25. stat_tensor_path: ``stat``, ``tensor``, the ``bin`` CLIs and ``utils``
+   on the card. Each of the five distributions (parameters with a fourth
+   moment) draws ST_DRAWS f64 values from a seeded ``torch.Generator`` on
+   the card: the same seed again gives the same bits; the sample mean and
+   variance within ST_SE standard errors of ``mean()`` and ``variance()``;
+   the KS statistic of the first ST_KS_N draws against its own ``cdf``
+   under ST_KS_C / sqrt(n); ``pdf`` and ``cdf`` on ST_POINTS points over
+   the quantiles [ST_PDF_Q, 1 - ST_PDF_Q] against ``scipy.stats`` at rtol
+   ST_PDF_RTOL; draws/s, points/s and launches a call; then the draws
+   copied to the host, ``Statistics`` on all of them and ``quartiles``,
+   ``outliers`` and an ST_BINS-bin ``Histogram`` on the first ST_HOST_N,
+   held to numpy. TENSOR_N seeded symmetric tensors (about 4 M Gauss
+   points of a 500 k-hexahedra mesh) through ``torch.func.vmap``:
+   ``LinElasticity.calc_stress``, the invariants, ``deriv1_invariant_lode``,
+   ``deriv2_invariant_jj3``, ``deriv_inverse_tensor``, ``t4_ddot_t4`` of
+   the last two and ``Spectral2(two_dim=True)`` on the Mandel-4 slice
+   (points/s, launches, peak memory), and the 3-D ``Spectral2``, which
+   reads the device, one call at a time on SPECTRAL_3D_N points; each
+   held on TENSOR_SUBSET seeded points to the port's per-point CPU calls
+   (run in TENSOR_CPU_WORKERS processes meanwhile) at TENSOR_RTOL
+   (``tensor_held``). ``bin.brusselator_pde`` at its defaults (its
+   counters equal to phase 20's fused GRIDMF-129 run's, ``gj_inv``
+   launched), ``bin.amplifier1t`` on the card and on the CPU (counters
+   equal), ``bin.mem_check`` on the card (exit 0, no growth of the
+   allocated bytes from the first factorize-and-solve to the second), a
+   ``CheckpointManager`` snapshot every CHECKPOINT_EVERY accepted steps
+   of van der Pol (the last reloads to its step's x, y and h bit for
+   bit), and ``utils.trace`` around a warm GRIDMF-129 factorize pair,
+   whose trace file must hold ``gj_inv``'s kernel. The kernels line's
+   ``gj_inv`` gains the CLI's launches.
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -240,7 +273,9 @@ then the medians, the ratios and the number of calls that pays for one
 layout build. ``--replay [--tree DIR]`` is one such process.
 ``--lin-solver-path`` runs only phase 21 (after the device and build
 phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
-(with its kernels line and the last line). ``--chunk-sweep`` times
+(with its kernels line and the last line), ``--stat-tensor`` only phase
+25 (with the last line; the fused GRIDMF-129 counters from a run of its
+own). ``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -255,6 +290,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4629,6 +4665,546 @@ def pde_entry(pres, name):
     return out
 
 
+# -- phase 25: stat_tensor_path ----------------------------------------------
+
+ST_DRAWS = 1 << 26        # f64 draws a distribution: 512 MiB
+ST_KS_N = 1 << 20         # the first draws, held by the KS statistic
+ST_POINTS = 1 << 24       # pdf and cdf points: 128 MiB a tensor
+ST_HOST_N = 1 << 22       # quartiles, outliers and Histogram: the first draws
+ST_SE = 6.0               # sample moments within this many standard errors
+ST_KS_C = 1.95            # the KS bound 1.95 / sqrt(n) (alpha ~ 0.001)
+ST_PDF_RTOL = 1e-13
+# pdf/cdf points span the quantiles [q, 1 - q]: 0.5 (1 + erf) keeps 1e-13
+# of the cdf's value above it (erf's ulps over 2 q)
+ST_PDF_Q = 0.01
+ST_BINS = 20
+ST_REPS = 5
+TENSOR_N = 1 << 22        # symmetric tensors (Mandel 6): ~4 M Gauss points
+TENSOR_SUBSET = 4096      # held to the port's per-point calls on the CPU
+TENSOR_RTOL = 1e-12
+TENSOR_GAP = 1e-6         # projectors held where the eigen gap > this |T|
+TENSOR_CPU_WORKERS = 4
+TENSOR_REPS = 3           # vmapped calls timed back to back (time_ms)
+SPECTRAL_3D_N = 256       # 3-D Spectral2 one call at a time on the card
+# torch.func.vmap's chunk for Spectral2: torch.linalg.eigh's batched
+# cuSOLVER route (cusolverDnXsyevBatched) refuses batches of 3x3 f64
+# matrices from between 28,672 and 32,766 up (INVALID_VALUE; an H100,
+# torch 2.11+cu128)
+SPECTRAL_CHUNK = 1 << 14
+CHECKPOINT_EVERY = 10
+# the invariants of a Tensor2, and each one's degree in |T| (its scale)
+TENSOR_INVARIANTS = (("trace", 1), ("invariant_ii2", 2), ("invariant_ii3", 3),
+                     ("invariant_jj2", 2), ("invariant_jj3", 3),
+                     ("invariant_sigma_m", 1), ("invariant_sigma_d", 1),
+                     ("invariant_eps_d", 1), ("invariant_lode", 0),
+                     ("octahedral_distance", 1), ("octahedral_radius", 1))
+# Stats.summary's lines -> the Stats fields
+SUMMARY_COUNTERS = {
+    "function evaluations": "n_function", "Jacobian evaluations": "n_jacobian",
+    "factorizations": "n_factor", "lin sys solutions": "n_lin_sol",
+    "performed steps": "n_steps", "accepted steps": "n_accepted",
+    "rejected steps": "n_rejected", "iterations (maximum)": "n_iterations_max",
+    "iterations (last step)": "n_iterations"}
+
+
+def cli_report(text):
+    """What an ODE CLI of either package printed: the Radau5 counters of
+    ``Stats.summary`` (named as the Stats fields), ``h_accepted``, the
+    printed y, the brusselator_pde header line and its ``finite`` flag."""
+    rep = {"counters": {}, "y": [], "head": None, "finite": None,
+           "h_accepted": None, "wall_s": None}
+    for line in text.splitlines():
+        key, _, val = (s.strip() for s in line.partition("="))
+        if key.startswith("Number of "):
+            rep["counters"][SUMMARY_COUNTERS[key[len("Number of "):]]] = \
+                int(val)
+        elif key == "Last accepted/suggested stepsize":
+            rep["h_accepted"] = float(val)
+        elif key.startswith("y["):
+            rep["y"].append(float(val))
+        elif key == "finite":
+            rep["finite"] = val == "True"
+        elif key == "total wall time":
+            rep["wall_s"] = float(val.split()[0])
+        elif line.startswith("brusselator_pde:"):
+            rep["head"] = line
+    return rep
+
+
+def fourth_central(d):
+    """The fourth central moment of distribution ``d`` (either package's)."""
+    name = type(d).__name__
+    var = d.variance()
+    if name == "DistributionNormal":
+        return 3.0 * var ** 2
+    if name == "DistributionUniform":
+        return (d.xmax - d.xmin) ** 4 / 80.0
+    if name == "DistributionGumbel":
+        return 5.4 * var ** 2
+    if name == "DistributionLognormal":
+        s2 = d.sig ** 2
+        return (math.exp(4 * s2) + 2 * math.exp(3 * s2)
+                + 3 * math.exp(2 * s2) - 3.0) * var ** 2
+    g = [math.gamma(1.0 - k / d.shape) for k in range(5)]
+    return d.scale ** 4 * (g[4] - 4 * g[3] * g[1] + 6 * g[2] * g[1] ** 2
+                           - 3 * g[1] ** 4)
+
+
+def st_distributions():
+    """(name, the port's distribution, scipy's) of the phase: parameters
+    with a fourth moment (Frechet shape 6)."""
+    from scipy import stats as ss
+    from russell_tpu_torch import stat
+    return (("frechet", stat.DistributionFrechet(8.782275, 1.0, 6.0),
+             ss.invweibull(6.0, loc=8.782275, scale=1.0)),
+            ("gumbel", stat.DistributionGumbel(1.0, 2.0),
+             ss.gumbel_r(1.0, 2.0)),
+            ("lognormal", stat.DistributionLognormal(0.5, 0.25),
+             ss.lognorm(0.25, scale=math.exp(0.5))),
+            ("normal", stat.DistributionNormal(2.0, 3.0), ss.norm(2.0, 3.0)),
+            ("uniform", stat.DistributionUniform(1.0, 3.0),
+             ss.uniform(1.0, 2.0)))
+
+
+def ks_statistic(d, draws):
+    """The KS statistic of ``draws`` against ``d.cdf``, on their device."""
+    u = d.cdf(torch.sort(draws).values)
+    n = draws.numel()
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=draws.device)
+    return float(torch.maximum((i / n - u).max(), (u - (i - 1) / n).max()))
+
+
+def st_host(d, sd, xh):
+    """Statistics on all copied draws, quartiles, outliers and a
+    ST_BINS-bin Histogram on the first ST_HOST_N, each held to numpy."""
+    from russell_tpu_torch import stat
+    rec = {}
+    t = time.perf_counter()
+    st = stat.Statistics(xh)
+    rec["statistics_s"] = time.perf_counter() - t
+    std = float(np.std(xh, ddof=1))
+    if (st.min != float(xh.min()) or st.max != float(xh.max())
+            or st.mean != float(np.mean(xh))
+            or abs(st.std_dev - std) > 1e-12 * std):
+        raise AssertionError(f"Statistics {st} off numpy's (std {std})")
+    x = xh[:ST_HOST_N]
+    t = time.perf_counter()
+    q = stat.quartiles(x)
+    out = stat.outliers(x)
+    h = stat.Histogram(np.linspace(sd.ppf(ST_PDF_Q), sd.ppf(1 - ST_PDF_Q),
+                                   ST_BINS + 1))
+    h.count(x)
+    text = h.draw()
+    rec["host_s"] = time.perf_counter() - t
+    nq = np.quantile(x, [0.25, 0.5, 0.75])
+    lo = nq[0] - 1.5 * (nq[2] - nq[0])
+    hi = nq[2] + 1.5 * (nq[2] - nq[0])
+    s = h.stations
+    want = np.histogram(x[(x >= s[0]) & (x < s[-1])], s)[0]
+    idx = np.array([i for i, _ in out], dtype=np.int64)
+    vals = np.array([v for _, v in out])
+    if (np.abs(np.array(q) - nq).max() > 1e-12 * max(np.abs(nq).max(), 1.0)
+            or len(out) != int(np.count_nonzero((x < lo) | (x > hi)))
+            or not np.array_equal(x[idx], vals)
+            or not np.all(np.diff(vals) >= 0)
+            or not np.array_equal(h.get_counts(), want)
+            or len(text.splitlines()) != ST_BINS):
+        raise AssertionError("quartiles, outliers or Histogram off numpy's")
+    rec.update(quartiles=list(q), n_outliers=len(out))
+    return rec
+
+
+def launch_count(fn, tries=3):
+    """The device launches of one call of ``fn`` under the profiler, which
+    now and then reports none for a call: retried up to ``tries`` times
+    while it reads 0. Late in a whole smoke it also reports some calls'
+    events only in part; the ``--stat-tensor`` run alone gives whole
+    counts."""
+    for _ in range(tries):
+        n = kernel_device_ms(fn)[2]
+        if n:
+            return n
+    return n
+
+
+def st_distribution(i, name, d, sd):
+    """One distribution of the phase (the module docstring's item 25)."""
+    n = ST_DRAWS
+    g = torch.Generator("cuda")
+    g.manual_seed(SEED + i)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x = d.sample(g, n)
+    torch.cuda.synchronize()
+    rec = {"distribution": name, "draws": n,
+           "first_draw_wall_s": time.perf_counter() - t}
+    if x.dtype != torch.float64 or x.shape != (n,) or x.device.type != "cuda":
+        raise AssertionError(f"{name}: draws {x.dtype} {x.shape} {x.device}")
+    g.manual_seed(SEED + i)
+    same = bool(torch.equal(d.sample(g, n), x))
+    mean, var = float(x.mean()), float(x.var())
+    mu, sig2 = d.mean(), d.variance()
+    mean_z = (mean - mu) / np.sqrt(sig2 / n)
+    var_z = (var - sig2) / np.sqrt((fourth_central(d) - sig2 ** 2) / n)
+    ks = ks_statistic(d, x[:ST_KS_N])
+    pts = torch.linspace(sd.ppf(ST_PDF_Q), sd.ppf(1 - ST_PDF_Q), ST_POINTS,
+                         dtype=torch.float64, device="cuda")
+    ph = pts.cpu().numpy()
+    errs = {}
+    for f in ("pdf", "cdf"):
+        got = getattr(d, f)(pts).cpu().numpy()
+        want = getattr(sd, f)(ph)
+        errs[f] = float(np.max(np.abs(got - want) / np.abs(want)))
+    sample_ms = time_ms(lambda: d.sample(g, n), reps=ST_REPS)
+    pdf_ms = time_ms(lambda: d.pdf(pts), reps=ST_REPS)
+    cdf_ms = time_ms(lambda: d.cdf(pts), reps=ST_REPS)
+    launches = {f: launch_count(fn) for f, fn in (
+        ("sample", lambda: d.sample(g, n)), ("pdf", lambda: d.pdf(pts)),
+        ("cdf", lambda: d.cdf(pts)))}
+    t = time.perf_counter()
+    xh = x.cpu().numpy()
+    rec["copy_s"] = time.perf_counter() - t
+    rec.update(same_seed_bit_identical=same, mean=mean, variance=var,
+               mean_z=mean_z, variance_z=var_z, ks=ks,
+               ks_bound=ST_KS_C / np.sqrt(ST_KS_N),
+               pdf_max_rel_err=errs["pdf"], cdf_max_rel_err=errs["cdf"],
+               sample_ms=sample_ms, draws_per_s=n / sample_ms * 1e3,
+               pdf_ms=pdf_ms, cdf_ms=cdf_ms,
+               pdf_points_per_s=ST_POINTS / pdf_ms * 1e3,
+               cdf_points_per_s=ST_POINTS / cdf_ms * 1e3,
+               launches_a_call=launches)
+    del x, pts
+    rec.update(st_host(d, sd, xh))
+    say("stat_tensor_path", part="stat", **rec)
+    if not (same and abs(mean_z) < ST_SE and abs(var_z) < ST_SE
+            and ks < rec["ks_bound"] and errs["pdf"] <= ST_PDF_RTOL
+            and errs["cdf"] <= ST_PDF_RTOL):
+        raise AssertionError(f"{name}: draws or pdf/cdf off: {rec}")
+    return rec
+
+
+def tensor_fns(dev):
+    """The phase's tensor functions of one Mandel-6 vector x on ``dev``,
+    each returning one tensor: LinElasticity.calc_stress, the invariants
+    (stacked), deriv1_invariant_lode, deriv2_invariant_jj3,
+    deriv_inverse_tensor, and Spectral2(two_dim=True) of x's Mandel-4
+    slice (eigenvalues, then the three projectors)."""
+    from russell_tpu_torch import tensor as pt
+    le = pt.LinElasticity(210e3, 0.3, device=dev)
+    m6, m4 = pt.Mandel.SYMMETRIC, pt.Mandel.SYMMETRIC_2D
+
+    def spectral_2d(x):
+        sp = pt.Spectral2(True, dev).decompose(pt.Tensor2(m4, x[:4]))
+        return torch.cat([sp.lambdas] + [p.vec for p in sp.projectors])
+
+    return {
+        "calc_stress": lambda x: le.calc_stress(pt.Tensor2(m6, x)).vec,
+        "invariants": lambda x: torch.stack([
+            getattr(pt.Tensor2(m6, x), f)() for f, _ in TENSOR_INVARIANTS]),
+        "deriv1_invariant_lode": lambda x: pt.deriv1_invariant_lode(
+            pt.Tensor2(m6, x)).vec,
+        "deriv2_invariant_jj3": lambda x: pt.deriv2_invariant_jj3(
+            pt.Tensor2(m6, x)).mat,
+        "deriv_inverse_tensor": lambda x: pt.deriv_inverse_tensor(
+            pt.Tensor2(m6, x)).mat,
+        "spectral2_2d": spectral_2d,
+    }
+
+
+def t4_ddot_t4_fn(a, b):
+    from russell_tpu_torch import tensor as pt
+    m6 = pt.Mandel.SYMMETRIC
+    return pt.t4_ddot_t4(1.0, pt.Tensor4(m6, a), pt.Tensor4(m6, b)).mat
+
+
+def spectral_3d(x, dev):
+    """Spectral2 (3-D) of one Mandel-6 vector: eigenvalues and projectors."""
+    from russell_tpu_torch import tensor as pt
+    sp = pt.Spectral2(device=dev).decompose(pt.Tensor2(pt.Mandel.SYMMETRIC,
+                                                       x))
+    return torch.cat([sp.lambdas] + [p.vec for p in sp.projectors])
+
+
+def tensor_cpu_points(xs):
+    """The port's per-point CPU calls of the phase's tensor functions on the
+    rows of ``xs`` (numpy), one thread: {name: stacked numpy results}, with
+    t4_ddot_t4 of each point's deriv2_invariant_jj3 and
+    deriv_inverse_tensor, and the 3-D Spectral2 of the rows below
+    SPECTRAL_3D_N (every row: the caller keeps the first). Run in worker
+    processes beside the card's work."""
+    torch.set_num_threads(1)
+    fns = tensor_fns("cpu")
+    out = {k: [] for k in (*fns, "t4_ddot_t4", "spectral2_3d")}
+    for r, x in enumerate(torch.as_tensor(xs)):
+        res = {k: f(x) for k, f in fns.items()}
+        res["t4_ddot_t4"] = t4_ddot_t4_fn(res["deriv2_invariant_jj3"],
+                                          res["deriv_inverse_tensor"])
+        for k, v in res.items():
+            out[k].append(v.numpy())
+        out["spectral2_3d"].append(spectral_3d(x, "cpu").numpy())
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def tensor_held(name, got, want, xs):
+    """The largest error of ``got`` (card, the subset's rows) against
+    ``want`` (the per-point CPU calls) over the subset, each point's
+    relative to its result's largest entry; for the invariants, each
+    relative to |T|^degree; for the eigen results, to |T| (the projectors'
+    entries to 1) where each eigenvalue's gap to the others exceeds
+    TENSOR_GAP |T|. Raises above TENSOR_RTOL."""
+    norm = np.linalg.norm(xs[:, :4] if name == "spectral2_2d" else xs,
+                          axis=1)
+    got = got.reshape(len(xs), -1)
+    want = want.reshape(len(xs), -1)
+    if name == "invariants":
+        deg = np.array([p for _, p in TENSOR_INVARIANTS])
+        scale = norm[:, None] ** deg[None, :]
+    elif name.startswith("spectral2"):
+        lam = want[:, :3]
+        gap = np.stack([np.min(np.abs(lam[:, [j]] - lam[:, [k for k in range(
+            3) if k != j]]), axis=1) for j in range(3)], axis=1)
+        ok = gap > TENSOR_GAP * norm[:, None]
+        dim = (want.shape[1] - 3) // 3
+        keep = np.concatenate([np.ones((len(xs), 3), bool),
+                               np.repeat(ok, dim, axis=1)], axis=1)
+        scale = np.concatenate([np.repeat(norm[:, None], 3, axis=1),
+                                np.ones((len(xs), 3 * dim))], axis=1)
+        got, want = np.where(keep, got, 0.0), np.where(keep, want, 0.0)
+    else:
+        scale = np.maximum(np.abs(want).max(axis=1, keepdims=True), 1e-300)
+    err = float(np.max(np.abs(got - want) / scale))
+    if not err <= TENSOR_RTOL:
+        raise AssertionError(f"{name}: the card's vmapped results are "
+                             f"{err} off the per-point CPU calls")
+    return err
+
+
+def tensor_inputs():
+    """TENSOR_N seeded symmetric tensors (Mandel 6) on the card, the sorted
+    seeded subset's indices and its rows on the host."""
+    g = torch.Generator("cuda")
+    g.manual_seed(SEED)
+    V = torch.randn((TENSOR_N, 6), generator=g, dtype=torch.float64,
+                    device="cuda")
+    idx = np.sort(np.random.default_rng(SEED).choice(TENSOR_N, TENSOR_SUBSET,
+                                                     replace=False))
+    return V, idx, V[torch.as_tensor(idx, device="cuda")].cpu().numpy()
+
+
+def tensor_part(V, idx, xs, cpu):
+    """``V`` through torch.func.vmap on the card, each result held on the
+    subset ``idx`` (rows ``xs``) to the port's per-point CPU calls
+    (``cpu``, an AsyncResult of tensor_cpu_points over chunks of ``xs``);
+    then 3-D Spectral2 one call at a time."""
+    fns = tensor_fns("cuda")
+    recs, outs = {}, {}
+
+    def run(name, fn, *args):
+        vfn = torch.func.vmap(fn, chunk_size=(
+            SPECTRAL_CHUNK if name == "spectral2_2d" else None))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = vfn(*args)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        device_ms = time_ms(lambda: vfn(*args), reps=TENSOR_REPS, warmup=1)
+        launches = launch_count(lambda: vfn(*args))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs[name] = vfn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        recs[name] = {"first_wall_s": first, "wall_s": wall,
+                      "device_ms": device_ms, "launches": launches,
+                      "points_per_s": TENSOR_N / device_ms * 1e3,
+                      "points_per_s_wall": TENSOR_N / wall,
+                      "peak_bytes_above_inputs": peak,
+                      "out_bytes": outs[name].numel() * 8}
+
+    for name, fn in fns.items():
+        run(name, fn, V)
+    run("t4_ddot_t4", t4_ddot_t4_fn, outs["deriv2_invariant_jj3"],
+        outs["deriv_inverse_tensor"])
+    # 3-D Spectral2 reads the device in from_matrix: one call at a time
+    rows = V[torch.as_tensor(idx[:SPECTRAL_3D_N], device="cuda")]
+    spectral_3d(rows[0], "cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s3 = torch.stack([spectral_3d(x, "cuda") for x in rows])
+    torch.cuda.synchronize()
+    s3_wall = time.perf_counter() - t
+    s3_launches = launch_count(lambda: spectral_3d(rows[0], "cuda"))
+    t = time.perf_counter()
+    parts = cpu.get()
+    wait_s = time.perf_counter() - t
+    want = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    sel = torch.as_tensor(idx, device="cuda")
+    for name, out in outs.items():
+        recs[name]["max_rel_err_vs_cpu"] = tensor_held(
+            name, out[sel].cpu().numpy(), want[name], xs)
+    recs["spectral2_3d"] = {
+        "calls": SPECTRAL_3D_N, "wall_s": s3_wall,
+        "calls_per_s": SPECTRAL_3D_N / s3_wall, "launches": s3_launches,
+        "max_rel_err_vs_cpu": tensor_held(
+            "spectral2_3d", s3.cpu().numpy(),
+            want["spectral2_3d"][:SPECTRAL_3D_N], xs[:SPECTRAL_3D_N])}
+    del outs
+    torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        say("stat_tensor_path", part="tensor", function=name, points=(
+            TENSOR_N if name != "spectral2_3d" else SPECTRAL_3D_N), **rec)
+    return {"functions": recs, "cpu_wait_s": wait_s}
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output captured: (rc, text, wall)."""
+    import io
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t
+
+
+def gridmf_129_counters():
+    """The fused GRIDMF-129 run's counters, as phase 20 records them."""
+    from russell_tpu_torch.ode import Method, Params, samples
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    return fused_runs(params, system, y0, t0, 1.0, 0)[0]["counters"]
+
+
+def cli_part(gridmf_counters):
+    """The three CLIs on the card, a checkpointed van der Pol run and a
+    trace of a warm GRIDMF factorize pair."""
+    from russell_tpu_torch.bin import amplifier1t, brusselator_pde, mem_check
+    from russell_tpu_torch.ode import (Method, OdeSolver, Output, Params,
+                                       samples)
+    from russell_tpu_torch.sparse import factor
+    from russell_tpu_torch.utils import CheckpointManager, trace
+    res = {}
+    reset_launch_counts()
+    rc, text, wall = run_cli(brusselator_pde.main, [])
+    rep = cli_report(text)
+    res["brusselator_pde"] = {
+        "rc": rc, "wall_s": wall, "integration_wall_s": rep["wall_s"],
+        "counters": rep["counters"], "y0": rep["y"][0],
+        "finite": rep["finite"], "gj_inv_launches": gj_inv_launches()}
+    say("stat_tensor_path", part="cli", cli="brusselator_pde",
+        **res["brusselator_pde"])
+    if (rc != 0 or rep["counters"] != gridmf_counters or not rep["finite"]
+            or gj_inv_launches() <= 0):
+        raise AssertionError(f"bin.brusselator_pde: {rep} (fused GRIDMF-129 "
+                             f"counters {gridmf_counters})")
+    rc, text, wall = run_cli(amplifier1t.main, [])
+    rc_cpu, text_cpu, wall_cpu = run_cli(amplifier1t.main,
+                                         ["--device", "cpu"])
+    rep, rep_cpu = cli_report(text), cli_report(text_cpu)
+    y_err = float(np.max(np.abs(np.array(rep["y"]) - rep_cpu["y"])
+                         / np.abs(rep_cpu["y"])))
+    res["amplifier1t"] = {"rc": rc, "wall_s": wall, "cpu_wall_s": wall_cpu,
+                          "counters": rep["counters"],
+                          "y_max_rel_diff_vs_cpu": y_err}
+    say("stat_tensor_path", part="cli", cli="amplifier1t",
+        **res["amplifier1t"])
+    if rc != 0 or rc_cpu != 0 or rep["counters"] != rep_cpu["counters"]:
+        raise AssertionError(f"bin.amplifier1t on the card {rep} != on the "
+                             f"CPU {rep_cpu}")
+    rc, text, wall = run_cli(mem_check.main, [])
+    lines = [ln for ln in text.splitlines() if "allocated=" in ln]
+    res["mem_check"] = {"rc": rc, "wall_s": wall, "cases": len(lines),
+                        "allocated": [ln.split("allocated=")[1]
+                                      for ln in lines]}
+    say("stat_tensor_path", part="cli", cli="mem_check", **res["mem_check"])
+    if rc != 0 or len(lines) != 21:
+        raise AssertionError(f"bin.mem_check on the card:\n{text}")
+    # a checkpoint every CHECKPOINT_EVERY accepted steps of van der Pol
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "stat_tensor_path")
+    ck = CheckpointManager(os.path.join(out_dir, "van_der_pol.npz"))
+    inner = ck.as_step_callback(CHECKPOINT_EVERY)
+    seen = []
+
+    def cb(stats, h, x, y, args):
+        seen.append((x, np.array(y), h))
+        return inner(stats, h, x, y, args)
+
+    system, x0, y0, x1, _ = samples.van_der_pol(1e-6, False)
+    params = Params(Method.RADAU5)
+    params.step.h_ini = 1e-6
+    t = time.perf_counter()
+    OdeSolver(params, system, "cuda").solve(
+        y0, x0, x1, output=Output().set_step_callback(cb))
+    wall = time.perf_counter() - t
+    x, y, h, meta = ck.load()
+    last = seen[len(seen) // CHECKPOINT_EVERY * CHECKPOINT_EVERY - 1]
+    same = x == last[0] and h == last[2] and np.array_equal(y, last[1])
+    res["checkpoint"] = {"accepted_steps": len(seen), "wall_s": wall,
+                         "snapshots": len(seen) // CHECKPOINT_EVERY,
+                         "last_snapshot_x": x, "bit_identical": bool(same)}
+    say("stat_tensor_path", part="checkpoint", **res["checkpoint"])
+    if not same:
+        raise AssertionError("checkpoint: the last snapshot is not the step's "
+                             f"(x, y, h): {(x, y, h)} != {last}")
+    # a trace around one warm GRIDMF-129 factorize pair
+    plan, vr, vc, _ = gridmf_setup(NPOINT)
+    factor.numeric_factorize_pair(plan, vr, vc)
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(out_dir, "trace")
+    if os.path.isdir(trace_dir):
+        for f in os.listdir(trace_dir):
+            os.remove(os.path.join(trace_dir, f))
+    with trace(trace_dir) as prof:
+        factor.numeric_factorize_pair(plan, vr, vc)
+        torch.cuda.synchronize()
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    gj = [e for e in events if e.get("cat") == "kernel"
+          and "gj_inv" in str(e.get("name"))]
+    res["trace"] = {"files": len(files), "bytes": os.path.getsize(files[0]),
+                    "gj_inv_kernel_events": len(gj),
+                    "kernel_events": sum(e.get("cat") == "kernel"
+                                         for e in events),
+                    "profiler_device_ms": sum(
+                        e.self_device_time_total
+                        for e in prof.key_averages()) / 1e3}
+    say("stat_tensor_path", part="trace", **res["trace"])
+    if len(files) != 1 or not gj:
+        raise AssertionError("trace: no gj_inv kernel in the trace file")
+    return res
+
+
+def phase_stat_tensor_path(gridmf_counters=None):
+    """Phase 25: stat, tensor, the CLIs and utils on the card (the module
+    docstring's item 25). ``gridmf_counters`` are phase 20's fused
+    GRIDMF-129 counters (run here when None). Returns the records; the
+    kernels line takes the CLI's gj_inv launches."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    if gridmf_counters is None:
+        gridmf_counters = gridmf_129_counters()
+    res = {}
+    V, idx, xs = tensor_inputs()
+    with multiprocessing.get_context("spawn").Pool(TENSOR_CPU_WORKERS) as pool:
+        cpu = pool.map_async(tensor_cpu_points,
+                             np.array_split(xs, TENSOR_CPU_WORKERS))
+        res["stat"] = [st_distribution(i, *d)
+                       for i, d in enumerate(st_distributions())]
+        res["tensor"] = tensor_part(V, idx, xs, cpu)
+    del V
+    torch.cuda.empty_cache()
+    res["cli"] = cli_part(gridmf_counters)
+    say("stat_tensor_path", part="done", wall_s=time.perf_counter() - t0,
+        tensor_cpu_wait_s=res["tensor"]["cpu_wait_s"])
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -4676,6 +5252,7 @@ def main():
     pres = phase_pde_path()
     phase_nonlin_path()
     labres = phase_lab_path()
+    stres = phase_stat_tensor_path(fres["gridmf_129"]["counters"])
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -4748,6 +5325,11 @@ def main():
             "genmf_264k_shapes_logdet_max_rel_err": lres["genmf_264k"][
                 "gj_inv_shapes_logdet_max_rel_err"]},
         "pde_path": pde_entry(pres, "gj_inv"),
+        "stat_tensor_path": {
+            "brusselator_pde_cli_launches": stres["cli"]["brusselator_pde"][
+                "gj_inv_launches"],
+            "trace_kernel_events": stres["cli"]["trace"][
+                "gj_inv_kernel_events"]},
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -5020,6 +5602,13 @@ if __name__ == "__main__":
         phase_build()
         phase_pde_path()
         phase_nonlin_path()
+    elif "--stat-tensor" in sys.argv:
+        phase_device()
+        phase_build()
+        phase_stat_tensor_path()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
     elif "--lab" in sys.argv:
         phase_device()
         phase_build()

@@ -7,8 +7,9 @@ counterpart is found under the same path.
 
 The port goes slice by slice (ROADMAP.md). So far: the ``russell_lab``
 layer (core, math, dense, algo), the ODE solver surface, the sparse
-formats, solvers and BSR products, and the PDE and continuation tools on
-them:
+formats, solvers and BSR products, the PDE and continuation tools on
+them, statistics, tensor calculus, checkpoints and profiling, and the
+CLIs:
 
 - ``ode``    : OdeSolver with every method (Radau5, forward and backward
                Euler, the 13 explicit Runge-Kutta tableaux), Output with
@@ -37,12 +38,20 @@ them:
                CUDA kernel
 - ``algo``   : interpolation, root finding, minimization, quadrature, the
                dense Newton solver, B-splines and the test functions
-- ``bin``    : the ``solve_matrix_market`` CLI
+- ``stat``   : probability distributions (pdf/cdf on the device, sampling
+               from an explicit ``torch.Generator``), descriptive
+               statistics, quantiles, outliers, the text histogram
+- ``tensor`` : Tensor2/Tensor4 in the Mandel basis, their operations,
+               invariants and derivatives, linear elasticity, the
+               spectral decomposition; batched under ``torch.func.vmap``
+- ``utils``  : checkpoint/resume snapshots and ``torch.profiler`` traces
+- ``bin``    : the ``solve_matrix_market``, ``brusselator_pde``,
+               ``amplifier1t`` and ``mem_check`` CLIs
 - ``native`` : the host C++ symbolic engine (orderings, block fill)
 - ``csrc``   : the CUDA kernels, built with nvcc at first use
-- ``interop``: plans, factors, BSR matrices, SpGEMM plans and
-               continuation configurations and outputs to and from
-               ``russell_tpu``'s
+- ``interop``: plans, factors, BSR matrices, SpGEMM plans,
+               continuation configurations and outputs, tensors and
+               distributions to and from ``russell_tpu``'s
 
 Tensors are f64/complex128 and live on an explicit ``device``: the card
 ("cuda") unless the caller asks for the CPU. In ``core``, ``math``,

@@ -30,6 +30,12 @@ field by field (``nonlin_config_from_reference``), its enums mapped by
 name, and either package's ``nonlin.Output`` records read as numpy arrays
 (``output_to_numpy``), so that both solvers run one configuration and
 their outputs compare step by step.
+
+A ``Tensor2`` or ``Tensor4`` of the reference package becomes this
+package's (``tensor2_from``, ``tensor4_from``: the Mandel basis by name,
+``vec`` or ``mat`` as numpy onto ``device``), and a distribution of its
+``stat`` becomes this package's by its class name and parameters
+(``distribution_from``).
 """
 
 from __future__ import annotations
@@ -47,12 +53,15 @@ from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
                                               bsr_from_arrays)
 from russell_tpu_torch.sparse.genmf import GenMfPlan, _GClass, _GLink
 from russell_tpu_torch.sparse.splu import SpluPlan
+from russell_tpu_torch import stat
+from russell_tpu_torch.tensor import Mandel, Tensor2, Tensor4
 
 __all__ = ["splu_plan_from", "splu_plan_fields", "factor_to_torch",
            "factor_to_numpy", "dense_factor_to_torch", "dense_factor_to_numpy",
            "genmf_plan_fields", "genmf_plan_from", "tree_to_torch",
            "tree_to_numpy", "bsr_fields", "bsr_from", "spgemm_plan_from",
-           "nonlin_config_from_reference", "output_to_numpy"]
+           "nonlin_config_from_reference", "output_to_numpy",
+           "tensor2_from", "tensor4_from", "distribution_from"]
 
 
 def splu_plan_fields(plan) -> dict:
@@ -256,3 +265,33 @@ def output_to_numpy(out) -> dict:
             "step_l": np.asarray(out.step_l, dtype=np.float64),
             "step_u": {m: np.asarray(out.step_u(m), dtype=np.float64)
                        for m in sorted(out._step_u)}}
+
+
+def tensor2_from(t, device="cuda") -> Tensor2:
+    """This package's ``Tensor2`` of either package's ``t``: its Mandel
+    basis by name, its ``vec`` as numpy onto ``device``."""
+    return Tensor2(Mandel[t.mandel.name], _host(t.vec), device)
+
+
+def tensor4_from(t, device="cuda") -> Tensor4:
+    """This package's ``Tensor4`` of either package's ``t``: its Mandel
+    basis by name, its ``mat`` as numpy onto ``device``."""
+    return Tensor4(Mandel[t.mandel.name], _host(t.mat), device)
+
+
+# each distribution's constructor arguments, as its attributes name them
+_DISTRIBUTION_PARAMS = {
+    "DistributionFrechet": ("location", "scale", "shape"),
+    "DistributionGumbel": ("location", "scale"),
+    "DistributionLognormal": ("mu", "sig"),
+    "DistributionNormal": ("mu", "sig"),
+    "DistributionUniform": ("xmin", "xmax"),
+}
+
+
+def distribution_from(d) -> stat.ProbabilityDistribution:
+    """This package's distribution of either package's ``d``: the class of
+    the same name, built from ``d``'s parameters (host floats)."""
+    name = type(d).__name__
+    return getattr(stat, name)(*(float(getattr(d, a))
+                                 for a in _DISTRIBUTION_PARAMS[name]))

@@ -1220,3 +1220,43 @@ def test_newton_solver_on_card_matches_cpu(cuda):
     assert c_gpu == c_cpu
     np.testing.assert_allclose(u_gpu.cpu().numpy(), u_cpu.numpy(),
                                rtol=0, atol=1e-12)
+
+
+def test_sampling_on_card_repeats_from_a_seed(cuda):
+    """The same seed on the card twice gives the same draws, on the card,
+    within their distribution's range."""
+    from russell_tpu_torch.stat import (DistributionFrechet,
+                                        DistributionGumbel,
+                                        DistributionLognormal,
+                                        DistributionNormal,
+                                        DistributionUniform)
+    for d in (DistributionFrechet(8.782275, 1.0, 6.0),
+              DistributionGumbel(1.0, 2.0), DistributionLognormal(0.5, 0.25),
+              DistributionNormal(2.0, 3.0), DistributionUniform(1.0, 3.0)):
+        g = torch.Generator("cuda")
+        g.manual_seed(5)
+        a = d.sample(g, 1 << 16)
+        g.manual_seed(5)
+        b = d.sample(g, 1 << 16)
+        assert a.device.type == "cuda" and a.dtype == torch.float64
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+        se = (d.variance() / a.numel()) ** 0.5
+        assert abs(float(a.mean()) - d.mean()) < 6 * se
+
+
+def test_vmapped_calc_stress_on_card_matches_cpu(cuda):
+    """LinElasticity.calc_stress under torch.func.vmap on the card equals
+    the CPU's at rtol 1e-13."""
+    from russell_tpu_torch.tensor import LinElasticity, Mandel, Tensor2
+    eps = np.random.default_rng(9).standard_normal((4096, 6)) * 1e-3
+
+    def stress(dev):
+        le = LinElasticity(210e3, 0.3, device=dev)
+        return torch.func.vmap(lambda x: le.calc_stress(
+            Tensor2(Mandel.SYMMETRIC, x)).vec)(torch.as_tensor(eps,
+                                                               device=dev))
+
+    got = stress(cuda)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), stress("cpu").numpy(),
+                               rtol=1e-13, atol=0)

@@ -84,7 +84,22 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.algo.root_finder",
             "russell_tpu_torch.algo.minimize",
             "russell_tpu_torch.algo.quadrature",
-            "russell_tpu_torch.algo.newton_solver"} <= set(names)
+            "russell_tpu_torch.algo.newton_solver",
+            "russell_tpu_torch.stat", "russell_tpu_torch.stat.distributions",
+            "russell_tpu_torch.stat.statistics",
+            "russell_tpu_torch.stat.histogram", "russell_tpu_torch.tensor",
+            "russell_tpu_torch.tensor.enums",
+            "russell_tpu_torch.tensor.tensor2",
+            "russell_tpu_torch.tensor.tensor4",
+            "russell_tpu_torch.tensor.operations",
+            "russell_tpu_torch.tensor.derivatives",
+            "russell_tpu_torch.tensor.lin_elasticity",
+            "russell_tpu_torch.tensor.spectral2", "russell_tpu_torch.utils",
+            "russell_tpu_torch.utils.checkpoint",
+            "russell_tpu_torch.utils.profiling",
+            "russell_tpu_torch.bin.brusselator_pde",
+            "russell_tpu_torch.bin.amplifier1t",
+            "russell_tpu_torch.bin.mem_check"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
