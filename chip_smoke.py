@@ -252,6 +252,26 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    bit), and ``utils.trace`` around a warm GRIDMF-129 factorize pair,
    whose trace file must hold ``gj_inv``'s kernel. The kernels line's
    ``gj_inv`` gains the CLI's launches.
+26. parallel_path: ``russell_tpu_torch.parallel`` on the card. (a) A world
+   of one rank under NCCL in this process (a file store in a temporary
+   directory, left at the end): ``dist_gridmf_*`` on gamma M - J of the
+   npoint-513 Brusselator, ``dist_splu_factorize`` on the npoint-129 SPLU
+   plan, ``dist_genmf_*`` on geometric_264k, ``shard_banded_*`` on
+   laplacian_2d_317 (BCR), ``dist_mat_vec_mul`` on the npoint-513
+   Jacobian and ``batch_factor_solve`` of PAR_BATCH shifts gamma_i M - J
+   at npoint 129 (AUTO's GRIDMF plan), each held bit for bit to the same
+   call on one device (factors depth by depth, x, the statistics), with
+   both calls' walls, device ms, device launches and the SPLU kernels' and
+   ``gj_inv``'s launches. (b) PAR_RANKS ranks spawned on the one card
+   under gloo (NCCL refuses two ranks on one card), each running
+   ``dist_gridmf`` at npoint 129, ``dist_splu`` at 65, ``dist_genmf`` on
+   laplacian_3d_50, BCR on laplacian_2d_317, the SpMV at 513 and the batch
+   at 65, cold then warm, and writing its results: held to this process's
+   single-device results (factors within PAR_FAC_TOL (1 + max), absolute
+   residual under PAR_RES_TOL, log|det| within PAR_LOGDET_TOL), each
+   kernel of a check launched on every rank; a rank that raises or runs
+   past PAR_RANK_TIMEOUT_S fails the phase. The kernels line's
+   ``splu_pairs``, ``gather_rows`` and ``gj_inv`` gain the launches.
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -275,7 +295,7 @@ layout build. ``--replay [--tree DIR]`` is one such process.
 phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
 (with its kernels line and the last line), ``--stat-tensor`` only phase
 25 (with the last line; the fused GRIDMF-129 counters from a run of its
-own). ``--chunk-sweep`` times
+own), ``--parallel`` only phase 26 (with the last line). ``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -487,10 +507,7 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false: "
                          "this smoke run needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -2993,6 +3010,7 @@ def ls_genmf(res):
     if counts["gj_inv"] <= 0:
         raise AssertionError("GENMF 264k: gj_inv was not launched")
     gp = s.plan.genmf_plan
+    SHARED_PLANS["geometric_264k"] = s.plan
     rec = {"matrix": "geometric_264k", "n": n, "nnz": int(len(ii)),
            "solver": s.stats.main["solver"], **auto_rec,
            **gp.stats_dict(),
@@ -5205,6 +5223,623 @@ def phase_stat_tensor_path(gridmf_counters=None):
     return res
 
 
+# -- parallel_path -------------------------------------------------------------
+
+PAR_RANKS = 4             # part (b): ranks on the one card, under gloo
+PAR_RANK_TIMEOUT_S = 600  # part (b) fails when a rank runs longer
+PAR_BATCH = 32            # systems of batch_factor_solve
+PAR_FAC_TOL = 1e-12       # part (b): factors within this x (1 + max|.|)
+PAR_RES_TOL = 1e-9        # part (b): absolute residual max|A x - b|
+PAR_LOGDET_TOL = 1e-8     # part (b): log|det|
+PAR_STATS = ("logdet", "min_pivot", "n_perturbed", "phase")
+# host plans that two phases of one smoke share: lin_solver_path keeps its
+# geometric_264k SolvePlan here for parallel_path
+SHARED_PLANS: dict = {}
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bit_equal(name, a, b):
+    """Require ``a`` and ``b`` (tensors, numbers, None, or dicts and lists
+    of them) to hold the same bits, dict keys of ``a`` only."""
+    if isinstance(a, dict):
+        for k, v in a.items():
+            bit_equal(f"{name}.{k}", v, b[k])
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{name}: {len(a)} items against {len(b)}")
+        for i, (u, v) in enumerate(zip(a, b)):
+            bit_equal(f"{name}[{i}]", u, v)
+    elif torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b)):
+            raise AssertionError(f"{name}: not bit for bit equal")
+    elif a != b:
+        raise AssertionError(f"{name}: {a} != {b}")
+
+
+def fac_stats(fac):
+    return {k: fac[k] for k in PAR_STATS if k in fac}
+
+
+def timed_run(fn, reps=None):
+    """A first call of ``fn`` (its result kept; its wall, with the plan's
+    uploads and caches, and the SPLU kernels' and gj_inv's launches
+    counted from 0), then a warm one under the profiler: device ms summed
+    over its kernels, device launches and its wall. With ``reps`` the
+    device ms are ``time_ms``'s instead (CUDA events around ``reps`` calls
+    back to back), for calls too short for the profiler to keep."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = kernel_counts()
+    by_name, wall, events = kernel_device_ms(fn)
+    device_ms = time_ms(fn, reps) if reps else sum(by_name.values())
+    return out, {"first_call_s": first, "warm_wall_s": wall,
+                 "device_ms": device_ms, "device_launches": events,
+                 "launches": launches}
+
+
+def par_world1_check(name, single, dist_fn, compare, smi, reps=None):
+    """Part (a): ``dist_fn`` (the parallel call in the world of one) and
+    ``single`` (the same call on one device), each timed (``timed_run``);
+    ``compare`` holds them (bit for bit). Returns the record."""
+    s_out, s_rec = timed_run(single, reps)
+    d_out, d_rec = timed_run(dist_fn, reps)
+    extra = compare(s_out, d_out) or {}
+    del s_out, d_out
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    rec = {"check": name, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "single": s_rec,
+           "dist": d_rec, "bit_for_bit": True, "card": smi, **extra}
+    say("parallel_path", part="world_1", **rec)
+    return rec
+
+
+def gridmf_fac_equal(name, gp, single, dist_):
+    """Hold a split GRIDMF or GENMF fac to the single one bit for bit, one
+    depth at a time, freeing the single one's depth after its check."""
+    key = "levels" if "levels" in single else "classes"
+    for d, (s, t) in enumerate(zip(single[key], dist_[key])):
+        bit_equal(f"{name} {key}[{d}]", s, t)
+        single[key][d] = None
+    bit_equal(f"{name} stats", fac_stats(single), fac_stats(dist_))
+
+
+def par_world1(smi):
+    """Part (a): a world of one rank under NCCL in this process (a file
+    store in a temporary directory), every call at full width held bit for
+    bit to the same call on one device."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from russell_tpu_torch import parallel as par
+    from russell_tpu_torch.sparse import (CsrMatrix, Genie, factor, genmf,
+                                          gridmf, samples, splu)
+    tmp = tempfile.mkdtemp(prefix="parallel_path_")
+    recs = []
+    par.initialize_multihost(init_method=f"file://{tmp}/store",
+                             num_processes=1, process_id=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world of one on {dist.get_backend()}")
+        mesh = par.make_mesh()
+
+        # GRIDMF on gamma M - J of the npoint-513 Brusselator
+        plan, vr, _, analyze_s = gridmf_setup(NPOINT_BSR)
+        gp = plan.gridmf_plan
+        b = torch.linspace(1.0, 2.0, plan.n, dtype=torch.float64,
+                           device="cuda")
+
+        def g_single():
+            fac = gridmf.gridmf_factorize(gp, vr)
+            return fac, gridmf.gridmf_solve(gp, fac, b)
+
+        def g_dist():
+            fac = par.dist_gridmf_factorize(mesh, gp, vr)
+            return fac, par.dist_gridmf_solve(mesh, gp, fac, b)
+
+        def g_cmp(s, d):
+            bit_equal("gridmf x", s[1], d[1])
+            gridmf_fac_equal("gridmf", gp, s[0], d[0])
+            return {"n": plan.n, "depths": len(gp.levels),
+                    "store_gb": gridmf.gridmf_store_gb(gp),
+                    "analyze_s": analyze_s,
+                    "residual": residual(plan, vr, d[1], b)}
+
+        recs.append(par_world1_check(f"gridmf_{NPOINT_BSR}",
+                                     g_single, g_dist, g_cmp, smi))
+        del plan, vr, gp
+        torch.cuda.empty_cache()
+
+        # SPLU on the npoint-129 plan (the replay's gamma M - J)
+        plan, vr, _ = replay_setup(NPOINT)
+        sp = plan.splu_plan
+
+        def s_cmp(s, d):
+            bit_equal("splu", fac_stats(s) | {"blocks": s["blocks"]},
+                      fac_stats(d) | {"blocks": d["blocks"]})
+            return {"rows": len(sp.packed["t0"])}
+
+        recs.append(par_world1_check(
+            f"splu_{NPOINT}", lambda: splu.splu_factorize(sp, vr),
+            lambda: par.dist_splu_factorize(mesh, sp, vr), s_cmp, smi))
+        del plan, vr, sp
+
+        # GENMF on geometric_264k
+        coo = samples.irregular_geometric(GEOMETRIC_N, seed=0)
+        ii, jj, vv = coo.triplets()
+        splan = SHARED_PLANS.get("geometric_264k")
+        t_a = time.perf_counter()
+        if splan is None:
+            splan = factor.analyze(coo.nrow, ii, jj, genie=Genie.GENMF)
+        analyze_s = time.perf_counter() - t_a
+        gmp = splan.genmf_plan
+        vals = torch.as_tensor(vv, device="cuda")
+        b = torch.as_tensor(np.random.default_rng(SEED).standard_normal(
+            coo.nrow), device="cuda")
+
+        def m_single():
+            fac = genmf.genmf_factorize(gmp, vals)
+            return fac, genmf.genmf_solve(gmp, fac, b)
+
+        def m_dist():
+            fac = par.dist_genmf_factorize(mesh, gmp, vals)
+            return fac, par.dist_genmf_solve(mesh, gmp, fac, b)
+
+        def m_cmp(s, d):
+            bit_equal("genmf x", s[1], d[1])
+            gridmf_fac_equal("genmf", gmp, s[0], d[0])
+            return {"n": coo.nrow, "classes": len(gmp.classes),
+                    "analyze_s": analyze_s}
+
+        recs.append(par_world1_check("genmf_geometric_264k",
+                                     m_single, m_dist, m_cmp, smi))
+        del coo, splan, gmp, vals
+        torch.cuda.empty_cache()
+
+        # BANDED through cyclic reduction on laplacian_2d_317
+        coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
+        ii, jj, vv = coo.triplets()
+        bplan = factor.analyze(coo.nrow, ii, jj)
+        if not (bplan.genie == Genie.BANDED and bplan.use_bcr):
+            raise AssertionError("laplacian_2d_317: AUTO did not take BCR")
+        vals = torch.as_tensor(vv, device="cuda")
+        b = torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+            coo.nrow), device="cuda")
+
+        def c_single():
+            fac = factor.numeric_factorize(bplan, vals)
+            return fac, factor.factor_solve(bplan, fac, b)
+
+        def c_dist():
+            fac = par.shard_banded_factorize(mesh, bplan, vals)
+            return fac, par.shard_banded_solve(mesh, bplan, fac, b)
+
+        def c_cmp(s, d):
+            bit_equal("bcr x", s[1], d[1])
+            for i, (u, v) in enumerate(zip(s[0]["levels"], d[0]["levels"])):
+                bit_equal(f"bcr level {i}", u, v)
+            bit_equal("bcr root", s[0]["root"], d[0]["root"])
+            bit_equal("bcr stats", fac_stats(s[0]), fac_stats(d[0]))
+            return {"n": coo.nrow, "nb": bplan.nb, "k": bplan.block_k,
+                    "levels": len(d[0]["levels"])}
+
+        recs.append(par_world1_check("bcr_laplacian_2d_317",
+                                     c_single, c_dist, c_cmp, smi))
+        del coo, bplan, vals
+
+        # SpMV on the npoint-513 Jacobian
+        coo = brusselator_jacobian(NPOINT_BSR)
+        csr = CsrMatrix.from_coo(coo, "cuda")
+        sh = par.shard_csr_rows(csr, 1)
+        x = torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal(
+            coo.nrow), device="cuda")
+        cols = torch.as_tensor(np.asarray(csr.indices, dtype=np.int64),
+                               device="cuda")
+        offsets = torch.as_tensor(np.asarray(csr.indptr, dtype=np.int64),
+                                  device="cuda")
+        want = scipy_csr(coo) @ x.cpu().numpy()
+
+        def v_cmp(s, d):
+            bit_equal("spmv y", s, d)
+            err = float(np.abs(d.cpu().numpy() - want).max())
+            if err > RTOL * float(np.abs(want).max()):
+                raise AssertionError(f"spmv: {err} off scipy")
+            return {"n": coo.nrow, "nnz": int(coo.nnz),
+                    "max_abs_err_scipy": err}
+
+        recs.append(par_world1_check(
+            f"spmv_{NPOINT_BSR}",
+            lambda: splu.segment_sum(csr.data * x[cols], None, offsets),
+            lambda: par.dist_mat_vec_mul(mesh, sh, x), v_cmp, smi, REPS))
+        del coo, csr, sh, x, cols, offsets
+
+        # batch_factor_solve: PAR_BATCH shifts gamma_i M - J at npoint 129
+        recs.append(par_world1_batch(mesh, smi))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return recs
+
+
+def batch_inputs(npoint):
+    """AUTO's GRIDMF SolvePlan at ``npoint`` and PAR_BATCH systems gamma_i M
+    - J (gamma_i from 0.5 GAMMA to 1.5 GAMMA) with seeded right-hand sides,
+    as host numpy (B, nnz) and (B, n)."""
+    plan, vr, _, _ = gridmf_setup(npoint)
+    n = plan.n
+    jv = vr.cpu().numpy()[:-n]
+    gammas = GAMMA * (0.5 + np.arange(PAR_BATCH) / PAR_BATCH)
+    vals = np.concatenate([np.tile(jv, (PAR_BATCH, 1)),
+                           gammas[:, None] * np.ones((1, n))], axis=1)
+    rhs = np.random.default_rng(SEED + 3).standard_normal((PAR_BATCH, n))
+    return plan, vals, rhs
+
+
+def par_world1_batch(mesh, smi):
+    from russell_tpu_torch import parallel as par
+    from russell_tpu_torch.sparse import factor
+    plan, vals, rhs = batch_inputs(NPOINT)
+    vt = torch.as_tensor(vals, device="cuda")
+    rt = torch.as_tensor(rhs, device="cuda")
+
+    def single():
+        return torch.stack([factor.factor_solve(
+            plan, factor.numeric_factorize(plan, v), r)
+            for v, r in zip(vt, rt)])
+
+    def b_cmp(s, d):
+        bit_equal("batch x", s, d)
+        return {"n": plan.n, "batch": PAR_BATCH, "genie": plan.genie.value}
+
+    return par_world1_check(
+        f"batch_factor_solve_{NPOINT}", single,
+        lambda: par.batch_factor_solve(mesh, plan, vals, rhs), b_cmp, smi)
+
+
+# part (b): each check's inputs (host, built by the parent), its call on
+# one rank and its single-device call (both return dicts of tensors)
+
+def par_inputs():
+    from russell_tpu_torch import parallel as par
+    from russell_tpu_torch.sparse import CsrMatrix, Genie, factor, samples
+    inp = {}
+    plan, vr, _, _ = gridmf_setup(129)
+    inp["gridmf_129"] = {"plan": plan, "vals": vr.cpu().numpy(),
+                         "rhs": np.linspace(1.0, 2.0, plan.n)}
+    plan, vr, _ = replay_setup(65)
+    inp["splu_65"] = {"plan": plan, "vals": vr.cpu().numpy(),
+                      "rhs": np.linspace(1.0, 2.0, plan.n)}
+    coo = samples.laplacian_3d(LAPLACIAN_3D_NPOINT)
+    ii, jj, vv = coo.triplets()
+    inp["genmf_laplacian_3d_50"] = {
+        "plan": factor.analyze(coo.nrow, ii, jj, genie=Genie.GENMF),
+        "vals": np.asarray(vv), "rhs": np.linspace(1.0, 2.0, coo.nrow)}
+    coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
+    ii, jj, vv = coo.triplets()
+    inp["bcr_laplacian_2d_317"] = {
+        "plan": factor.analyze(coo.nrow, ii, jj), "vals": np.asarray(vv),
+        "rhs": np.linspace(1.0, 2.0, coo.nrow)}
+    coo = brusselator_jacobian(NPOINT_BSR)
+    sh = par.shard_csr_rows(CsrMatrix.from_coo(coo, "cpu"), PAR_RANKS)
+    x = np.zeros(sh.n_pad)
+    x[:coo.nrow] = np.random.default_rng(SEED + 2).standard_normal(coo.nrow)
+    inp["spmv_513"] = {"sh": sh, "x": x, "coo": coo}
+    plan, vals, rhs = batch_inputs(65)
+    inp["batch_65"] = {"plan": plan, "vals": vals, "rhs": rhs}
+    return inp
+
+
+def par_dist(name, mesh, c, rank):
+    """Check ``name`` on this rank of part (b): a dict of tensors."""
+    from russell_tpu_torch import parallel as par
+    from russell_tpu_torch.sparse import splu
+    dev = torch.device("cuda")
+    rhs = torch.as_tensor(c["rhs"], device=dev) if "rhs" in c else None
+    if name == "gridmf_129":
+        gp = c["plan"].gridmf_plan
+        fac = par.dist_gridmf_factorize(mesh, gp, c["vals"])
+        return {"sir": [lv["sir"] for lv in fac["levels"]],
+                "ranges": fac["ranges"],
+                "x": par.dist_gridmf_solve(mesh, gp, fac, rhs),
+                **fac_stats(fac)}
+    if name == "splu_65":
+        sp = c["plan"].splu_plan
+        fac = par.dist_splu_factorize(mesh, sp, c["vals"])
+        return {"blocks": fac["blocks"], "x": splu.splu_solve(sp, fac, rhs),
+                **fac_stats(fac)}
+    if name == "genmf_laplacian_3d_50":
+        gp = c["plan"].genmf_plan
+        fac = par.dist_genmf_factorize(mesh, gp, c["vals"])
+        return {"x": par.dist_genmf_solve(mesh, gp, fac, rhs),
+                "ranges": fac["ranges"], **fac_stats(fac)}
+    if name == "bcr_laplacian_2d_317":
+        fac = par.shard_banded_factorize(mesh, c["plan"], c["vals"])
+        return {"x": par.shard_banded_solve(mesh, c["plan"], fac, rhs),
+                "ranges": [lv["range"] for lv in fac["levels"]],
+                **fac_stats(fac)}
+    if name == "spmv_513":
+        rps = c["sh"].rows_per_shard
+        return {"y": par.dist_mat_vec_mul(
+            mesh, c["sh"], c["x"][rank * rps:(rank + 1) * rps])}
+    if name == "batch_65":
+        return {"x": par.batch_factor_solve(mesh, c["plan"], c["vals"],
+                                            c["rhs"])}
+    raise ValueError(name)
+
+
+def par_single(name, c):
+    """Check ``name`` on one device in the parent: a dict of tensors."""
+    from russell_tpu_torch.sparse import CsrMatrix, factor, genmf, gridmf, splu
+    dev = torch.device("cuda")
+    rhs = torch.as_tensor(c["rhs"], device=dev) if "rhs" in c else None
+    vals = torch.as_tensor(c["vals"], device=dev) if "vals" in c else None
+    if name == "gridmf_129":
+        gp = c["plan"].gridmf_plan
+        fac = gridmf.gridmf_factorize(gp, vals)
+        return {"sir": [lv["sir"] for lv in fac["levels"]],
+                "x": gridmf.gridmf_solve(gp, fac, rhs), **fac_stats(fac)}
+    if name == "splu_65":
+        sp = c["plan"].splu_plan
+        fac = splu.splu_factorize(sp, vals)
+        return {"blocks": fac["blocks"], "x": splu.splu_solve(sp, fac, rhs),
+                **fac_stats(fac)}
+    if name == "genmf_laplacian_3d_50":
+        gp = c["plan"].genmf_plan
+        fac = genmf.genmf_factorize(gp, vals)
+        return {"x": genmf.genmf_solve(gp, fac, rhs), **fac_stats(fac)}
+    if name == "bcr_laplacian_2d_317":
+        fac = factor.numeric_factorize(c["plan"], vals)
+        return {"x": factor.factor_solve(c["plan"], fac, rhs),
+                **fac_stats(fac)}
+    if name == "spmv_513":
+        # the rows' sums in CSR order over the whole matrix
+        csr = CsrMatrix.from_coo(c["coo"], dev)
+        x = torch.as_tensor(c["x"][:c["coo"].nrow], device=dev)
+        cols = torch.as_tensor(np.asarray(csr.indices, dtype=np.int64),
+                               device=dev)
+        offsets = torch.as_tensor(np.asarray(csr.indptr, dtype=np.int64),
+                                  device=dev)
+        return {"y": splu.segment_sum(csr.data * x[cols], None, offsets)}
+    if name == "batch_65":
+        plan = c["plan"]
+        return {"x": torch.stack([factor.factor_solve(
+            plan, factor.numeric_factorize(plan, v), r) for v, r in zip(
+                torch.as_tensor(c["vals"], device=dev),
+                torch.as_tensor(c["rhs"], device=dev))])}
+    raise ValueError(name)
+
+
+def to_cpu(v):
+    if torch.is_tensor(v):
+        return v.cpu()
+    if isinstance(v, dict):
+        return {k: to_cpu(u) for k, u in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [to_cpu(u) for u in v]
+    return v
+
+
+def par_rank(rank, world, tmp):
+    """One rank of part (b): join the gloo world (a file store in ``tmp``)
+    on cuda:0, run every check twice (cold, then warm: its result, wall,
+    CUDA-event span and launches) and write them to ``tmp``/rank<r>.pt."""
+    import pickle
+    import torch.distributed as dist
+    from russell_tpu_torch import parallel as par
+    par.initialize_multihost(init_method=f"file://{tmp}/store",
+                             num_processes=world, process_id=rank,
+                             backend="gloo")
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        mesh = par.make_mesh()
+        out = {"device": str(torch.cuda.current_device())}
+        for name, c in inputs.items():
+            rec = {}
+            for run in ("cold", "warm"):
+                dist.barrier()
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                res = par_dist(name, mesh, c, rank)
+                e1.record()
+                torch.cuda.synchronize()
+                rec[run] = {"wall_s": time.perf_counter() - t0,
+                            "event_ms": e0.elapsed_time(e1),
+                            "launches": kernel_counts()}
+            rec["result"] = to_cpu(res)
+            out[name] = rec
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rel_close(name, got, want, tol):
+    got = torch.as_tensor(got, dtype=torch.float64).cpu()
+    want = torch.as_tensor(want, dtype=torch.float64).cpu()
+    err = float((got - want).abs().max())
+    if not err <= tol * (1 + float(want.abs().max())):
+        raise AssertionError(f"{name}: {err} off the single-device result")
+    return err
+
+
+def whole(name, ranks_res, key):
+    """A split factorization's per-depth (or per-class) blocks put
+    together in rank order, checked against each rank's range."""
+    items = []
+    for i, rng in enumerate(ranks_res[0]["ranges"]):
+        if rng is None:
+            items.append(ranks_res[0][key][i])
+            continue
+        n = rng[1] - rng[0]
+        for r, rr in enumerate(ranks_res):
+            if tuple(rr["ranges"][i]) != (r * n, (r + 1) * n):
+                raise AssertionError(f"{name}: rank {r} holds "
+                                     f"{rr['ranges'][i]} of item {i}")
+        items.append(torch.cat([rr[key][i] for rr in ranks_res]))
+    return items
+
+
+def par_compare(name, c, want, ranks_res):
+    """Hold the ranks' results of check ``name`` to the single-device
+    ``want`` at the reference tests' f64 bounds; returns the errors."""
+    err = {}
+    if name == "spmv_513":
+        y = torch.cat([r["y"] for r in ranks_res])[:c["coo"].nrow]
+        err["y"] = rel_close(name, y, want["y"], PAR_FAC_TOL)
+        return err
+    x = ranks_res[0]["x"]
+    for r, rr in enumerate(ranks_res[1:], 1):
+        err[f"x_rank_{r}_vs_0"] = float((rr["x"] - x).abs().max())
+    err["x"] = rel_close(f"{name} x", x, want["x"], PAR_FAC_TOL)
+    if name == "batch_65":
+        return err
+    for k in ("sir", "blocks"):
+        if k in want:
+            got = (whole(name, ranks_res, k) if k == "sir"
+                   else [ranks_res[0][k]])
+            ref = want[k] if k == "sir" else [want[k]]
+            err[k] = max(rel_close(f"{name} {k}[{i}]", g, w, PAR_FAC_TOL)
+                         for i, (g, w) in enumerate(zip(got, ref)))
+    plan = c["plan"]
+    rows = torch.as_tensor(np.asarray(plan.rows, dtype=np.int64))
+    cols = torch.as_tensor(np.asarray(plan.cols, dtype=np.int64))
+    ax = torch.zeros(plan.n, dtype=torch.float64).index_add_(
+        0, rows, torch.as_tensor(c["vals"]) * x[cols])
+    res = float((ax - torch.as_tensor(c["rhs"])).abs().max())
+    if not res < PAR_RES_TOL:
+        raise AssertionError(f"{name}: residual {res}")
+    err["residual"] = res
+    ld = abs(float(ranks_res[0]["logdet"]) - float(want["logdet"]))
+    if not ld < PAR_LOGDET_TOL:
+        raise AssertionError(f"{name}: log|det| {ld} off")
+    err["logdet"] = ld
+    return err
+
+
+def par_ranks(smi):
+    """Part (b): PAR_RANKS ranks spawned on the one card under gloo, each
+    check held to the parent's single-device run of it; each rank must
+    launch splu_pairs and gather_rows (SPLU) and gj_inv (SPLU, GRIDMF,
+    GENMF, the batch)."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="parallel_ranks_")
+    try:
+        inputs = par_inputs()
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
+        inputs_s = time.perf_counter() - t0
+        single = {}
+        for name, c in inputs.items():
+            par_single(name, c)                 # cold: uploads, caches
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            e0.record()
+            out = par_single(name, c)
+            e1.record()
+            torch.cuda.synchronize()
+            single[name] = {"wall_s": time.perf_counter() - t1,
+                            "event_ms": e0.elapsed_time(e1),
+                            "result": to_cpu(out)}
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=par_rank, args=(r, PAR_RANKS, tmp))
+                 for r in range(PAR_RANKS)]
+        t1 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = t1 + PAR_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            raise AssertionError(f"parallel ranks {hung} did not finish in "
+                                 f"{PAR_RANK_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * PAR_RANKS:
+            raise AssertionError(f"parallel rank exit codes {codes}")
+        ranks_s = time.perf_counter() - t1
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(PAR_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recs = []
+    for name, c in inputs.items():
+        per_rank = [r[name] for r in res]
+        err = par_compare(name, c, single[name]["result"],
+                          [r["result"] for r in per_rank])
+        launches = [r["warm"]["launches"] for r in per_rank]
+        need = (("splu_pairs", "gather_rows", "gj_inv") if name == "splu_65"
+                else ("gj_inv",) if name in ("gridmf_129",
+                                             "genmf_laplacian_3d_50",
+                                             "batch_65") else ())
+        for k in need:
+            idle = [r for r, lr in enumerate(launches) if lr[k] <= 0]
+            if idle:
+                raise AssertionError(f"{name}: {k} not launched on ranks "
+                                     f"{idle}")
+        rec = {"check": name, "world": PAR_RANKS, "backend": "gloo",
+               "single_wall_s": single[name]["wall_s"],
+               "single_event_ms": single[name]["event_ms"],
+               "rank_cold_wall_s": [r["cold"]["wall_s"] for r in per_rank],
+               "rank_warm_wall_s": [r["warm"]["wall_s"] for r in per_rank],
+               "rank_warm_event_ms": [r["warm"]["event_ms"]
+                                      for r in per_rank],
+               "rank_launches": launches, "errors": err, "card": smi}
+        say("parallel_path", part="ranks", **rec)
+        recs.append(rec)
+    say("parallel_path", part="ranks_done", inputs_s=inputs_s,
+        ranks_s=ranks_s, devices=[r["device"] for r in res])
+    return recs
+
+
+def phase_parallel_path():
+    """Phase 26: ``russell_tpu_torch.parallel`` on the card (the module
+    docstring's item 26). Returns the records of both parts; the kernels
+    line takes their launches."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    world1 = par_world1(smi)
+    ranks = par_ranks(smi)
+    say("parallel_path", part="done", wall_s=time.perf_counter() - t0,
+        card=smi)
+    return {"world_1": world1, "ranks": ranks}
+
+
+def parallel_entry(pres, name):
+    """A kernel's launches in phase 26: per world-of-one call, and per rank
+    in the 4-rank world (warm runs)."""
+    return {"world_1_launches": {r["check"]: r["dist"]["launches"][name]
+                                 for r in pres["world_1"]},
+            f"ranks_{PAR_RANKS}_launches": {
+                r["check"]: [lr[name] for lr in r["rank_launches"]]
+                for r in pres["ranks"]}}
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -5253,6 +5888,7 @@ def main():
     phase_nonlin_path()
     labres = phase_lab_path()
     stres = phase_stat_tensor_path(fres["gridmf_129"]["counters"])
+    parres = phase_parallel_path()
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -5291,6 +5927,7 @@ def main():
             "lin_solver_path_splu_3d_held_to_plain": lres["splu_3d"][
                 "held_to_plain"][name],
             "pde_path": pde_entry(pres, name),
+            "parallel_path": parallel_entry(parres, name),
             "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
@@ -5330,6 +5967,7 @@ def main():
                 "gj_inv_launches"],
             "trace_kernel_events": stres["cli"]["trace"][
                 "gj_inv_kernel_events"]},
+        "parallel_path": parallel_entry(parres, "gj_inv"),
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -5606,6 +6244,13 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         phase_stat_tensor_path()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    elif "--parallel" in sys.argv:
+        phase_device()
+        phase_build()
+        phase_parallel_path()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

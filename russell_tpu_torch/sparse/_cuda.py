@@ -6,7 +6,8 @@ C entry points. At its first use it is compiled by ``nvcc`` for Hopper
 repository root (an ignored directory) and loaded with ``ctypes``; it is
 rebuilt when the source or a header of ``csrc/`` is newer than the
 library. ``build_all`` starts
-one ``nvcc`` per source, all at once. Nothing here runs when the module is
+one ``nvcc`` per source, all at once, one process of the machine at a
+time. Nothing here runs when the module is
 imported, so the CPU tests, which have no ``nvcc``, import it freely. The
 wrappers that launch the kernels live beside their plain PyTorch versions
 (``sparse/splu.py``, ``sparse/kernels.py``, ``dense/matrix_ops.py``). A
@@ -23,6 +24,7 @@ reference's plain-XLA cyclic Jacobi eigensolver.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -104,7 +106,21 @@ def _paths(name):
 def build_all(names=LIBRARIES) -> dict:
     """Compile ``csrc/<name>.cu`` for each of ``names`` that has no
     up-to-date library, one ``nvcc`` per source, all started together;
-    returns {name: library path}. Raises with nvcc's output on failure."""
+    returns {name: library path}. Raises with nvcc's output on failure.
+
+    Processes that start together on one machine (the ranks of a
+    ``parallel`` group) build one at a time under an exclusive lock on
+    ``build.lock`` in the build directory: the first compiles, the others
+    then find the libraries up to date. Each library is compiled to a
+    temporary name and moved into place, so a library being loaded is
+    never half written. The lock ends with its process."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_unlocked(names)
+
+
+def _build_unlocked(names) -> dict:
     out, jobs = {}, {}
     headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
                if f.endswith(".cuh")]
@@ -114,7 +130,6 @@ def build_all(names=LIBRARIES) -> dict:
         newest = max(os.path.getmtime(f) for f in [src, *headers])
         if os.path.exists(so) and os.path.getmtime(so) >= newest:
             continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         jobs[name] = (tmp, time.perf_counter(), subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,

@@ -84,45 +84,80 @@ def _shift_left(a):
     return torch.cat([a[1:], torch.zeros_like(a[:1])])
 
 
-def bcr_factorize(D, E, F, pivot_epsilon: float = 1e-14):
+def _lanes(split, n):
+    """This rank's lanes [a, b) of a level's n odd rows, or None (every
+    lane, on every rank) without ``split`` or when it does not divide n."""
+    return None if split is None else split.block(n)
+
+
+def _inv_lanes(split, rng, lus, pivs, B):
+    """D_o^{-1} B over every lane: this rank's lanes of B solved and
+    all-gathered when the level is split."""
+    if rng is None:
+        return _apply_inv(lus, pivs, B)
+    return split.gather(_apply_inv(lus, pivs, B[rng[0]:rng[1]]))
+
+
+def bcr_factorize(D, E, F, pivot_epsilon: float = 1e-14, split=None):
     """Factorize the block-tridiagonal system (D diag, E sub, F super).
 
     Returns a dict ``fac`` holding per-level transformed operators:
     everything ``bcr_solve`` needs, with log2(nb) levels of batched
     factorizations.
-    """
+
+    ``split`` (``parallel.mesh.MeshAxis``) spreads each level whose odd
+    row count it divides over the ranks: this rank factorizes its lanes
+    [a, b) of the odd diagonal blocks (kept in the level with ``range``)
+    and solves them against F_o and E_o, and D_o^{-1} F_o and D_o^{-1} E_o
+    are all-gathered for the neighbour shifts; the even rows' update runs
+    on every rank. min|pivot| is taken over the ranks."""
     delta = pivot_epsilon * (1.0 + D.abs().max())
     D, E, F, nb = _pad_pow2(D, E, F)
     levels = []
     while D.shape[0] > 1:
         Do, Eo, Fo = D[1::2], E[1::2], F[1::2]      # odd rows (eliminated)
         De, Ee, Fe = D[0::2], E[0::2], F[0::2]      # even rows (kept)
-        lus, pivs, _ = lu_static(Do, delta)
+        rng = _lanes(split, Do.shape[0])
+        lus, pivs, _ = lu_static(Do if rng is None else Do[rng[0]:rng[1]],
+                                 delta)
         # Gl_i = E_i D_{i-1}^{-1}: D_{i-1} is odd block (i//2 - 1)
-        DinvF = _apply_inv(lus, pivs, Fo)           # D_o^{-1} F_o
-        DinvE = _apply_inv(lus, pivs, Eo)           # D_o^{-1} E_o
+        DinvF = _inv_lanes(split, rng, lus, pivs, Fo)   # D_o^{-1} F_o
+        DinvE = _inv_lanes(split, rng, lus, pivs, Eo)   # D_o^{-1} E_o
         # for even index q (block 2q): left odd is q-1, right odd is q
         D_new = De - Ee @ _shift_right(DinvF) - Fe @ DinvE
         E_new = -(Ee @ _shift_right(DinvE))
         F_new = -(Fe @ DinvF)
-        levels.append({"lus": lus, "pivs": pivs, "Ee": Ee, "Fe": Fe,
-                       "Eo": Eo, "Fo": Fo})
+        level = {"lus": lus, "pivs": pivs, "Ee": Ee, "Fe": Fe,
+                 "Eo": Eo, "Fo": Fo}
+        if split is not None:
+            level["range"] = rng
+        levels.append(level)
         D, E, F = D_new, E_new, F_new
     lus, pivs, _ = lu_static(D, delta)
     root = {"lus": lus, "pivs": pivs}
     mp = torch.diagonal(lus, dim1=-2, dim2=-1).abs().amin()
     for lv in levels:
-        mp = torch.minimum(mp, torch.diagonal(
-            lv["lus"], dim1=-2, dim2=-1).abs().amin())
+        mp_lv = torch.diagonal(lv["lus"], dim1=-2, dim2=-1).abs().amin()
+        if lv.get("range") is not None:
+            mp_lv = split.combine(min_pivot=mp_lv)["min_pivot"]
+        mp = torch.minimum(mp, mp_lv)
     return {"levels": levels, "root": root, "min_pivot": mp}
 
 
-def bcr_solve(fac, bp):
-    """Solve with a bcr_factorize result; ``bp`` is (nb, k)."""
+def bcr_solve(fac, bp, split=None):
+    """Solve with a bcr_factorize result; ``bp`` is (nb, k). Factors made
+    with a ``split`` are solved with the same one: each split level's odd
+    rows are solved on this rank's lanes and all-gathered."""
     nb, k = bp.shape
     root = fac["root"]["lus"]
     levels = fac["levels"]
-    M = 2 * levels[0]["lus"].shape[0] if levels else 1
+    want = [None if split is None else _lanes(split, lv["Eo"].shape[0])
+            for lv in levels]
+    if [lv.get("range") for lv in levels] != (
+            want if split is not None else [None] * len(levels)):
+        raise ValueError("the factors' lanes are not this solve's: solve "
+                         "split factors with the split they were made with")
+    M = 2 * levels[0]["Eo"].shape[0] if levels else 1
     b = root.new_zeros((M, k))
     b[:nb] = bp.to(root.dtype)
 
@@ -131,7 +166,8 @@ def bcr_solve(fac, bp):
     for lv in levels:
         bo = b[1::2]
         be = b[0::2]
-        y = _apply_inv(lv["lus"], lv["pivs"], bo)     # D_o^{-1} b_o
+        y = _inv_lanes(split, lv.get("range"), lv["lus"], lv["pivs"],
+                       bo)                            # D_o^{-1} b_o
         b_new = be - _mv(lv["Ee"], _shift_right(y)) - _mv(lv["Fe"], y)
         bs.append(bo)
         b = b_new
@@ -143,6 +179,6 @@ def bcr_solve(fac, bp):
     for lv, bo in zip(reversed(levels), reversed(bs)):
         xe = x                                        # even rows, known
         rhs = bo - _mv(lv["Eo"], xe) - _mv(lv["Fo"], _shift_left(xe))
-        xo = _apply_inv(lv["lus"], lv["pivs"], rhs)
+        xo = _inv_lanes(split, lv.get("range"), lv["lus"], lv["pivs"], rhs)
         x = torch.stack([xe, xo], dim=1).reshape(-1, k)
     return x[:nb]

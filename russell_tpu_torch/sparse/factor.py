@@ -45,7 +45,8 @@ from russell_tpu_torch.sparse import gridmf as _gridmf
 from russell_tpu_torch.sparse import splu as _splu
 
 __all__ = ["SolvePlan", "analyze", "prepare", "numeric_factorize",
-           "numeric_factorize_pair", "factor_solve", "factor_solve_pair",
+           "numeric_factorize_pair", "factor_solve", "factor_solve_batch",
+           "factor_solve_pair",
            "det_phase"]
 
 # Device memory (GiB) that the three f64 value planes of GRIDMF factors of
@@ -495,11 +496,14 @@ def _banded_scatter(plan: SolvePlan, data):
     return flat.view(3, nb, k, k)
 
 
-def _banded_factorize_bcr(plan: SolvePlan, data):
+def _banded_factorize_bcr(plan: SolvePlan, data, split=None):
+    """BANDED through cyclic reduction; ``split`` spreads its levels over
+    ranks (``bcr.bcr_factorize``), each split level's log|det| and sign
+    then summed over the ranks in rank order."""
     data, rs, cs = _equilibrate(plan, data)
     blocks = _banded_scatter(plan, data)
     fac = _bcr.bcr_factorize(blocks[1], blocks[0], blocks[2],
-                             pivot_epsilon=plan.pivot_epsilon)
+                             pivot_epsilon=plan.pivot_epsilon, split=split)
     fac["rs"] = rs
     fac["cs"] = cs
     fac["data"] = data
@@ -510,21 +514,25 @@ def _banded_factorize_bcr(plan: SolvePlan, data):
     for lv in fac["levels"] + [fac["root"]]:
         l, p = _logdet_update(torch.diagonal(lv["lus"], dim1=-2, dim2=-1),
                               lv["pivs"])
-        ld = l.sum() if ld is None else ld + l.sum()
-        ph = p.prod() if ph is None else ph * p.prod()
+        l, p = l.sum(), p.prod()
+        if lv.get("range") is not None:
+            st = split.combine(logdet=l, phase=p)
+            l, p = st["logdet"], st["phase"]
+        ld = l if ld is None else ld + l
+        ph = p if ph is None else ph * p
     fac["logdet"] = ld
     fac["phase"] = ph
     return fac
 
 
-def _banded_solve_bcr(plan: SolvePlan, fac, b):
+def _banded_solve_bcr(plan: SolvePlan, fac, b, split=None):
     n, k, nb = plan.n, plan.block_k, plan.nb
     out_dtype = fac["data"].dtype
     ix = _banded_indices(plan, b.device)
     bs = (fac["rs"] * b.to(out_dtype))[ix["perm"]]
     bp = torch.zeros(nb * k, dtype=out_dtype, device=b.device)
     bp[:n] = bs
-    x = _bcr.bcr_solve(fac, bp.view(nb, k)).reshape(nb * k)[:n]
+    x = _bcr.bcr_solve(fac, bp.view(nb, k), split).reshape(nb * k)[:n]
     return fac["cs"].to(out_dtype) * x[ix["iperm"]]
 
 
@@ -698,6 +706,19 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
     for _ in range(refine_steps):
         x = x + _solve_once(plan, fac, _residual(plan, fac, x, b))
     return x
+
+
+def factor_solve_batch(plan: SolvePlan, data, b):
+    """Factorize and solve a batch of systems of one structure: entry
+    values ``data`` (B, nnz) and right-hand sides ``b`` (B, n), returning
+    x (B, n). DENSE runs its batched numeric phase; every other genie one
+    numeric phase and solve per system over the one plan, since a batched
+    numeric phase of theirs is not ported (ROADMAP.md §1, item 9). For
+    ``parallel.batch_factor_solve``, which gives each rank its rows."""
+    if plan.genie == Genie.DENSE:
+        return factor_solve(plan, numeric_factorize(plan, data), b)
+    return torch.stack([factor_solve(plan, numeric_factorize(plan, v), r)
+                        for v, r in zip(data, b)])
 
 
 def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,

@@ -49,7 +49,9 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from russell_tpu_torch.sparse.gridmf import _inv_planes, _mm
+from russell_tpu_torch.sparse.gridmf import (_combine, _inv_planes, _mm,
+                                             _node_block, _scatter_blocks,
+                                             _solve_ranges)
 from russell_tpu_torch.sparse.ordering import idx32 as _idx32, rank_passes
 
 __all__ = ["GenMfPlan", "genmf_analyze", "genmf_factorize", "genmf_solve"]
@@ -488,19 +490,56 @@ def _presum(plan: GenMfPlan, dp, data):
     return out
 
 
-def _assemble(c: _GClass, dc, uniq, ghost=True):
+def _block(plan: GenMfPlan, dp, ci, rng):
+    """Class ``ci``'s node block [a, b) = ``rng`` (``gridmf._node_block``)
+    with its links cut to the rows whose parent slot lies in the block,
+    rebased to it, in link order (so each parent adds its children as the
+    whole class does); None for no range or the whole class."""
+    c = plan.classes[ci]
+    dc = dp["classes"][ci]
+    cache = dc.setdefault("blocks", {})
+    fresh = rng is not None and rng not in cache
+    blk = _node_block(cache, c.n_nodes, c.F, c.pad_diag, c.asm_idx,
+                      c.asm_off, dc["ev"], rng)
+    if blk is None or not fresh:
+        return blk
+    a, b = rng
+    dev = dc["ev"].device
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(_idx32(x)), device=dev)
+
+    links = []
+    for link in c.links:
+        ids = np.flatnonzero((link.parent_slot >= a)
+                             & (link.parent_slot < b))
+        ps = link.parent_slot[ids] - a
+        links.append({"cs": t(link.child_slot[ids]), "ps": t(ps),
+                      "inv": t(link.inv[ids]),
+                      "passes": [(t(k), t(ps[k])) for k in rank_passes(ps)]})
+    blk["links"] = links
+    return blk
+
+
+def _assemble(c: _GClass, dc, uniq, ghost=True, blk=None):
     """The class's fronts (n_nodes, F, F) from the pre-summed values; with
     ``ghost``, a unit diagonal in every padded pivot slot (the REAL plane
-    only). The ghost and entry positions are unique and apart."""
+    only). The ghost and entry positions are unique and apart. With
+    ``blk`` (``_block``) only that block of nodes."""
     F = c.F
-    flat = torch.zeros(c.n_nodes * F * F, dtype=uniq.dtype,
+    n_nodes = c.n_nodes if blk is None else blk["n"]
+    pd = dc["pd"] if blk is None else blk["gd"]
+    flat = torch.zeros(n_nodes * F * F, dtype=uniq.dtype,
                        device=uniq.device)
-    if ghost and len(c.pad_diag):
-        flat[dc["pd"]] = flat.new_ones(())
-    if c.asm_len:
-        flat.index_put_((dc["asm"],),
-                        uniq[c.asm_off:c.asm_off + c.asm_len])
-    return flat.view(c.n_nodes, F, F)
+    if ghost and pd.numel():
+        flat[pd] = flat.new_ones(())
+    if blk is None:
+        if c.asm_len:
+            flat.index_put_((dc["asm"],),
+                            uniq[c.asm_off:c.asm_off + c.asm_len])
+    elif blk["asm"].numel():
+        flat.index_put_((blk["asm"],), uniq.index_select(0, blk["src"]))
+    return flat.view(n_nodes, F, F)
 
 
 def _gather_schur(dl, S):
@@ -526,7 +565,7 @@ def _add_rows(front, dl, vals):
         front.index_add_(0, ps, vals.index_select(0, ids))
 
 
-def genmf_factorize(plan: GenMfPlan, data):
+def genmf_factorize(plan: GenMfPlan, data, split=None):
     """Batched multifrontal factorization over the size classes of the
     entry values ``data`` (an f64 or complex128 tensor on the device to
     factorize on, in the plan's entry order). Returns a fac dict with
@@ -534,7 +573,16 @@ def genmf_factorize(plan: GenMfPlan, data):
     imaginary ones None for a real matrix, lr/li/br/bi None for a class
     with no keep) plus logdet / phase / min_pivot / n_perturbed (0-dim
     tensors; phase is the determinant's sign for real matrices, 1 for
-    complex)."""
+    complex).
+
+    ``split`` (``parallel.mesh.MeshAxis``) spreads the classes over ranks:
+    a class whose node count it divides (``split.block``) assembles,
+    extend-adds, inverts and updates only this rank's node block, and its
+    Schur complements are all-gathered at once, since a parent's
+    ``_gather_schur`` may read any child; the other classes run on every
+    rank. A split class's statistics are summed over the ranks in rank
+    order (``split.combine``). The fac then holds each class's block and,
+    in ``ranges``, each class's node range (None: every node)."""
     cplx = data.is_complex()
     rdt = data.real.dtype if cplx else data.dtype
     if rdt != torch.float64:
@@ -551,6 +599,7 @@ def genmf_factorize(plan: GenMfPlan, data):
     delta = plan.pivot_epsilon * (1.0 + data.abs().max())
 
     store = [None] * len(plan.classes)
+    ranges = [None] * len(plan.classes)
     schur_re: Dict[int, torch.Tensor] = {}
     schur_im: Dict[int, torch.Tensor] = {}
     ld = torch.zeros((), dtype=rdt, device=dev)
@@ -559,9 +608,15 @@ def genmf_factorize(plan: GenMfPlan, data):
     ph = torch.ones((), dtype=rdt, device=dev)
     for ci, c in enumerate(plan.classes):
         dc = dp["classes"][ci]
-        fr = _assemble(c, dc, uniq_re)
-        fi = _assemble(c, dc, uniq_im, ghost=False) if cplx else None
-        for link, dl in zip(c.links, dc["links"]):
+        rng = None if split is None else split.block(c.n_nodes)
+        blk = _block(plan, dp, ci, rng)
+        links = dc["links"] if blk is None else blk["links"]
+        fr = _assemble(c, dc, uniq_re, blk=blk)
+        fi = _assemble(c, dc, uniq_im, ghost=False, blk=blk) if cplx \
+            else None
+        for link, dl in zip(c.links, links):
+            if not dl["passes"]:
+                continue        # no parent of this block in the link
             _add_rows(fr, dl, _gather_schur(dl, schur_re[link.src]))
             if cplx:
                 _add_rows(fi, dl, _gather_schur(dl, schur_im[link.src]))
@@ -571,6 +626,7 @@ def genmf_factorize(plan: GenMfPlan, data):
         e = c.e
         Sr, Si = fr[:, :e, :e], (fi[:, :e, :e] if cplx else None)
         SIr, SIi, ld_d, mp_d, np_d, ph_d = _inv_planes(Sr, Si, delta)
+        ld_d, mp_d, np_d, ph_d = _combine(split, rng, ld_d, mp_d, np_d, ph_d)
         Lr = Li = Br = Bi = None
         if c.r:
             Br = fr[:, :e, e:].contiguous()
@@ -578,29 +634,45 @@ def genmf_factorize(plan: GenMfPlan, data):
             Cr, Ci = fr[:, e:, :e], (fi[:, e:, :e] if cplx else None)
             Lr, Li = _mm(Cr, Ci, SIr, SIi)
             Ur, Ui = _mm(Lr, Li, Br, Bi)
-            schur_re[ci] = fr[:, e:, e:] - Ur
+            schur_re[ci] = _whole(split, rng, fr[:, e:, e:] - Ur)
             if cplx:
-                schur_im[ci] = fi[:, e:, e:] - Ui
+                schur_im[ci] = _whole(split, rng, fi[:, e:, e:] - Ui)
         store[ci] = {"sir": SIr, "sii": SIi, "lr": Lr, "li": Li,
                      "br": Br, "bi": Bi}
+        ranges[ci] = rng
         ld = ld + ld_d
         mp = torch.minimum(mp, mp_d)
         npc = npc + np_d
         if not cplx:
             ph = ph * ph_d
-    return {"classes": store, "logdet": ld, "phase": ph, "min_pivot": mp,
-            "n_perturbed": npc}
+    fac = {"classes": store, "logdet": ld, "phase": ph, "min_pivot": mp,
+           "n_perturbed": npc}
+    if split is not None:
+        fac["ranges"] = ranges
+    return fac
 
 
-def genmf_solve(plan: GenMfPlan, fac, bvec):
+def _whole(split, rng, rows):
+    """A split class's per-node rows over every node (all-gathered); a
+    replicated class's as they are."""
+    return rows if rng is None else split.gather(rows)
+
+
+def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
     """x = A^{-1} b: up-sweep (rhs elimination, deepest classes first) then
     down-sweep (back-substitution), batched matrix-vector products.
     ``bvec`` is a tensor on the factors' device; x is complex128 when the
-    factors are complex, else float64."""
+    factors are complex, else float64.
+
+    ``split`` solves factors made with the same ``split``: a split class's
+    sweeps run on this rank's node block, and its keep right-hand sides
+    (up) and front solutions (down) are all-gathered before another class
+    reads them; every rank returns x whole."""
     first = fac["classes"][0]
     cplx = first["sii"] is not None
     rdt, dev = first["sir"].dtype, first["sir"].device
     dp = _device_plan(plan, dev)
+    ranges = _solve_ranges([c.n_nodes for c in plan.classes], fac, split)
     n = plan.n
     bp_re = torch.zeros(n + 1, dtype=rdt, device=dev)
     bp_re[:n] = bvec.real if bvec.is_complex() else bvec
@@ -617,28 +689,33 @@ def genmf_solve(plan: GenMfPlan, fac, bvec):
         dc = dp["classes"][ci]
         st = fac["classes"][ci]
         e = c.e
-        fr = torch.zeros((c.n_nodes, c.F), dtype=rdt, device=dev)
-        fi = torch.zeros((c.n_nodes, c.F), dtype=rdt, device=dev) \
+        rng = ranges[ci]
+        blk = _block(plan, dp, ci, rng)
+        nn, ev, links = ((c.n_nodes, dc["ev"], dc["links"]) if blk is None
+                         else (blk["n"], blk["ev"], blk["links"]))
+        fr = torch.zeros((nn, c.F), dtype=rdt, device=dev)
+        fi = torch.zeros((nn, c.F), dtype=rdt, device=dev) \
             if cplx else None
-        for link, dl in zip(c.links, dc["links"]):
+        for link, dl in zip(c.links, links):
+            if not dl["passes"]:
+                continue
             _add_rows(fr, dl, _gather_vec(dl, fk_re[link.src]))
             if cplx:
                 _add_rows(fi, dl, _gather_vec(dl, fk_im[link.src]))
         for src in dc["free"]:
             fk_re.pop(src)
             fk_im.pop(src, None)
-        ev = dc["ev"]
-        fr[:, :e] += bp_re.index_select(0, ev).view(c.n_nodes, e)
+        fr[:, :e] += bp_re.index_select(0, ev).view(nn, e)
         if cplx:
-            fi[:, :e] += bp_im.index_select(0, ev).view(c.n_nodes, e)
+            fi[:, :e] += bp_im.index_select(0, ev).view(nn, e)
         fer, fei = fr[:, :e], (fi[:, :e] if cplx else None)
         fe_st[ci] = (fer, fei)
         if c.r:
             ur, ui = _mm(st["lr"], st["li"], fer[:, :, None],
                          fei[:, :, None] if cplx else None)
-            fk_re[ci] = fr[:, e:] - ur[:, :, 0]
+            fk_re[ci] = _whole(split, rng, fr[:, e:] - ur[:, :, 0])
             if cplx:
-                fk_im[ci] = fi[:, e:] - ui[:, :, 0]
+                fk_im[ci] = _whole(split, rng, fi[:, e:] - ui[:, :, 0])
 
     # x gets one slot past n: padded elim vars (index n) are written there
     # and dropped
@@ -646,10 +723,12 @@ def genmf_solve(plan: GenMfPlan, fac, bvec):
     x_im = torch.zeros(n + 1, dtype=rdt, device=dev) if cplx else None
     xk_re: Dict[int, torch.Tensor] = {}
     xk_im: Dict[int, torch.Tensor] = {}
+    pending = []
     for ci in range(len(plan.classes) - 1, -1, -1):
         c = plan.classes[ci]
         dc = dp["classes"][ci]
         st = fac["classes"][ci]
+        rng = ranges[ci]
         xkr = xk_re.pop(ci, None)
         if xkr is None:
             xkr = torch.zeros((c.n_nodes, c.r), dtype=rdt, device=dev)
@@ -660,8 +739,10 @@ def genmf_solve(plan: GenMfPlan, fac, bvec):
         fer, fei = fe_st[ci]
         fe_st[ci] = None
         if c.r:
-            br_, bi_ = _mm(st["br"], st["bi"], xkr[:, :, None],
-                           xki[:, :, None] if cplx else None)
+            cut = (slice(None) if rng is None or rng == (0, c.n_nodes)
+                   else slice(*rng))
+            br_, bi_ = _mm(st["br"], st["bi"], xkr[cut, :, None],
+                           xki[cut, :, None] if cplx else None)
             rr = fer - br_[:, :, 0]
             ri = (fei - bi_[:, :, 0]) if cplx else None
         else:
@@ -670,9 +751,19 @@ def genmf_solve(plan: GenMfPlan, fac, bvec):
                        ri[:, :, None] if cplx else None)
         xer = xer[:, :, 0]
         xei = xei[:, :, 0] if cplx else None
-        x_re.index_put_((dc["ev"],), xer.reshape(-1))
-        if cplx:
-            x_im.index_put_((dc["ev"],), xei.reshape(-1))
+        if rng is None:
+            x_re.index_put_((dc["ev"],), xer.reshape(-1))
+            if cplx:
+                x_im.index_put_((dc["ev"],), xei.reshape(-1))
+        elif c.links:
+            # the children of any node may read it: every node's solution
+            xer = split.gather(xer)
+            xei = split.gather(xei) if cplx else None
+            x_re.index_put_((dc["ev"],), xer.reshape(-1))
+            if cplx:
+                x_im.index_put_((dc["ev"],), xei.reshape(-1))
+        else:
+            pending.append((dc["ev"], (xer, xei)))
         # distribute this class's front solution to its children's keeps
         if c.links:
             xf_re = tnf.pad(torch.cat([xer, xkr], dim=1), (0, 1))
@@ -690,6 +781,7 @@ def genmf_solve(plan: GenMfPlan, fac, bvec):
                             (src.n_nodes, src.r), dtype=rdt, device=dev)
                     # every child has one parent: the slots are unique
                     tgt[dl["cs"]] = xf[rows, dl["fwd"]]
+    _scatter_blocks(split, (x_re, x_im), pending)
     if cplx:
         return torch.complex(x_re[:n], x_im[:n])
     return x_re[:n]

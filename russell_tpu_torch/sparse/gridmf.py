@@ -425,21 +425,80 @@ def _presum(plan: GridMfPlan, dp, data):
     return out
 
 
-def _assemble(lv: _Level, dl, uniq, ghost=True):
+def _node_block(cache, n_nodes, F, gd, asm, asm_off, ev, rng):
+    """The assembly of nodes [a, b) = ``rng`` of one depth (GRIDMF) or
+    class (GENMF), rebased to the block: {"n": b - a, "gd": ghost-diagonal
+    positions, "asm": entry positions, "src": their pre-summed values'
+    ids, "ev": the block's elim vars}, from the host arrays ``gd`` and
+    ``asm`` (flat positions in the (n_nodes, F, F) fronts, pre-summed
+    values from ``asm_off``) and the depth's elim vars ``ev`` on the
+    device. None for no range or the whole depth. Built once per block
+    and kept in ``cache``, the depth's entry of the device plan."""
+    if rng is None or rng == (0, n_nodes):
+        return None
+    blk = cache.get(rng)
+    if blk is not None:
+        return blk
+    a, b = rng
+    dev = ev.device
+    e = ev.numel() // n_nodes
+    lo, hi = a * F * F, b * F * F
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(_idx32(x)), device=dev)
+
+    in_gd = (gd >= lo) & (gd < hi)
+    in_asm = (asm >= lo) & (asm < hi)
+    blk = cache[rng] = {"n": b - a, "gd": t(gd[in_gd] - lo),
+                        "asm": t(asm[in_asm] - lo),
+                        "src": t(asm_off + np.flatnonzero(in_asm)),
+                        "ev": ev[a * e:b * e]}
+    return blk
+
+
+def _assemble(lv: _Level, dl, uniq, ghost=True, blk=None):
     """The depth's fronts (n_nodes, F, F) from the pre-summed values; with
     ``ghost``, a unit diagonal in every ghost pivot slot (the REAL plane
     only, so each contributes exactly 0 to log|det|). Every position is
-    written once: the ghost and entry positions are unique and apart."""
+    written once: the ghost and entry positions are unique and apart.
+    With ``blk`` (``_node_block``) only that block of nodes."""
     F = lv.F
-    flat = torch.zeros(lv.n_nodes * F * F, dtype=uniq.dtype,
+    n_nodes = lv.n_nodes if blk is None else blk["n"]
+    gd = dl["gd"] if blk is None else blk["gd"]
+    flat = torch.zeros(n_nodes * F * F, dtype=uniq.dtype,
                        device=uniq.device)
-    if ghost and len(lv.ghost_diag):
+    if ghost and gd.numel():
         # a device scalar: a Python one is copied from the host
-        flat[dl["gd"]] = flat.new_ones(())
-    if lv.asm_len:
-        flat.index_put_((dl["asm"],),
-                        uniq[lv.asm_off:lv.asm_off + lv.asm_len])
-    return flat.view(lv.n_nodes, F, F)
+        flat[gd] = flat.new_ones(())
+    if blk is None:
+        if lv.asm_len:
+            flat.index_put_((dl["asm"],),
+                            uniq[lv.asm_off:lv.asm_off + lv.asm_len])
+    elif blk["asm"].numel():
+        flat.index_put_((blk["asm"],), uniq.index_select(0, blk["src"]))
+    return flat.view(n_nodes, F, F)
+
+
+def _regroup(split, child_rng, rng, planes):
+    """Carry a child depth's per-node rows (Schur complements, keep
+    right-hand sides) into the parent's layout: all-gathered where the
+    children were split over the ranks and the parent is not; cut to the
+    parent block's children [2a, 2b) where only the parent is split."""
+    if child_rng is not None and rng is None:
+        return [None if p is None else split.gather(p) for p in planes]
+    if child_rng is None and rng is not None:
+        a, b = rng
+        return [None if p is None else p[2 * a:2 * b] for p in planes]
+    return planes
+
+
+def _combine(split, rng, ld, mp, npc, ph):
+    """A split depth's statistics over all ranks (``split.combine``); a
+    replicated depth's as they are."""
+    if rng is None:
+        return ld, mp, npc, ph
+    s = split.combine(logdet=ld, min_pivot=mp, n_perturbed=npc, phase=ph)
+    return s["logdet"], s["min_pivot"], s["n_perturbed"], s["phase"]
 
 
 def _embed_mat(parent_dl, schur_re, schur_im):
@@ -523,13 +582,30 @@ def _inv_planes(Sr, Si, delta):
             torch.ones((), dtype=Sr.dtype, device=Sr.device))
 
 
-def gridmf_factorize(plan: GridMfPlan, data):
+def _block(plan: GridMfPlan, dp, d, rng):
+    lv = plan.levels[d]
+    dl = dp["levels"][d]
+    return _node_block(dl.setdefault("blocks", {}), lv.n_nodes, lv.F,
+                       lv.ghost_diag, lv.asm_idx, lv.asm_off, dl["ev"], rng)
+
+
+def gridmf_factorize(plan: GridMfPlan, data, split=None):
     """Batched multifrontal factorization of the entry values ``data`` (an
     f64 or complex128 tensor on the device to factorize on, in the plan's
     entry order). Returns a fac dict with per-depth ``levels[d]`` =
     {sir, sii, lr, li, br, bi} (planes; the imaginary ones None for a real
     matrix) plus logdet / phase / min_pivot / n_perturbed (0-dim tensors;
-    phase is the determinant's sign for real matrices, 1 for complex)."""
+    phase is the determinant's sign for real matrices, 1 for complex).
+
+    ``split`` (``parallel.mesh.MeshAxis``) spreads the depths over ranks:
+    at a depth whose node count it divides (``split.block``), this rank
+    assembles, inverts and updates only its node block [a, b), whose
+    children [2a, 2b) are its own, so the extend-add moves nothing; at
+    the first depth going up that it does not divide, the children's
+    Schur complements are all-gathered and the rest runs on every rank.
+    A split depth's statistics are summed over the ranks in rank order
+    (``split.combine``). The fac then holds each depth's block and, in
+    ``ranges``, each depth's node range (None: every node)."""
     cplx = data.is_complex()
     rdt = data.real.dtype if cplx else data.dtype
     if rdt != torch.float64:
@@ -546,17 +622,23 @@ def gridmf_factorize(plan: GridMfPlan, data):
     delta = plan.pivot_epsilon * (1.0 + data.abs().max())
 
     store = [None] * len(plan.levels)
+    ranges = [None] * len(plan.levels)
     sch_re = sch_im = None
     ld = torch.zeros((), dtype=rdt, device=dev)
     mp = torch.full((), float("inf"), dtype=rdt, device=dev)
     npc = torch.zeros((), dtype=torch.int32, device=dev)
     ph = torch.ones((), dtype=rdt, device=dev)
+    child_rng = None
     for d in range(len(plan.levels) - 1, -1, -1):
         lv = plan.levels[d]
         dl = dp["levels"][d]
-        fr = _assemble(lv, dl, uniq_re)
-        fi = _assemble(lv, dl, uniq_im, ghost=False) if cplx else None
+        rng = None if split is None else split.block(lv.n_nodes)
+        blk = _block(plan, dp, d, rng)
+        fr = _assemble(lv, dl, uniq_re, blk=blk)
+        fi = _assemble(lv, dl, uniq_im, ghost=False, blk=blk) if cplx \
+            else None
         if sch_re is not None:
+            sch_re, sch_im = _regroup(split, child_rng, rng, (sch_re, sch_im))
             tr, ti = _embed_mat(dl, sch_re, sch_im)
             fr = fr + tr
             if cplx:
@@ -568,19 +650,24 @@ def gridmf_factorize(plan: GridMfPlan, data):
         Cr, Ci = fr[:, e:, :e], (fi[:, e:, :e] if cplx else None)
         Rr, Ri = fr[:, e:, e:], (fi[:, e:, e:] if cplx else None)
         SIr, SIi, ld_d, mp_d, np_d, ph_d = _inv_planes(Sr, Si, delta)
+        ld_d, mp_d, np_d, ph_d = _combine(split, rng, ld_d, mp_d, np_d, ph_d)
         Lr, Li = _mm(Cr, Ci, SIr, SIi)
         Ur, Ui = _mm(Lr, Li, Br, Bi)
         sch_re = Rr - Ur
         sch_im = (Ri - Ui) if cplx else None
         store[d] = {"sir": SIr, "sii": SIi, "lr": Lr, "li": Li,
                     "br": Br, "bi": Bi}
+        ranges[d] = child_rng = rng
         ld = ld + ld_d
         mp = torch.minimum(mp, mp_d)
         npc = npc + np_d
         if not cplx:
             ph = ph * ph_d
-    return {"levels": store, "logdet": ld, "phase": ph, "min_pivot": mp,
-            "n_perturbed": npc}
+    fac = {"levels": store, "logdet": ld, "phase": ph, "min_pivot": mp,
+           "n_perturbed": npc}
+    if split is not None:
+        fac["ranges"] = ranges
+    return fac
 
 
 def gridmf_flops(plan: GridMfPlan) -> int:
@@ -599,15 +686,59 @@ def gridmf_store_gb(plan: GridMfPlan, bytes_per: int = 8) -> float:
                            for lv in plan.levels) / 2 ** 30
 
 
-def gridmf_solve(plan: GridMfPlan, fac, bvec):
+def _solve_ranges(n_nodes, fac, split):
+    """The node range of each depth (or class) that a solve through
+    ``split`` runs, checked against the factorization's."""
+    ranges = fac.get("ranges")
+    if split is None:
+        if ranges is not None and any(
+                r is not None and r != (0, n) for r, n in zip(ranges,
+                                                              n_nodes)):
+            raise ValueError("these factors are split over ranks: solve "
+                             "them through the parallel package")
+        return [None] * len(n_nodes)
+    want = [split.block(n) for n in n_nodes]
+    if ranges != want:
+        raise ValueError(f"the factors' node ranges {ranges} are not this "
+                         f"rank's {want}")
+    return want
+
+
+def _scatter_blocks(split, x_planes, pending):
+    """Write the split depths' (or classes') solution blocks into x: one
+    all-gather of every block this rank holds, then each depth's rows in
+    rank order, written at its elim vars ``ev``."""
+    if not pending:
+        return
+    flat = torch.cat([blk.reshape(-1) for _, planes in pending
+                      for blk in planes if blk is not None])
+    rows = split.gather(flat).view(split.world, -1)
+    off = 0
+    for ev, planes in pending:
+        for x, blk in zip(x_planes, planes):
+            if blk is None:
+                continue
+            k = blk.numel()
+            x.index_put_((ev,), rows[:, off:off + k].reshape(-1))
+            off += k
+
+
+def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     """x = A^{-1} b through the stored fronts: up-sweep (forward
     elimination of the rhs) then down-sweep (back-substitution), batched
     matrix-vector products. ``bvec`` is a tensor on the factors' device;
-    x is complex128 when the factors are complex, else float64."""
+    x is complex128 when the factors are complex, else float64.
+
+    ``split`` solves factors made with the same ``split``: each split
+    depth's sweeps run on this rank's node block, the keep right-hand
+    sides are all-gathered where the children are split and the parent is
+    not, and the split depths' solution blocks are all-gathered into x,
+    which every rank returns whole."""
     cplx = fac["levels"][-1]["sii"] is not None
     sir = fac["levels"][-1]["sir"]
     rdt, dev = sir.dtype, sir.device
     dp = _device_plan(plan, dev)
+    ranges = _solve_ranges([lv.n_nodes for lv in plan.levels], fac, split)
     n = plan.n
     b_re = bvec.real if bvec.is_complex() else bvec
     bp_re = torch.zeros(n + 1, dtype=rdt, device=dev)
@@ -621,23 +752,28 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec):
     D = len(plan.levels) - 1
     fe_st = [None] * (D + 1)
     fk_re = fk_im = None
+    child_rng = None
     for d in range(D, -1, -1):
         lv = plan.levels[d]
         dl = dp["levels"][d]
         st = fac["levels"][d]
         e = lv.e
-        ev = dl["ev"]
-        fr = torch.zeros((lv.n_nodes, lv.F), dtype=rdt, device=dev)
-        fi = torch.zeros((lv.n_nodes, lv.F), dtype=rdt, device=dev) \
+        rng = ranges[d]
+        blk = _block(plan, dp, d, rng)
+        nn, ev = (lv.n_nodes, dl["ev"]) if blk is None else (blk["n"],
+                                                             blk["ev"])
+        fr = torch.zeros((nn, lv.F), dtype=rdt, device=dev)
+        fi = torch.zeros((nn, lv.F), dtype=rdt, device=dev) \
             if cplx else None
         if fk_re is not None:
+            fk_re, fk_im = _regroup(split, child_rng, rng, (fk_re, fk_im))
             tr, ti = _embed_vec(dl, fk_re, fk_im)
             fr = fr + tr
             if cplx:
                 fi = fi + ti
-        fr[:, :e] += bp_re.index_select(0, ev).view(lv.n_nodes, e)
+        fr[:, :e] += bp_re.index_select(0, ev).view(nn, e)
         if cplx:
-            fi[:, :e] += bp_im.index_select(0, ev).view(lv.n_nodes, e)
+            fi[:, :e] += bp_im.index_select(0, ev).view(nn, e)
         fer, fei = fr[:, :e], (fi[:, :e] if cplx else None)
         fe_st[d] = (fer, fei)
         # keep-rhs update: fk - Lhat @ fe
@@ -645,22 +781,34 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec):
                      fei[:, :, None] if cplx else None)
         fk_re = fr[:, e:] - ur[:, :, 0]
         fk_im = (fi[:, e:] - ui[:, :, 0]) if cplx else None
+        child_rng = rng
 
     # x gets one slot past n: ghost elim vars (index n) are written there
     # and dropped
     x_re = torch.zeros(n + 1, dtype=rdt, device=dev)
     x_im = torch.zeros(n + 1, dtype=rdt, device=dev) if cplx else None
     xf_re = xf_im = None
+    parent_rng = None
+    pending = []
     for d in range(0, D + 1):
         lv = plan.levels[d]
         dl = dp["levels"][d]
         st = fac["levels"][d]
+        rng = ranges[d]
         if d == 0:
-            xk_re = torch.zeros((1, lv.r), dtype=rdt, device=dev)
-            xk_im = torch.zeros((1, lv.r), dtype=rdt, device=dev) \
+            nn = lv.n_nodes if rng is None else rng[1] - rng[0]
+            xk_re = torch.zeros((nn, lv.r), dtype=rdt, device=dev)
+            xk_im = torch.zeros((nn, lv.r), dtype=rdt, device=dev) \
                 if cplx else None
         else:
+            if parent_rng is not None and rng is None:
+                xf_re, xf_im = (None if v is None else split.gather(v)
+                                for v in (xf_re, xf_im))
             xk_re, xk_im = _restrict_vec(lv, dl, xf_re, xf_im)
+            if parent_rng is None and rng is not None:
+                a, b = rng
+                xk_re = xk_re[a:b]
+                xk_im = xk_im[a:b] if cplx else None
         fer, fei = fe_st[d]
         br_, bi_ = _mm(st["br"], st["bi"], xk_re[:, :, None],
                        xk_im[:, :, None] if cplx else None)
@@ -670,11 +818,16 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec):
                        ri[:, :, None] if cplx else None)
         xer = xer[:, :, 0]
         xei = xei[:, :, 0] if cplx else None
-        x_re.index_put_((dl["ev"],), xer.reshape(-1))
-        if cplx:
-            x_im.index_put_((dl["ev"],), xei.reshape(-1))
+        if rng is None:
+            x_re.index_put_((dl["ev"],), xer.reshape(-1))
+            if cplx:
+                x_im.index_put_((dl["ev"],), xei.reshape(-1))
+        else:
+            pending.append((dl["ev"], (xer, xei)))
         xf_re = torch.cat([xer, xk_re], dim=1)
         xf_im = torch.cat([xei, xk_im], dim=1) if cplx else None
+        parent_rng = rng
+    _scatter_blocks(split, (x_re, x_im), pending)
     if cplx:
         return torch.complex(x_re[:n], x_im[:n])
     return x_re[:n]

@@ -732,6 +732,56 @@ def _pair_chunks(seg_ptr, ln, K=None):
             int(nck_o[nck_o > 1].sum()))
 
 
+def _chunk_arrays(seg_ptrs, lens):
+    """``_pair_chunks`` of every factorize row, stacked for one upload:
+    (chunks per row, (nrows, most chunks, 4) chunk rows, (nrows, most
+    lanes) lane offsets)."""
+    chunks = [_pair_chunks(sp, int(ln)) for sp, ln in zip(seg_ptrs, lens)]
+    ck_cap = max(len(c) for c, _, _ in chunks)
+    ln_cap = max(len(off) for _, off, _ in chunks)
+    chunk_a = np.zeros((len(chunks), ck_cap, 4), dtype=np.int32)
+    lane_off_a = np.zeros((len(chunks), ln_cap), dtype=np.int32)
+    for r, (c, off, _) in enumerate(chunks):
+        chunk_a[r, :len(c)] = c
+        lane_off_a[r, :len(off)] = off
+    return chunks, chunk_a, lane_off_a
+
+
+def _work_lists(chunks, chunk_t, lane_off_t):
+    return [PairWork(chunk_t[r, :len(c)], lane_off_t[r, :len(off)], n_multi)
+            for r, (c, off, n_multi) in enumerate(chunks)]
+
+
+def _rank_pairs(plan: SpluPlan, device, world: int, rank: int):
+    """Rank ``rank`` of ``world``'s share of every factorize row's pairs,
+    split as the reference package's ``dist_splu_factorize`` splits them:
+    a row's pair columns, padded to a multiple of ``world`` (pads: l = u =
+    0, segment TL, dropped), are cut into ``world`` equal runs, and rank r
+    takes run r. Returns one (first live pair, end, PairWork) per row: the
+    live pairs of the rank's run and ``splu_pairs``' chunk schedule over
+    them (a lane without pairs in the run gets an empty chunk and sums to
+    zero). Built once per (plan, device, world, rank) and kept with the
+    plan's device arrays; a world of 1 gets the single-device schedule."""
+    dp = _device_plan(plan, device)
+    key = ("rank_pairs", world, rank)
+    got = dp.get(key)
+    if got is not None:
+        return got
+    pk = plan.packed
+    TL = pk["TL"]
+    run = -(-pk["pair_l"].shape[1] // world)
+    spans = [(min(rank * run, npair), min((rank + 1) * run, npair))
+             for _, _, _, npair, *_ in dp["rows"]]
+    seg_ptrs = [_seg_ptr(pk["pair_seg"][r:r + 1, p0:p1], TL)[0]
+                for r, (p0, p1) in enumerate(spans)]
+    chunks, chunk_a, lane_off_a = _chunk_arrays(seg_ptrs, pk["len"])
+    work = _work_lists(
+        chunks, torch.as_tensor(chunk_a, device=device),
+        torch.as_tensor(lane_off_a, device=device))
+    got = dp[key] = [(p0, p1, w) for (p0, p1), w in zip(spans, work)]
+    return got
+
+
 def _check_range(name, a, hi):
     if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
         raise ValueError(f"plan array {name} leaves [0, {hi})")
@@ -797,14 +847,7 @@ def _device_plan(plan: SpluPlan, device):
     if (seg_ptr[np.arange(len(lens)), lens] != npair).any():
         raise ValueError("plan pairs target segments at or past the row's "
                          "live lanes (len)")
-    chunks = [_pair_chunks(seg_ptr[r], int(lens[r]))
-              for r in range(len(lens))]
-    ck_cap = max(len(c) for c, _, _ in chunks)
-    chunk_a = np.zeros((len(lens), ck_cap, 4), dtype=np.int32)
-    lane_off_a = np.zeros((len(lens), TL), dtype=np.int32)
-    for r, (c, off, _) in enumerate(chunks):
-        chunk_a[r, :len(c)] = c
-        lane_off_a[r, :len(off)] = off
+    chunks, chunk_a, lane_off_a = _chunk_arrays(seg_ptr, lens)
 
     # assembly positions: unit diagonals (identity slot + padding rows)
     # and the four K-embedding positions of every complex entry
@@ -831,9 +874,7 @@ def _device_plan(plan: SpluPlan, device):
                   int(npair[r]), bool(fresh[r].any()), len(chunks[r][0]),
                   chunks[r][2])
                  for r in range(len(pk["t0"]))],
-        "work": [PairWork(chunk_t[r, :len(c)], lane_off_t[r, :len(off)],
-                          n_multi)
-                 for r, (c, off, n_multi) in enumerate(chunks)],
+        "work": _work_lists(chunks, chunk_t, lane_off_t),
         "pair_l": t(pk["pair_l"], torch.int32),
         "pair_u": t(pk["pair_u"], torch.int32),
         "pair_seg": t(pair_seg, torch.int32),
@@ -1020,7 +1061,8 @@ def _init_states(plan: SpluPlan, datas, dp):
     return states, deltas, cplxs
 
 
-def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp):
+def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp, pairs=None,
+                 reduce=None):
     """Run the packed left-looking elimination over the schedule rows.
     Per row and state: subtract the segment-summed pair products
     (``splu_pairs``), invert the diagonal lanes (a row PREFIX of ``nd``
@@ -1032,19 +1074,27 @@ def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp):
     Where the reference package's ``lax.scan`` writes the row window with
     ``dynamic_update_slice`` and masks dead lanes, this loop writes the
     live range ``blocks[t0:t0+len]`` in place: ``len`` and ``nd`` are host
-    ints. The states are updated in place."""
+    ints. The states are updated in place.
+
+    With ``pairs`` (``_rank_pairs``) each row sums only this rank's share
+    of its pairs, and ``reduce`` (an all-reduce over the ranks) makes the
+    sum whole before the rest of the row, which every rank runs alike: the
+    reference package's ``psum_axis``."""
     b = plan.b
     for r, (t0, ln, nd, npair, has_fresh, _, _) in enumerate(dp["rows"]):
-        pl_r = dp["pair_l"][r, :npair]
-        pu_r = dp["pair_u"][r, :npair]
-        ps_r = dp["pair_seg"][r, :npair]
-        work_r = dp["work"][r]
+        p0, p1, work_r = ((0, npair, dp["work"][r]) if pairs is None
+                          else pairs[r])
+        pl_r = dp["pair_l"][r, p0:p1]
+        pu_r = dp["pair_u"][r, p0:p1]
+        ps_r = dp["pair_seg"][r, p0:p1]
         dinv_r = dp["dinv"][r, :ln]
         for st, delta, cplx in zip(states, deltas, cplxs):
             blocks = st[0]
             width = blocks.shape[1]
             be = 2 * b if cplx else b
             acc = splu_pairs(blocks, pl_r, pu_r, ps_r, work_r, ln, be)
+            if reduce is not None:
+                acc = reduce(acc)
             vals = (blocks[t0:t0 + ln] - acc).view(ln, be, be)
             Dv = gather_rows(blocks, dinv_r).view(ln, be, be)
             if nd:

@@ -1260,3 +1260,41 @@ def test_vmapped_calc_stress_on_card_matches_cpu(cuda):
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), stress("cpu").numpy(),
                                rtol=1e-13, atol=0)
+
+
+def test_world_of_one_on_nccl_is_single_device_bit_for_bit(cuda, tmp_path):
+    # russell_tpu_torch.parallel in a world of one rank on the card: the
+    # split SPLU scan (its rank's pair schedule, an all-reduce a row) and
+    # the split GRIDMF depths give the single-device factors bit for bit
+    import torch.distributed as dist
+    from russell_tpu_torch import parallel as par
+    from russell_tpu_torch.sparse import gridmf
+    plan, jv = _brusselator_plan(17)
+    n = plan.n
+    vals = torch.as_tensor(np.concatenate([-jv, np.full(n, 30.0)]),
+                           device=cuda)
+    gplan = factor.analyze(n, plan.rows, plan.cols,
+                           grid=samples.brusselator_pde(2e-3, 17)[0].grid,
+                           genie=Genie.GRIDMF).gridmf_plan
+    par.initialize_multihost(init_method=f"file://{tmp_path}/store",
+                             num_processes=1, process_id=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = par.make_mesh()
+        sp = plan.splu_plan
+        want = splu.splu_factorize(sp, vals)
+        n0 = splu.splu_pairs.launches
+        got = par.dist_splu_factorize(mesh, sp, vals)
+        assert splu.splu_pairs.launches > n0
+        for k in ("blocks", "logdet", "min_pivot", "n_perturbed", "phase"):
+            assert torch.equal(got[k], want[k]), k
+        want = gridmf.gridmf_factorize(gplan, vals)
+        got = par.dist_gridmf_factorize(mesh, gplan, vals)
+        for d, (g, w) in enumerate(zip(got["levels"], want["levels"])):
+            for k, v in w.items():
+                assert (v is None and g[k] is None) or torch.equal(g[k], v), \
+                    (d, k)
+        for k in ("logdet", "min_pivot", "n_perturbed", "phase"):
+            assert torch.equal(got[k], want[k]), k
+    finally:
+        dist.destroy_process_group()

@@ -1,5 +1,6 @@
 """russell_tpu_torch never imports jax (nor russell_tpu), and neither do
-chip_smoke.py and gj_inv_variants.py."""
+chip_smoke.py, gj_inv_variants.py and the rank processes of
+tests/test_torch_parallel.py (tests/_torch_parallel_ranks.py)."""
 
 import os
 import pkgutil
@@ -99,13 +100,22 @@ def test_port_modules_import_without_jax():
             "russell_tpu_torch.utils.profiling",
             "russell_tpu_torch.bin.brusselator_pde",
             "russell_tpu_torch.bin.amplifier1t",
-            "russell_tpu_torch.bin.mem_check"} <= set(names)
+            "russell_tpu_torch.bin.mem_check",
+            "russell_tpu_torch.parallel", "russell_tpu_torch.parallel.mesh",
+            "russell_tpu_torch.parallel.multihost",
+            "russell_tpu_torch.parallel.dist_sparse",
+            "russell_tpu_torch.parallel.batch",
+            "russell_tpu_torch.parallel.dist_splu",
+            "russell_tpu_torch.parallel.dist_gridmf",
+            "russell_tpu_torch.parallel.dist_genmf"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke, gj_inv_variants\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_parallel_ranks\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'russell_tpu'))\n"
         "assert not bad, bad\n"
