@@ -202,14 +202,15 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    with the first call's wall and device ms (set-up), the median of
    LAB_REPS calls after it and GFLOP/s where the flops are defined. Then
    ``jacobi_eig`` (``csrc/jacobi_eig.cu``) bit for bit against its plain
-   version run on the CPU at JACOBI_PLAIN_N (the largest also through the
-   global-memory route), the plain version on the card once, and
+   version run on the CPU at JACOBI_PLAIN_N (the largest on each of the
+   three routes: one CTA, a cluster of 16 CTAs and of 8, the cluster on
+   global scratch), the plain version on the card once, and
    ``mat_eigen_sym_jacobi`` at JACOBI_N (its launches counted from 0 over
-   those calls) against ``torch.linalg.eigh`` (eigenvalues, |A V - V w|
-   and |V^T V - I|): time, bound, barriers; its launch at JACOBI_N[0] is
-   held bit for bit to the plain version, run on the CPU in a process of
-   its own while the phase goes on. Then
-   every elementwise public function of ``math`` on LAB_POINTS seeded
+   those calls, each held bit for bit to the plain version run on the
+   card) against ``torch.linalg.eigh`` (eigenvalues, |A V - V w| and
+   |V^T V - I|): route and CTAs, time, the plain version's time, bound,
+   ns a round, and the rounds and barriers the kernel's code runs.
+   Then every elementwise public function of ``math`` on LAB_POINTS seeded
    points with the edge values first (poles, 0, +-1, negative arguments,
    the Bessel branch limits 8, 17, 26): every LAB_ORACLE_STRIDE-th point
    against ``scipy.special`` at tests/test_math.py's tolerances (``beta``
@@ -3922,10 +3923,7 @@ LAB_CPU_POINTS = 4096     # points of the port's CPU run
 # the card against the CPU run where scipy is held more loosely
 LAB_CPU_TOL = {"beta(b>=8)": 1e-13, "ln_beta(b>=8)": 1e-13}
 JACOBI_PLAIN_N = (2, 8, 32)   # kernel against its plain version on the CPU
-JACOBI_N = (128, 256)         # 128 runs the global-memory route
-# the main path's launch at JACOBI_N[0] against the plain version on the
-# CPU, run in a process of its own beside the rest of the phase
-JACOBI_HELD_TIMEOUT_S = 600
+JACOBI_N = (128, 256)         # both on the cluster route
 NEWTON_N = (64, 2048)
 # the reference's counters (russell_tpu on the CPU): RootFinder on x^4 - 1
 # (chebyshev, refine) then brent on sin in [2, 4]: (n_function, n_jacobian,
@@ -4105,13 +4103,24 @@ def lab_dense():
     return out
 
 
-def jacobi_work(n, sweeps):
-    """(bytes, flops, barriers) of one decomposition: A read and V and w
-    written once; per rotation 18 n + 13 flops (rows and columns of A and
-    V: 6 flops an updated pair of entries; the rotation's scalars); two
-    barriers a rotation."""
+def jacobi_work(n, sweeps, route):
+    """(bytes, flops, from_code) of one decomposition on ``route``: A read
+    and V and w written once; per rotation 18 n + 13 flops (rows and
+    columns of A and V: 6 flops an updated pair of entries; the rotation's
+    scalars), n (n - 1) / 2 rotations a sweep. ``from_code`` holds counts
+    that follow from the kernel's code, not measured: its rounds, m - 1 a
+    sweep (m = n rounded up to even), and its barriers. One CTA runs two
+    CTA barriers a round, two in its set-up and one at the end; a cluster
+    runs one CTA barrier and two cluster barriers a round (the arrive and
+    wait around V^T's rows, the sync after A's blocks), one of each in its
+    set-up and a cluster barrier at the end."""
     rot = sweeps * n * (n - 1) // 2
-    return 8 * (2 * n * n + n), rot * (18 * n + 13), 2 * rot + 1
+    rounds = sweeps * (n + n % 2 - 1)
+    cta = route == "cta"
+    return 8 * (2 * n * n + n), rot * (18 * n + 13), {
+        "rounds": rounds,
+        "cta_barriers": 2 * rounds + 3 if cta else rounds + 1,
+        "cluster_barriers": 0 if cta else 2 * rounds + 2}
 
 
 def lab_sym(n, seed):
@@ -4121,43 +4130,64 @@ def lab_sym(n, seed):
     return (a + a.T) / 2
 
 
+def jacobi_forced(route, fn, ctas=None):
+    """fn() with jacobi_eig's shared-memory budget lowered so that n 32 or
+    33 takes ``route``: "cluster" (4 KB: a cluster CTA's share fits, one
+    CTA's rows do not), "global" (1 KB) or "cta" (the budget as it is);
+    ``ctas``, where given, caps the cluster's CTAs (JACOBI_CLUSTER)."""
+    from russell_tpu_torch.dense import matrix_ops
+    saved = matrix_ops.JACOBI_SMEM_BYTES, matrix_ops.JACOBI_CLUSTER
+    try:
+        matrix_ops.JACOBI_SMEM_BYTES = {"cta": saved[0], "cluster": 4096,
+                                        "global": 1024}[route]
+        matrix_ops.JACOBI_CLUSTER = ctas or saved[1]
+        return fn()
+    finally:
+        matrix_ops.JACOBI_SMEM_BYTES, matrix_ops.JACOBI_CLUSTER = saved
+
+
 def lab_jacobi():
     """jacobi_eig bit for bit against its plain version (run on the CPU)
-    at JACOBI_PLAIN_N, and through the global-memory route at the largest;
-    the plain version on the card once; then mat_eigen_sym_jacobi at
-    JACOBI_N (the main window: its launches), eigenvalues within
-    LAB_RES_TOL ||A|| of torch.linalg.eigh, |A V - V w| within
-    LAB_RES_TOL ||A|| and |V^T V - I| within LAB_RES_TOL, with the kernel's
-    time, the bound and eigh's time at each n. Returns the record and the
-    main window's (w, V) on the host, by n."""
+    at JACOBI_PLAIN_N, the largest on every route (one CTA, the cluster of
+    16 CTAs and of 8, the portable size, the cluster on global scratch);
+    the plain version on the card once;
+    then mat_eigen_sym_jacobi at JACOBI_N (the main window: its launches),
+    each launch held bit for bit to the plain version run on the card,
+    eigenvalues within LAB_RES_TOL ||A|| of torch.linalg.eigh, |A V - V w|
+    within LAB_RES_TOL ||A|| and |V^T V - I| within LAB_RES_TOL, with the
+    route and its CTAs, the kernel's time, the plain version's, the bound,
+    the rounds and barriers that follow from the kernel's code
+    (``jacobi_work``), ns a round and eigh's time at each n."""
     from russell_tpu_torch.dense import mat_eigen_sym_jacobi, matrix_ops
     sweeps = matrix_ops.JACOBI_SWEEPS
     held = []
     for n in JACOBI_PLAIN_N:
         a = lab_sym(n, n)
         t0 = time.perf_counter()
-        wp, Vp = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), sweeps)
-        plain_cpu = (wp, Vp)
+        plain_cpu = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), sweeps)
         plain_cpu_s = time.perf_counter() - t0
         ac = torch.as_tensor(a, device="cuda")
-        routes = [None] + ([16] if n == JACOBI_PLAIN_N[-1] else [])
-        for budget in routes:
-            default = matrix_ops.JACOBI_SMEM_BYTES
-            try:
-                if budget is not None:
-                    matrix_ops.JACOBI_SMEM_BYTES = budget
+        routes = [("cta", None)] + ([("cluster", None), ("cluster", 8),
+                                     ("global", None)]
+                                    if n == JACOBI_PLAIN_N[-1] else [])
+        for route, ctas in routes:
+            def run():
+                got = matrix_ops._jacobi_route(n)
+                if got[0] != route or (ctas and got[1] != ctas):
+                    raise AssertionError(f"jacobi_eig n {n}: {got[:2]}, not "
+                                         f"the {route} route on {ctas}")
                 w, V = matrix_ops.jacobi_eig(ac)
-                w.cpu()
-            finally:
-                matrix_ops.JACOBI_SMEM_BYTES = default
-            if not (torch.equal(w.cpu(), wp) and torch.equal(V.cpu(), Vp)):
-                raise AssertionError(f"jacobi_eig n {n}: not the plain "
-                                     "version's bits")
-            held.append({"n": n, "route": "shared" if budget is None
-                         else "global", "bit_identical": True,
+                return w.cpu(), V.cpu(), got[1]
+            w, V, used = jacobi_forced(route, run, ctas)
+            if not (torch.equal(w, plain_cpu[0])
+                    and torch.equal(V, plain_cpu[1])):
+                raise AssertionError(f"jacobi_eig n {n} ({route}, {used} "
+                                     "CTAs): not the plain version's bits")
+            held.append({"n": n, "route": route, "ctas": used,
+                         "bit_identical": True,
                          "max_abs_err": max(
-                             float((w.cpu() - wp).abs().max()),
-                             float((V.cpu() - Vp).abs().max())),
+                             float((w - plain_cpu[0]).abs().max()),
+                             float((V - plain_cpu[1]).abs().max())),
                          "plain_cpu_s": plain_cpu_s})
     n = JACOBI_PLAIN_N[-1]
     a = torch.as_tensor(lab_sym(n, n), device="cuda")
@@ -4167,11 +4197,14 @@ def lab_jacobi():
             and torch.equal(Vpc.cpu(), plain_cpu[1])):
         raise AssertionError("jacobi_eig's plain version: other bits on the "
                              "card than on the CPU")
-    nb, fl, barriers = jacobi_work(n, sweeps)
+    route, ctas = matrix_ops._jacobi_route(n)[:2]
+    nb, fl, from_code = jacobi_work(n, sweeps, route)
     bms, by = bound(nb, fl)
-    small = {"n": n, "ms": time_ms(lambda: matrix_ops.jacobi_eig(a), reps=5),
+    kms = time_ms(lambda: matrix_ops.jacobi_eig(a), reps=5)
+    small = {"n": n, "route": route, "ctas": ctas, "ms": kms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-             "barriers": barriers,
+             "from_code": from_code,
+             "ns_per_round": 1e6 * kms / from_code["rounds"],
              "library_ms": time_ms(lambda: torch.linalg.eigh(a), reps=5)}
     mats = {n: torch.as_tensor(lab_sym(n, n), device="cuda")
             for n in JACOBI_N}
@@ -4183,6 +4216,8 @@ def lab_jacobi():
         raise AssertionError(f"jacobi_eig: {launches} launches on the path")
     at_n = {}
     for n in JACOBI_N:
+        rec = jacobi_main_held(n, outs, sweeps)
+        held.append(rec)
         w, V = (t.cuda() for t in outs[n])
         we = torch.linalg.eigvalsh(mats[n])
         scale = float(torch.linalg.matrix_norm(mats[n], 2))
@@ -4193,50 +4228,55 @@ def lab_jacobi():
         orth = lab_check(f"jacobi n {n} |V^T V - I|", float(
             (V.mT @ V - torch.eye(n, dtype=V.dtype, device=V.device))
             .abs().max()), LAB_RES_TOL)
-        nb, fl, barriers = jacobi_work(n, sweeps)
+        nb, fl, from_code = jacobi_work(n, sweeps, rec["route"])
         bms, by = bound(nb, fl)
         kms = statistics.median(lab_timed(
             lambda: matrix_ops.jacobi_eig(mats[n]))[2] for _ in range(3))
-        at_n[n] = {"route": "shared" if 16 * n * (n + 1)
-                   <= matrix_ops.JACOBI_SMEM_BYTES else "global",
-                   "ms": kms, "bound_ms": bms, "bound_by": by,
-                   "barriers": barriers, "ns_per_barrier": 1e6 * kms
-                   / barriers, "eig_max_rel_err": err,
-                   "residual": resid, "orthogonality": orth,
+        at_n[n] = {"route": rec["route"], "ctas": rec["ctas"], "ms": kms,
+                   "plain_ms": rec["plain_ms"], "bound_ms": bms,
+                   "bound_by": by, "from_code": from_code,
+                   "ns_per_round": 1e6 * kms / from_code["rounds"],
+                   "eig_max_rel_err": err, "residual": resid,
+                   "orthogonality": orth,
                    "library_ms": time_ms(lambda: torch.linalg.eigh(mats[n]),
                                          reps=5)}
     return {"held_to_plain": held, "launches": launches, "small": small,
-            "at_n": at_n}, outs
+            "at_n": at_n}
 
 
-def jacobi_plain_sorted(n, sweeps):
-    """(w, V, seconds): the plain version of jacobi_eig on the CPU (one
-    thread) on lab_sym(n, n), sorted as mat_eigen_sym_jacobi sorts. The
-    phase runs it in a process of its own, beside its other work."""
+def jacobi_plain_sorted(n, sweeps, device="cpu"):
+    """(w, V, device ms or host s): the plain version of jacobi_eig on
+    lab_sym(n, n) on ``device``, sorted as mat_eigen_sym_jacobi sorts; on
+    the card timed by CUDA events, on the CPU by the host clock."""
     from russell_tpu_torch.dense import matrix_ops
-    torch.set_num_threads(1)
-    t0 = time.perf_counter()
-    w, V = matrix_ops._jacobi_eig_plain(torch.as_tensor(lab_sym(n, n)),
-                                        sweeps)
+    a = torch.as_tensor(lab_sym(n, n), device=device)
+    if a.device.type == "cuda":
+        (w, V), _, took = lab_timed(
+            lambda: matrix_ops._jacobi_eig_plain(a, sweeps))
+    else:
+        t0 = time.perf_counter()
+        w, V = matrix_ops._jacobi_eig_plain(a, sweeps)
+        took = time.perf_counter() - t0
     order = torch.argsort(w, stable=True)
-    return w[order], V[:, order], time.perf_counter() - t0
+    return w[order].cpu(), V[:, order].cpu(), took
 
 
-def jacobi_main_held(plain, outs):
-    """The main window's launch at JACOBI_N[0] against ``plain`` (the
-    pending jacobi_plain_sorted), bit for bit; a held_to_plain record."""
-    t0 = time.perf_counter()
-    wp, Vp, plain_cpu_s = plain.get(timeout=JACOBI_HELD_TIMEOUT_S)
-    waited_s = time.perf_counter() - t0
-    n = JACOBI_N[0]
+def jacobi_main_held(n, outs, sweeps, device="cuda"):
+    """The main window's launch at ``n`` (``outs[n]``, mat_eigen_sym_jacobi's
+    (w, V) on the host) against the plain version run on ``device``, bit for
+    bit; a held_to_plain record with the plain version's time."""
+    from russell_tpu_torch.dense import matrix_ops
+    wp, Vp, took = jacobi_plain_sorted(n, sweeps, device)
     w, V = outs[n]
     if not (torch.equal(w, wp) and torch.equal(V, Vp)):
         raise AssertionError(f"mat_eigen_sym_jacobi n {n} (the main path's "
                              "launch): not the plain version's bits")
-    return {"n": n, "route": "global", "main_path": True,
+    route, ctas = (matrix_ops._jacobi_route(n)[:2] if device == "cuda"
+                   else (None, None))
+    return {"n": n, "route": route, "ctas": ctas, "main_path": True,
             "bit_identical": True, "max_abs_err": max(
                 float((w - wp).abs().max()), float((V - Vp).abs().max())),
-            "plain_cpu_s": plain_cpu_s, "waited_s": waited_s}
+            ("plain_ms" if device == "cuda" else "plain_cpu_s"): took}
 
 
 def lab_inputs(edges, lo, hi, seed):
@@ -4619,28 +4659,18 @@ def lab_algo():
 def phase_lab_path():
     """Phase 24: core, math, dense and algo at the sizes their users run
     (the module docstring's item 24). Returns the records; the kernels line
-    takes the Jacobi one. The plain version of the main window's first
-    ``jacobi_eig`` launch runs on the CPU in a process of its own from the
-    start, and is held to that launch at the end."""
-    import multiprocessing
-    from russell_tpu_torch.dense import matrix_ops
+    takes the Jacobi one."""
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        plain = pool.apply_async(jacobi_plain_sorted,
-                                 (JACOBI_N[0], matrix_ops.JACOBI_SWEEPS))
-        res = {"dense": lab_dense()}
-        say("lab_path", part="dense", **res["dense"])
-        res["jacobi"], outs = lab_jacobi()
-        say("lab_path", part="jacobi",
-            **{k: v for k, v in res["jacobi"].items() if k != "at_n"},
-            at_n={str(k): v for k, v in res["jacobi"]["at_n"].items()})
-        res["special"] = lab_special()
-        say("lab_path", part="special", functions=res["special"])
-        res["algo"] = lab_algo()
-        say("lab_path", part="algo", **res["algo"])
-        held = jacobi_main_held(plain, outs)
-    res["jacobi"]["held_to_plain"].append(held)
-    say("lab_path", part="jacobi_main_held", **held)
+    res = {"dense": lab_dense()}
+    say("lab_path", part="dense", **res["dense"])
+    res["jacobi"] = lab_jacobi()
+    say("lab_path", part="jacobi",
+        **{k: v for k, v in res["jacobi"].items() if k != "at_n"},
+        at_n={str(k): v for k, v in res["jacobi"]["at_n"].items()})
+    res["special"] = lab_special()
+    say("lab_path", part="special", functions=res["special"])
+    res["algo"] = lab_algo()
+    say("lab_path", part="algo", **res["algo"])
     say("lab_path", part="done", wall_s=time.perf_counter() - t0)
     return res
 
@@ -4651,13 +4681,14 @@ def jacobi_entry(lres):
     j = lres["jacobi"]
     s = j["small"]
     return {"name": "jacobi_eig", "route": "cuda",
+            "kernel_route": s["route"], "ctas": s["ctas"],
             "source": "russell_tpu_torch/csrc/jacobi_eig.cu",
             "replaces": "russell_tpu/dense/matrix_ops.py:148 (plain XLA)",
             "launches": j["launches"],
             "max_abs_err": max(h["max_abs_err"] for h in j["held_to_plain"]),
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"], "barriers": s["barriers"],
+            "library_ms": s["library_ms"], "ns_per_round": s["ns_per_round"],
             "held_to_plain": j["held_to_plain"],
             "at_n": {str(k): v for k, v in j["at_n"].items()},
             "shapes": f"n {s['n']} (held bit for bit; plain_ms one call of "

@@ -3,7 +3,7 @@
 the design of ``russell_tpu_torch/csrc/gj_inv.cu`` was chosen.
 
 Each variant is the kernel's source with a few lines replaced, compiled by
-nvcc into ``build/variants/`` and launched through the same C entry point
+nvcc (``kernel_variants.py``) and launched through the same C entry point
 on the (lanes, m) shapes of the base calls of the GRIDMF and SPLU plans
 (diagonally dominant blocks with two zero pivots to clamp, as in
 ``chip_smoke.gj_inputs``). After one second of f64 GEMMs that wakes the
@@ -31,20 +31,17 @@ variants named. Run from the repository root:
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
 import sys
-import time
 
 import torch
 
 import chip_smoke as cs
+import kernel_variants as kv
 from russell_tpu_torch.sparse import _cuda, splu
 
-SOURCE = os.path.join(_cuda.CSRC, "gj_inv.cu")
-OUT = os.path.join(_cuda.BUILD_DIR, "variants")
 SHAPES = ((64, 16), (64, 32), (4096, 32), (1, 33), (8, 66), (64, 64),
           (16, 96), (1, 129), (64, 128), (4, 134), (2, 143), (1024, 128))
 
@@ -101,60 +98,8 @@ EXACT = ("final", "r16_to_128", "r24_to_64", "r34_to_136", "two_slices",
          "late_loads", "ddiv_zeros")
 
 
-def build(names):
-    """Compile every variant, one nvcc each, all at once; returns {name:
-    (entry point, ptxas lines)}."""
-    src = open(SOURCE).read()
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} is not in "
-                                 f"{SOURCE}")
-            text = text.replace(old, new)
-        cu = os.path.join(OUT, f"gj_inv_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        so = os.path.join(OUT, f"libgj_inv_{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", _cuda.CSRC, "-o", so,
-             cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    out = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        fn = ctypes.CDLL(so).gj_inv_f64
-        fn.argtypes = _cuda._SIGNATURES["gj_inv"]["gj_inv_f64"]
-        fn.restype = ctypes.c_int
-        out[name] = (fn, [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln])
-    return out
-
-
-def clocks():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-
-
 def main():
-    cs.phase_device()
-    names = (sys.argv[sys.argv.index("--only") + 1].split(",")
-             if "--only" in sys.argv else list(VARIANTS))
-    fns = build(names)
-    for name, (_, ptxas) in fns.items():
-        cs.say("variant_build", variant=name, ptxas=ptxas)
-    a = torch.ones((4096, 4096), dtype=torch.float64, device="cuda")
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:
-        a @ a
-        torch.cuda.synchronize()
-    cs.say("clocks_after_warmup", nvidia_smi=clocks())
+    fns = kv.start("gj_inv", "gj_inv_f64", VARIANTS)
     delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
     for w, m in SHAPES:
         D = cs.gj_inputs(w, m, w + m)
@@ -185,9 +130,9 @@ def main():
                               "logdet_rel_err": ld_rel}), flush=True)
             if name in EXACT and not same:
                 raise AssertionError(f"{name} at ({w}, {m}): other bits")
-    cs.say("clocks_after", nvidia_smi=clocks())
+    cs.say("clocks_after", nvidia_smi=kv.clocks())
     if "--sass" in sys.argv:
-        with open(os.path.join(OUT, "gj_inv.sass"), "w") as f:
+        with open(os.path.join(kv.OUT, "gj_inv.sass"), "w") as f:
             subprocess.run([os.path.join(os.path.dirname(_cuda._nvcc()),
                                          "cuobjdump"), "-sass",
                             _cuda.build("gj_inv")], stdout=f, check=True,

@@ -5,8 +5,8 @@ russell_lab/src/{vector,matvec,matrix}).
 Torch and ``torch.linalg`` ops on the device rule of ``core/_place.py``
 (a tensor's own device, else ``device=``, the card by default),
 dtype-polymorphic (complex tensors cover the ``complex_*`` twins); the
-cyclic Jacobi eigensolver runs the CUDA kernel ``csrc/jacobi_eig.cu`` on
-the card.
+Jacobi eigensolver runs the CUDA kernel ``csrc/jacobi_eig.cu`` on the
+card.
 """
 
 from russell_tpu_torch.dense.vector_ops import (

@@ -10,13 +10,15 @@ the host, as in the reference.
 
 ``mat_eigen_sym_jacobi`` is the one function here with a hand-written
 kernel: on a CUDA tensor it launches ``csrc/jacobi_eig.cu`` (the whole
-decomposition in one CTA), on a CPU tensor it runs its plain version,
-``_jacobi_eig_plain``, the reference's rotations as torch ops.
+decomposition in one launch: one CTA, or a thread-block cluster), on
+a CPU tensor it runs its plain version, ``_jacobi_eig_plain``. Both run
+the Jacobi rotations in a parallel round-robin order (``_jacobi_rounds``):
+n - 1 rounds a sweep (n even) of n / 2 disjoint rotations each.
 """
 
 from __future__ import annotations
 
-import math
+import ctypes
 
 import numpy as np
 import torch
@@ -35,11 +37,18 @@ __all__ = [
     "mat_eigen_herm", "JACOBI_SMEM_BYTES", "JACOBI_SWEEPS",
 ]
 
-# jacobi_eig keeps A and the eigenvectors in shared memory (2 n (n + 1)
-# doubles, rows padded by one) while they fit this budget, the H100's
-# 227 KB a block (n <= 119); above it the same kernel works in global
-# memory. Tests lower it to run the global route at small n.
+# jacobi_eig's routes, picked by ``_jacobi_route`` from n, this budget of
+# a CTA's shared memory (the H100's 227 KB) and what the card schedules:
+# (a) one CTA with A and V^T in its shared memory (n <= 118); (b) a cluster
+# with them spread over its CTAs' shared memory (n <= 450 on 16 CTAs, 325
+# on 8); (c) the same cluster with them in global scratch, any n >= 2.
+# Tests lower the budget to run the routes at small n.
 JACOBI_SMEM_BYTES = 227 * 1024
+# the largest cluster tried: 16, a non-portable size that the H100
+# schedules and that took 21 % less time than the portable 8 at n 256 on
+# one (jacobi_variants.py); a card that schedules no such cluster gets 8,
+# or fewer
+JACOBI_CLUSTER = 16
 # the reference's sweep count (matrix_ops.py:148, max_sweeps)
 JACOBI_SWEEPS = 30
 
@@ -139,61 +148,128 @@ def mat_eigen_herm(a, device=None):
     return mat_eigen_sym(a, device=device)
 
 
-def _rotation(apq: float, app: float, aqq: float):
-    """c and s of the Jacobi rotation that zeroes a_pq: the reference's
-    Rutishauser t (matrix_ops.py:166-176; theta = 0, an equal diagonal,
-    gives t = 1, a_pq = 0 gives t = 0), each operation rounded once in
-    Python floats (``math.sqrt`` rounds correctly, as the kernel's
-    ``__dsqrt_rn`` does; this CPU build's ``torch.sqrt`` misses by an ulp
-    at 2.0)."""
-    vanishes = apq == 0.0
-    theta = (aqq - app) / (2.0 * (1.0 if vanishes else apq))
-    sgn = 1.0 if theta >= 0.0 else -1.0
-    t = sgn / (abs(theta) + math.sqrt(1.0 + theta * theta))
-    if vanishes:
-        t = 0.0
-    c = 1.0 / math.sqrt(1.0 + t * t)
-    return c, t * c
+def _jacobi_rounds(n):
+    """The rotation order of ``jacobi_eig`` and its plain version, one sweep:
+    a parallel round-robin ("circle") order. m = n rounded up to even;
+    round r = 0 .. m - 2 pairs slot 0 as (r, m - 1) and slot k = 1 ..
+    m / 2 - 1 as ((r + k) mod (m - 1), (r - k) mod (m - 1)), each pair
+    taken as p = min, q = max, and for odd n the pair holding the phantom
+    index n is left out. Every pair (p, q) comes once a sweep, and a
+    round's pairs are disjoint. Returns a list of (p, q) int64 arrays, one
+    per round, in slot order."""
+    m = n + n % 2
+    k = np.arange(1, m // 2)
+    rounds = []
+    for r in range(m - 1):
+        a = np.concatenate(([r], (r + k) % (m - 1)))
+        b = np.concatenate(([m - 1], (r - k) % (m - 1)))
+        p, q = np.minimum(a, b), np.maximum(a, b)
+        keep = q < n
+        rounds.append((p[keep], q[keep]))
+    return rounds
+
+
+def _rotations(apq, app, aqq):
+    """c and s of the Jacobi rotations that zero the a_pq of a round's
+    pairs (float64 numpy arrays): the reference's Rutishauser t
+    (matrix_ops.py:166-176; theta = 0, an equal diagonal, gives t = 1,
+    a_pq = 0 gives t = 0), each operation rounded once by numpy, whose
+    ``sqrt`` rounds correctly as the kernel's ``__dsqrt_rn`` does (this
+    CPU build's ``torch.sqrt`` misses by an ulp at 2.0)."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        vanishes = apq == 0.0
+        theta = (aqq - app) / (2.0 * np.where(vanishes, 1.0, apq))
+        sgn = np.where(theta >= 0.0, 1.0, -1.0)
+        t = sgn / (np.abs(theta) + np.sqrt(1.0 + theta * theta))
+        t = np.where(vanishes, 0.0, t)
+        c = 1.0 / np.sqrt(1.0 + t * t)
+        return c, t * c
 
 
 def _jacobi_eig_plain(a, max_sweeps):
-    """Plain PyTorch version of ``jacobi_eig``: the reference's cyclic
-    Jacobi rotations (matrix_ops.py:160-197), ``max_sweeps`` sweeps over
-    the pairs (p, q) in ``np.triu_indices`` order, each rotation's c and s
-    from ``_rotation``, then rows p, q of A updated as torch ops, then
-    its columns p, q, then columns p, q of V, each product and difference
-    rounded on its own. Returns (diag(A), V) unsorted. About 20 launches
-    and 3 host reads a rotation."""
+    """Plain PyTorch version of ``jacobi_eig``: ``max_sweeps`` sweeps of
+    the rounds of ``_jacobi_rounds``. A round takes every pair's c and s
+    from the round's starting A (``_rotations``, one host read of the
+    pairs' a_pq, a_pp, a_qq), then rows P, Q of A (gathered, rotated,
+    scattered back: row p <- row p c - row q s, row q <- row p s + row q
+    c), then its columns P, Q the same way, then columns P, Q of V, as
+    torch ops vectorised over the round's pairs, each product, sum and
+    difference rounded on its own. Returns (diag(A), V) unsorted."""
     n = a.shape[0]
     A = a.clone()
     V = torch.eye(n, dtype=a.dtype, device=a.device)
-    idx_p, idx_q = np.triu_indices(n, k=1)
-    pairs = list(zip(idx_p.tolist(), idx_q.tolist()))
+    rounds = [(torch.as_tensor(p, device=a.device),
+               torch.as_tensor(q, device=a.device))
+              for p, q in _jacobi_rounds(n)]
     for _ in range(max_sweeps):
-        for p, q in pairs:
-            c, s = _rotation(float(A[p, q]), float(A[p, p]), float(A[q, q]))
-            rp, rq = A[p].clone(), A[q].clone()
-            A[p] = rp * c - rq * s
-            A[q] = rp * s + rq * c
-            cp, cq = A[:, p].clone(), A[:, q].clone()
-            A[:, p] = cp * c - cq * s
-            A[:, q] = cp * s + cq * c
-            vp, vq = V[:, p].clone(), V[:, q].clone()
-            V[:, p] = vp * c - vq * s
-            V[:, q] = vp * s + vq * c
+        for P, Q in rounds:
+            apq, app, aqq = torch.stack((A[P, Q], A[P, P], A[Q, Q])).cpu() \
+                .numpy()
+            c, s = (torch.as_tensor(x, device=a.device)
+                    for x in _rotations(apq, app, aqq))
+            rp, rq = A[P], A[Q]
+            A[P] = rp * c[:, None] - rq * s[:, None]
+            A[Q] = rp * s[:, None] + rq * c[:, None]
+            cp, cq = A[:, P], A[:, Q]
+            A[:, P] = cp * c - cq * s
+            A[:, Q] = cp * s + cq * c
+            vp, vq = V[:, P], V[:, Q]
+            V[:, P] = vp * c - vq * s
+            V[:, Q] = vp * s + vq * c
     return torch.diagonal(A).clone(), V
 
 
+def _jacobi_plan(n, cluster, shared, ask_card=False):
+    """(dynamic shared memory a CTA in bytes, doubles of global scratch, and
+    with ``ask_card`` how many such launches the card holds at once, 0 where
+    it schedules none) of ``jacobi_eig`` at n on ``cluster`` CTAs with the
+    rows of A and V^T in shared memory or in global scratch, from
+    ``jacobi_eig_plan`` in ``csrc/jacobi_eig.cu``, where the storage layout
+    lives."""
+    smem, work, active = ctypes.c_longlong(), ctypes.c_longlong(), \
+        ctypes.c_int()
+    _cuda.launch_check("jacobi_eig", _cuda.library(
+        "jacobi_eig").jacobi_eig_plan(
+            n, cluster, int(shared), ctypes.addressof(smem),
+            ctypes.addressof(work),
+            ctypes.addressof(active) if ask_card else None))
+    return smem.value, work.value, active.value
+
+
+def _jacobi_route(n):
+    """(route name, cluster size, rows in shared memory, doubles of global
+    scratch) of ``jacobi_eig`` at n: "cta" (a) while one CTA's bytes fit
+    JACOBI_SMEM_BYTES, else "cluster" (b) or, where a CTA's share does not
+    fit, "global" (c), on the largest cluster of at most JACOBI_CLUSTER
+    CTAs (a power of two, at most n's slots) that the card schedules.
+    Raises where it schedules none of 2 CTAs or more."""
+    if _jacobi_plan(n, 1, True)[0] <= JACOBI_SMEM_BYTES:
+        return "cta", 1, True, 0
+    h = (n + n % 2) // 2
+    cluster = JACOBI_CLUSTER
+    while cluster > h:
+        cluster //= 2
+    while cluster >= 2:
+        smem, work, _ = _jacobi_plan(n, cluster, True)
+        shared = smem <= JACOBI_SMEM_BYTES
+        _, work, active = _jacobi_plan(n, cluster, shared, ask_card=True)
+        if active:
+            return ("cluster" if shared else "global"), cluster, shared, work
+        cluster //= 2
+    raise RuntimeError(f"jacobi_eig: the card schedules no cluster of 2 to "
+                       f"{JACOBI_CLUSTER} CTAs at n {n}")
+
+
 def jacobi_eig(a, max_sweeps=JACOBI_SWEEPS):
-    """The cyclic Jacobi rotations of ``mat_eigen_sym_jacobi``: (diag(A),
-    V) after ``max_sweeps`` sweeps, unsorted, of a square float64 ``a``
-    (n >= 2).
+    """The Jacobi rotations of ``mat_eigen_sym_jacobi``: (diag(A), V) after
+    ``max_sweeps`` sweeps of ``_jacobi_rounds``, unsorted, of a square
+    float64 ``a`` (n >= 2).
 
     A CPU tensor takes the plain version (``_jacobi_eig_plain``); a CUDA
-    tensor launches ``csrc/jacobi_eig.cu`` once (one CTA; A and V in
-    shared memory while 2 n (n + 1) doubles fit ``JACOBI_SMEM_BYTES``,
-    else in global scratch), whose output equals the plain version's bit
-    for bit, or raises."""
+    tensor launches ``csrc/jacobi_eig.cu`` once, on the route that
+    ``_jacobi_route`` picks from n (one CTA, a cluster with A and V in
+    shared memory, or the cluster on global scratch), whose output equals
+    the plain version's bit for bit, or raises."""
     if a.device.type == "cpu":
         return _jacobi_eig_plain(a, max_sweeps)
     if a.device.type != "cuda":
@@ -205,16 +281,15 @@ def jacobi_eig(a, max_sweeps=JACOBI_SWEEPS):
         raise ValueError(f"jacobi_eig: the kernel takes (n, n) with n >= 2, "
                          f"got {tuple(a.shape)}")
     a = a.contiguous()
-    shared = 16 * n * (n + 1) <= JACOBI_SMEM_BYTES
+    _, cluster, shared, work_doubles = _jacobi_route(n)
     w = torch.empty(n, dtype=a.dtype, device=a.device)
     V = torch.empty((n, n), dtype=a.dtype, device=a.device)
-    work = (None if shared else
-            torch.empty((2, n, n), dtype=a.dtype, device=a.device))
+    work = (torch.empty(work_doubles, dtype=a.dtype, device=a.device)
+            if work_doubles else None)
     fn = _cuda.library("jacobi_eig").jacobi_eig_f64
     _cuda.launch_check("jacobi_eig", fn(
-        a.data_ptr(), n, int(max_sweeps), int(shared),
-        None if shared else work[0].data_ptr(),
-        None if shared else work[1].data_ptr(),
+        a.data_ptr(), n, int(max_sweeps), cluster, int(shared),
+        None if work is None else work.data_ptr(), work_doubles,
         w.data_ptr(), V.data_ptr(), _cuda.stream_of(a)))
     jacobi_eig.launches += 1
     return w, V
@@ -228,11 +303,13 @@ def reset_launch_counts():
 
 
 def mat_eigen_sym_jacobi(a, max_sweeps: int = JACOBI_SWEEPS, device=None):
-    """Symmetric eigendecomposition via cyclic Jacobi rotations
+    """Symmetric eigendecomposition via Jacobi rotations
     (matrix/mat_eigen_sym_jacobi.rs; the reference's LAPACK-free
     decomposition, kept for cross-checking). Returns (w, V) with
     A = V diag(w) V^T, w ascending: all ``max_sweeps`` sweeps run (no
-    early exit), through ``jacobi_eig`` (the CUDA kernel on the card),
+    early exit), through ``jacobi_eig`` (the CUDA kernel on the card; a
+    parallel rotation order where the reference runs the cyclic one, so
+    the bits differ from the reference's and the values agree to 1e-12),
     then a stable ``argsort``."""
     (a,) = on(a, device=device)
     a = a.to(torch.float64)

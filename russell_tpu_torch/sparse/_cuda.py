@@ -18,7 +18,7 @@ clamped inverse); ``LIBRARIES`` adds the fused ODE loops' two:
 ``graph_cond``, CUDA graph conditional nodes (``ode/_device_loop.py``),
 and ``lane_pow``, the controllers' correctly rounded pow
 (``ode/_lanes.py``). ``jacobi_eig`` (``dense/matrix_ops.py``) ports the
-reference's plain-XLA cyclic Jacobi eigensolver.
+reference's plain-XLA Jacobi eigensolver.
 """
 
 from __future__ import annotations
@@ -77,8 +77,12 @@ _SIGNATURES = {
                    "capture_node_count": [_P, _P]},
     # x, exponent, n, out, stream
     "lane_pow": {"pow_cr_f64": [_P, ctypes.c_double, _I, _P, _P]},
-    # a, n, sweeps, shared route, work A, work V^T, w, V, stream
-    "jacobi_eig": {"jacobi_eig_f64": [_P, _I, _I, _I, _P, _P, _P, _P, _P]},
+    # a, n, sweeps, cluster, shared route, work, work doubles, w, V,
+    # stream; n, cluster, shared route, smem bytes out, work doubles out,
+    # active launches out (or null)
+    "jacobi_eig": {"jacobi_eig_f64": [_P, _I, _I, _I, _I, _P, _L, _P, _P,
+                                      _P],
+                   "jacobi_eig_plan": [_I, _I, _I, _P, _P, _P]},
 }
 LIBRARIES = tuple(_SIGNATURES)
 # the fused loops' graph conditional nodes and their controllers' pow

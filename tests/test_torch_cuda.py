@@ -1136,32 +1136,48 @@ def test_bratu_2d_arclength_on_card_matches_cpu(cuda, one_thread):
     assert np.array_equal(ug2, ug) and np.array_equal(lg2, lg)
 
 
-@pytest.mark.parametrize("n,smem", [(2, None), (6, None), (33, None),
-                                    (33, 1024)])
-def test_jacobi_eig_kernel_matches_plain_version(cuda, n, smem):
-    """jacobi_eig against its plain version, bit for bit: n 2 (equal
-    diagonal: the 45-degree rotation), 6 and 33 through shared memory,
-    and 33 again with JACOBI_SMEM_BYTES lowered so the global-memory route
-    runs."""
+@pytest.mark.parametrize("n,route,ctas", [(2, "cta", 16), (6, "cta", 16),
+                                          (33, "cta", 16),
+                                          (33, "cluster", 16),
+                                          (130, "cluster", 16),
+                                          (130, "cluster", 8),
+                                          (33, "global", 16)])
+def test_jacobi_eig_kernel_matches_plain_version(cuda, n, route, ctas):
+    """jacobi_eig against its plain version, bit for bit, one launch, on
+    each route: n 2 (equal diagonal: the 45-degree rotation), 6 and 33 in
+    one CTA; 33 on a cluster with JACOBI_SMEM_BYTES lowered to 4 KB, and
+    130, the first n past one CTA's budget, on 16 CTAs and on 8 (the
+    portable size, which a card that schedules no 16 gets); 33 on the
+    cluster's global scratch with the budget lowered to 1 KB. Then
+    mat_eigen_sym_jacobi on the same route within 1e-12 max|A| of numpy's
+    eigenvalues."""
     from russell_tpu_torch.dense import matrix_ops
     rng = np.random.default_rng(n)
     a = rng.standard_normal((n, n))
     a = (a + a.T) / 2
     if n == 2:
         a = np.array([[2.0, 1.0], [1.0, 2.0]])
-    default = matrix_ops.JACOBI_SMEM_BYTES
+    saved = matrix_ops.JACOBI_SMEM_BYTES, matrix_ops.JACOBI_CLUSTER
     try:
-        if smem is not None:
-            matrix_ops.JACOBI_SMEM_BYTES = smem
+        matrix_ops.JACOBI_CLUSTER = ctas
+        if route == "cluster" and n < 119:
+            matrix_ops.JACOBI_SMEM_BYTES = 4096
+        if route == "global":
+            matrix_ops.JACOBI_SMEM_BYTES = 1024
+        got = matrix_ops._jacobi_route(n)
+        assert got[0] == route
+        assert got[1] == (1 if route == "cta" else ctas)
         n0 = matrix_ops.jacobi_eig.launches
         w, V = matrix_ops.jacobi_eig(torch.as_tensor(a, device=cuda))
         torch.cuda.synchronize()
         assert matrix_ops.jacobi_eig.launches == n0 + 1
+        ws, Vs = matrix_ops.mat_eigen_sym_jacobi(
+            torch.as_tensor(a, device=cuda))
+        torch.cuda.synchronize()
     finally:
-        matrix_ops.JACOBI_SMEM_BYTES = default
+        matrix_ops.JACOBI_SMEM_BYTES, matrix_ops.JACOBI_CLUSTER = saved
     wp, Vp = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), 30)
     assert torch.equal(w.cpu(), wp) and torch.equal(V.cpu(), Vp)
-    ws, Vs = matrix_ops.mat_eigen_sym_jacobi(torch.as_tensor(a, device=cuda))
     assert ws.device.type == "cuda"
     np.testing.assert_allclose(ws.cpu().numpy(), np.linalg.eigvalsh(a),
                                atol=1e-12 * np.abs(a).max())

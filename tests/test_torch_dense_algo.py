@@ -14,9 +14,11 @@ Tolerances:
   signs and phases differ between LAPACK builds, so no vector is
   compared entry by entry;
 - ``mat_eigen_sym_jacobi``'s plain version against the reference at
-  n 2, 6 and 17: 1e-12 (the reference's jitted scan may contract
-  multiply-adds on the CPU); the CUDA kernel's update order, walked in
-  numpy, equals the plain version bit for bit;
+  n 2, 6, 17 and 32: 1e-12 (the port rotates in a parallel order, the
+  reference in the cyclic one, so only the values agree; its jitted scan
+  may also contract multiply-adds on the CPU); the CUDA kernel's order,
+  arithmetic and storage, walked in numpy, equal the plain version's bit
+  for bit;
 - the algorithms' Stats counters: equal; their results at 1e-12 or as
   stated.
 """
@@ -199,7 +201,7 @@ def test_eigen_sym_and_herm():
     _close(wh, JD.mat_eigen_herm(h)[0], 1e-12)
 
 
-@pytest.mark.parametrize("n", [2, 6, 17])
+@pytest.mark.parametrize("n", [2, 6, 17, 32])
 def test_jacobi_plain_version_matches_reference(n):
     a = np.array([[2.0, 1.0], [1.0, 2.0]]) if n == 2 else _sym(n, n)
     w, V = PD.mat_eigen_sym_jacobi(torch.as_tensor(a))
@@ -211,40 +213,147 @@ def test_jacobi_plain_version_matches_reference(n):
         _close(w, [1.0, 3.0], 1e-15)
 
 
-def _kernel_walk(a, sweeps):
-    """jacobi_eig.cu's update order in numpy: per rotation, c and s from
-    the same scalar operations, then for every j outside {p, q} rows p, q
-    at column j and columns p, q at row j from the entries before the
-    rotation, the 2 x 2 block by the row stage then the column stage, and
-    V^T's rows p, q."""
+@pytest.mark.parametrize("n", range(2, 10))
+def test_jacobi_rounds_visit_every_pair_once_a_sweep(n):
+    """The parallel order: n - 1 rounds a sweep (n even; n for odd n),
+    each of disjoint pairs p < q, every pair once."""
+    rounds = matrix_ops._jacobi_rounds(n)
+    assert len(rounds) == n - 1 + n % 2
+    seen = []
+    for p, q in rounds:
+        assert np.all(p < q) and np.all(q < n)
+        assert len(set(np.concatenate((p, q)).tolist())) == 2 * len(p)
+        seen += list(zip(p.tolist(), q.tolist()))
+    assert sorted(seen) == [(i, j) for i in range(n) for j in range(i + 1, n)]
+
+
+def _kernel_walk(a, sweeps, cluster):
+    """jacobi_eig.cu in numpy, CTA by CTA, with its storage: C = ``cluster``
+    CTAs hold slots [c h / C, (c + 1) h / C), each CTA's seats one arc of
+    the ring or two, an arc of len positions in len + 1 storage rows used
+    as a circular buffer (the row at arc offset o in round R in row
+    (o + R) mod (len + 1)), the row that enters an arc read from the next
+    arc's storage. A round: each slot's rows and (c, s), then every 2 x 2
+    block (rows of slot I, columns of slot J: the row stage, then the
+    column stage) and V^T's rows, read where the rows lie and written where
+    they go. Checks that no row the round writes into is one it reads
+    from another place, so that the kernel may update in place."""
     n = a.shape[0]
-    A, VT = a.copy(), np.eye(n)
-    for _ in range(sweeps):
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                c, s = matrix_ops._rotation(float(A[p, q]), float(A[p, p]),
-                                            float(A[q, q]))
-                j = np.array([k for k in range(n) if k not in (p, q)], int)
-                pp, pq, qp, qq = A[p, p], A[p, q], A[q, p], A[q, q]
-                rpp, rpq = pp * c - qp * s, pq * c - qq * s
-                rqp, rqq = pp * s + qp * c, pq * s + qq * c
-                apj, aqj = A[p, j].copy(), A[q, j].copy()
-                ajp, ajq = A[j, p].copy(), A[j, q].copy()
-                A[p, j], A[q, j] = apj * c - aqj * s, apj * s + aqj * c
-                A[j, p], A[j, q] = ajp * c - ajq * s, ajp * s + ajq * c
-                A[p, p], A[p, q] = rpp * c - rpq * s, rpp * s + rpq * c
-                A[q, p], A[q, q] = rqp * c - rqq * s, rqp * s + rqq * c
-                vp, vq = VT[p].copy(), VT[q].copy()
-                VT[p], VT[q] = vp * c - vq * s, vp * s + vq * c
-    return np.diagonal(A).copy(), VT.T.copy()
+    m = n + n % 2
+    h, ring, C = m // 2, m - 1, cluster
+    lo = [c * h // C for c in range(C + 1)]
+    S = [lo[c + 1] - lo[c] for c in range(C)]
+    # storage rows a CTA: len + 1 an arc, and CTA 0's fixed row
+    rows = max(2 * s + (1 if c in (0, C - 1) else 2) for c, s in enumerate(S))
+    store = np.full((C, rows, 2, n), np.nan)   # [CTA, row, A / V^T, :]
+
+    def arc(c, which):                         # (CTA, first row, len)
+        if c == 0:
+            return 0, 0, 2 * S[0] - 1
+        if c == C - 1:
+            return c, 0, 2 * S[c]
+        return (c, 0, S[c]) if which == 0 else (c, S[c] + 1, S[c])
+
+    def next_arc(c, which):
+        if c == 0:
+            return arc(0 if C == 1 else 1, 0)
+        if c == C - 1 or which == 1:
+            return arc(c - 1, 0 if c == 1 else 1)
+        return arc(c + 1, 0)
+
+    def seat(c, J, top, R):                    # (index, source, destination)
+        if top and J == 0:
+            return m - 1, (0, 2 * S[0]), (0, 2 * S[0])
+        hi = lo[c + 1]
+        if c == 0:
+            which, off = 0, hi - 1 + J if top else hi - 1 - J
+        elif c == C - 1:
+            which, off = 0, J - lo[c] if top else S[c] + hi - 1 - J
+        else:
+            which, off = (0, J - lo[c]) if top else (1, hi - 1 - J)
+        _, base, ln = arc(c, which)
+        dst = src = (c, base + (off + R) % (ln + 1))
+        if off == ln - 1 and R > 0:
+            nc, nb, nl = next_arc(c, which)
+            src = (nc, nb + (R - 1) % (nl + 1))
+        return ((R + J) if top else (R - J)) % ring, src, dst
+
+    def seats(R):
+        for c in range(C):
+            for J in range(lo[c], lo[c + 1]):
+                for top in (True, False):
+                    x, src, dst = seat(c, J, top, R)
+                    if x < n:
+                        yield x, src, dst
+
+    for x, _, dst in seats(0):
+        store[dst] = a[x], np.eye(n)[x]
+    for R in range(sweeps * ring):
+        slots, cs = [], {}
+        for c in range(C):
+            for J in range(lo[c], lo[c + 1]):
+                (xt, ts, td), (xb, bs, bd) = (seat(c, J, top, R)
+                                              for top in (True, False))
+                if xt > xb:
+                    (xt, ts, td), (xb, bs, bd) = (xb, bs, bd), (xt, ts, td)
+                slots.append((J, xt, xb, ts, bs, td, bd))
+                if xb < n:
+                    cs[J] = tuple(float(v[0]) for v in matrix_ops._rotations(
+                        *(np.array([store[ts][0][xb]]),
+                          np.array([store[ts][0][xt]]),
+                          np.array([store[bs][0][xb]]))))
+        dsts = [d for sl in slots for d, s in ((sl[5], sl[3]), (sl[6], sl[4]))
+                if sl[1 if d == sl[5] else 2] < n]
+        moved = {s for sl in slots for s, d in ((sl[3], sl[5]), (sl[4], sl[6]))
+                 if s != d}
+        assert len(set(dsts)) == len(dsts) and not moved & set(dsts)
+        old = store.copy()
+        col = [(min(i, j), max(i, j)) for i, j in
+               ((m - 1 if J == 0 else (R + J) % ring, (R - J) % ring)
+                for J in range(h))]
+        for I, p, q, ps, qs, pd, qd in slots:
+            row2 = q < n
+            for J, (pj, qj) in enumerate(col):
+                col2 = qj < n
+                x = [old[ps][0][pj], old[ps][0][qj] if col2 else 0.0,
+                     old[qs][0][pj] if row2 else 0.0,
+                     old[qs][0][qj] if row2 and col2 else 0.0]
+                if row2:
+                    ci, si = cs[I]
+                    x = [x[0] * ci - x[2] * si, x[1] * ci - x[3] * si,
+                         x[0] * si + x[2] * ci, x[1] * si + x[3] * ci]
+                if col2:
+                    cj, sj = cs[J]
+                    x = [x[0] * cj - x[1] * sj, x[0] * sj + x[1] * cj,
+                         x[2] * cj - x[3] * sj, x[2] * sj + x[3] * cj]
+                store[pd][0][pj] = x[0]
+                if col2:
+                    store[pd][0][qj] = x[1]
+                if row2:
+                    store[qd][0][pj] = x[2]
+                if row2 and col2:
+                    store[qd][0][qj] = x[3]
+            vp = old[ps][1]
+            if row2:
+                vq = old[qs][1]
+                store[pd][1] = vp * cs[I][0] - vq * cs[I][1]
+                store[qd][1] = vp * cs[I][1] + vq * cs[I][0]
+            else:
+                store[pd][1] = vp
+    w, V = np.full(n, np.nan), np.full((n, n), np.nan)
+    for x, _, dst in seats(max(sweeps * ring - 1, 0)):
+        w[x], V[:, x] = store[dst][0][x], store[dst][1]
+    return w, V
 
 
-@pytest.mark.parametrize("n", [2, 7])
-def test_jacobi_kernel_order_equals_plain_version(n):
+@pytest.mark.parametrize("n,cluster,sweeps", [(2, 1, 30), (7, 1, 30),
+                                              (7, 4, 30), (17, 8, 4),
+                                              (33, 16, 3)])
+def test_jacobi_kernel_order_equals_plain_version(n, cluster, sweeps):
     a = np.array([[2.0, 1.0], [1.0, 2.0]]) if n == 2 else _sym(n, 3 * n)
     a[0, n - 1] = a[n - 1, 0] = 0.0  # a vanishing a_pq: t = 0
-    w, V = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), 30)
-    kw, kV = _kernel_walk(a, 30)
+    w, V = matrix_ops._jacobi_eig_plain(torch.as_tensor(a), sweeps)
+    kw, kV = _kernel_walk(a, sweeps, cluster)
     assert np.array_equal(w.numpy(), kw) and np.array_equal(V.numpy(), kV)
     assert float(PD.mat_eigen_sym_jacobi(a[:1, :1], device=CPU)[0][0]) == \
         a[0, 0]
@@ -476,7 +585,8 @@ def test_smoke_lab_path_checks_on_the_cpu(monkeypatch):
     a small size: every special function against its scipy oracle at the
     phase's tolerances and edge values (``lab_compare``); the helpers
     refuse what they should; the phase's plain Jacobi run (the one it
-    holds the main path's launch to) is ``mat_eigen_sym_jacobi``'s."""
+    holds the main path's launches to, in process) is
+    ``mat_eigen_sym_jacobi``'s, and other bits are refused."""
     import chip_smoke as cs
     monkeypatch.setattr(cs, "LAB_POINTS", 1 << 11)
     specs = cs.lab_special_specs()
@@ -499,3 +609,12 @@ def test_smoke_lab_path_checks_on_the_cpu(monkeypatch):
     w, V, _ = cs.jacobi_plain_sorted(6, 4)
     we, Ve = PD.mat_eigen_sym_jacobi(cs.lab_sym(6, 6), 4, device=CPU)
     assert torch.equal(w, we) and torch.equal(V, Ve)
+    held = cs.jacobi_main_held(6, {6: (we, Ve)}, 4, device=CPU)
+    assert held["bit_identical"] and held["max_abs_err"] == 0.0
+    with pytest.raises(AssertionError):
+        cs.jacobi_main_held(6, {6: (we, -Ve)}, 4, device=CPU)
+    assert cs.jacobi_work(7, 2, "cta")[2] == {
+        "rounds": 2 * 7, "cta_barriers": 2 * 2 * 7 + 3, "cluster_barriers": 0}
+    assert cs.jacobi_work(7, 2, "cluster")[2] == {
+        "rounds": 2 * 7, "cta_barriers": 2 * 7 + 1,
+        "cluster_barriers": 2 * 2 * 7 + 2}

@@ -1,6 +1,7 @@
 """russell_tpu_torch never imports jax (nor russell_tpu), and neither do
-chip_smoke.py, gj_inv_variants.py and the rank processes of
-tests/test_torch_parallel.py (tests/_torch_parallel_ranks.py)."""
+chip_smoke.py, the variants scripts (kernel_variants.py, gj_inv_variants.py,
+jacobi_variants.py) and the rank processes of tests/test_torch_parallel.py
+(tests/_torch_parallel_ranks.py)."""
 
 import os
 import pkgutil
@@ -113,7 +114,8 @@ def test_port_modules_import_without_jax():
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "sys.path.insert(0, '.')\n"
-        "import chip_smoke, gj_inv_variants\n"
+        "import chip_smoke, kernel_variants, gj_inv_variants, "
+        "jacobi_variants\n"
         "sys.path.insert(0, 'tests')\n"
         "import _torch_parallel_ranks\n"
         "bad = sorted(m for m in sys.modules\n"
