@@ -40,7 +40,7 @@ GRIDMF → ``gj_inv``) through a user's entry point.
 8. layers: one SPLU factorize pair, one solve pair and the diagonal-block
    inversion of one row, timed per call on the npoint-129 matrix;
 9. gridmf_main_path: the same integration with default Params (AUTO →
-   GRIDMF), cold and three warm runs (median and spread), gj_inv's
+   GRIDMF), cold and two warm runs (median and spread), gj_inv's
    launches counted from 0 in each run, counters held to the SPLU run's
    (or, where they differ, y to rtol 1e-6 of its y);
 10. gridmf_layers: at npoint 129 and 513 one GRIDMF factorize pair and one
@@ -135,16 +135,33 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    every 0.1 against a host-stepped run (stations at atol 1e-10);
    ``solve_batch`` of FUSED_BATCH van der Pol lanes (DENSE) and of
    FUSED_BATCH DoPri5 Hairer-Wanner lanes, each lane held to a single
-   fused solve (y at atol 1e-12, counters equal). Each kernel of the
+   fused solve (y at atol 1e-12, counters equal); then ``solve_batch``
+   through the sparse genies, one batched numeric phase over one plan
+   (``fused_batch_path``): AUTO -> GRIDMF and SPLU at npoint 129 with
+   SPARSE_BATCH lanes spread from y0 (cold and warm walls, peak memory,
+   against the summed walls of the lanes' single fused solves, each lane
+   held to its single solve: counters equal, y at atol 1e-12; at least two
+   step counts; each batched kernel's nodes per captured attempt equal to
+   one lane's), GRIDMF at SPARSE_BATCH_WIDE lanes where it fits (walls
+   and peak, or ``solve_batch``'s refusal before its capture), GENMF and
+   BANDED by name at NPOINT_GENIES (one lane fused against the
+   host-stepped run, counters equal and y bit for bit, then SPARSE_BATCH
+   lanes held the same way), and each batched
+   kernel at those lanes' shapes (``batch_kernel_checks``: held to its
+   plain version and bit for bit to SPARSE_BATCH one-lane launches,
+   ``gj_inv`` with a pivot threshold per matrix; timed against the
+   one-lane launches beside the bound). Each kernel of the
    kernels line gains its nodes per captured attempt and its launches in
-   the cold fused runs (``fused_path``).
+   the cold fused runs (``fused_path``), and the batched ones their
+   numbers at the lanes (``batch``). ``--fused-batch`` runs the batches
+   alone after the device and build phases.
 21. lin_solver_path: ``LinSolver`` on the card at the reference's sparse
    benchmark sizes, each result held to SciPy's SuperLU on the host (x,
    log|det| and the determinant's sign or complex phase): GENMF on
    geometric_264k (``samples.irregular_geometric(263_743)``, seed 0,
    ``Genie.GENMF`` by name as the reference's benchmark runs it; AUTO's
-   own route is recorded) with the host analysis, a cold and three warm
-   factorizations (walls, device ms, launches, busy share, ``gj_inv``'s
+   own route is recorded) with the host analysis, a cold and LS_WARM_RUNS
+   warm factorizations (walls, device ms, launches, busy share, ``gj_inv``'s
    launches and ms, GFLOP/s over the plan's flops, peak memory), a warm
    solve, the relative error <= 1e-10 and x, log|det| within 1e-9, then
    complex values on the same plan; BANDED on laplacian_2d_317 (AUTO: k
@@ -161,7 +178,7 @@ GRIDMF → ``gj_inv``) through a user's entry point.
 22. pde_path: the PDE tools on the card. Poisson (``d2_problem_01``) on a
    PDE_NPOINT^2 grid (1,046,529 unknowns): the SPS system ``Fdm2d``
    builds, through one ``LinSolver`` with its grid hint (AUTO -> GRIDMF at
-   leaf 64): host assembly, analysis, a cold and three warm
+   leaf 64): host assembly, analysis, a cold and LS_WARM_RUNS warm
    factorizations (walls, device ms, launches, busy share, ``gj_inv``'s
    launches and ms, peak memory), one more with every ``gj_inv`` launch
    held to its plain version, a solve, the relative residual <= 1e-10
@@ -246,8 +263,9 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    (``tensor_held``). ``bin.brusselator_pde`` at its defaults (its
    counters equal to phase 20's fused GRIDMF-129 run's, ``gj_inv``
    launched), ``bin.amplifier1t`` on the card and on the CPU (counters
-   equal), ``bin.mem_check`` on the card (exit 0, no growth of the
-   allocated bytes from the first factorize-and-solve to the second), a
+   equal), ``bin.mem_check`` on the card (exit 0, no growth of the bytes
+   the live tensors requested from the first factorize-and-solve to the
+   second), a
    ``CheckpointManager`` snapshot every CHECKPOINT_EVERY accepted steps
    of van der Pol (the last reloads to its step's x, y and h bit for
    bit), and ``utils.trace`` around a warm GRIDMF-129 factorize pair,
@@ -303,6 +321,12 @@ K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 STRIP_SWEEP, which is how ``kernels.SPGEMM_STRIP_BYTES`` was chosen;
 ``--base-sweep`` runs the factorize pairs that reach ``gj_inv`` for each
 recursion base of BASE_SWEEP, which is how ``splu.GJ_MAX_M`` was chosen.
+``--banded-ab DIR [ROUNDS]`` compares BANDED's walls (laplacian_2d_317
+through cyclic reduction and the scan, Bratu-2-D 257) in DIR's package
+and this tree's, P C C P, with torch's batched LU and solves at BCR's
+shapes (``--banded [--tree DIR]`` is one such process);
+``--fused-memory GENIE:NPOINT:LANES[:warmup] ...`` reads the allocator
+through a fused Radau5 loop's set-up, warm-up, capture and first run.
 """
 
 from __future__ import annotations
@@ -1032,8 +1056,9 @@ def gj_kernel_only(D, delta):
 
     def launch():
         _cuda.launch_check("gj_inv", fn(
-            D.data_ptr(), D.stride(0), D.stride(1), delta.data_ptr(), w, m,
-            *(o.data_ptr() for o in outs), _cuda.stream_of(D)))
+            D.data_ptr(), D.stride(0), D.stride(1), delta.data_ptr(),
+            delta.numel(), w, m, *(o.data_ptr() for o in outs),
+            _cuda.stream_of(D)))
     return launch
 
 
@@ -1092,7 +1117,7 @@ def check_gj_inv_shapes(tops):
     return max_err, ld_err
 
 
-def summed_times(calls, fn, reps=REPS, cold=False):
+def summed_times(calls, fn, reps=REPS, cold=False, warmup=3):
     """Sum over {(w, m): calls} of calls x the device time of ``fn(D)``
     on ``gj_inputs(w, m)`` (back to back, or L2-cold)."""
     delta = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
@@ -1103,7 +1128,7 @@ def summed_times(calls, fn, reps=REPS, cold=False):
         call = fn(D, delta)
         tot += c * (cold_ms if cold else time_ms)(
             call, reps=min(reps, 3) if big else reps,
-            warmup=1 if big else 3)
+            warmup=1 if big else warmup)
         del D, call
     torch.cuda.empty_cache()
     return tot
@@ -1184,7 +1209,7 @@ def phase_gj_inv(splu_plan, gplans):
            "ms_cold_l2": summed_times(
                base, lambda D, d: gj_kernel_only(D, d), cold=True),
            "plain_ms": summed_times(base, lambda D, d: (
-               lambda: splu._gj_inv_plain(D, d)), reps=3),
+               lambda: splu._gj_inv_plain(D, d)), reps=2, warmup=1),
            "library_ms": summed_times(base, lambda D, d: (
                lambda: torch.linalg.inv_ex(D))),
            "bound_ms": b_ms, "bound_by": b_by}
@@ -1409,7 +1434,7 @@ def default_path_runs(warm_runs):
                "nanos_lin_sol_max": st.nanos_lin_sol_max}, sol, y
 
 
-def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=3):
+def phase_gridmf_main_path(splu_counters, splu_y, warm_runs=2):
     """``default_path_runs`` checked: the plan is GRIDMF, y finite, gj_inv
     launched, and the counters held to the SPLU run's (or, where they
     differ, y to rtol 1e-6 of its y)."""
@@ -2339,7 +2364,7 @@ def phase_dense_factor():
 # solve_batch), a step attempt captured as one CUDA graph
 # ---------------------------------------------------------------------------
 
-FUSED_WARM_RUNS = 3
+FUSED_WARM_RUNS = 2
 FUSED_BATCH = 64
 
 
@@ -2472,7 +2497,9 @@ def fused_entry(fres, name):
     cold fused runs (warm-up launches plus capture nodes) of phase
     fused_path; the BSR kernels are on no fused path."""
     out = {}
-    for part in ("gridmf_129", "splu_129", "gridmf_513"):
+    for part in ("gridmf_129", "splu_129", "gridmf_513", "batch_gridmf_129",
+                 "batch_splu_129", f"genmf_{NPOINT_GENIES}",
+                 f"banded_{NPOINT_GENIES}"):
         rec = fres.get(part, {})
         if "nodes_per_kernel" in rec:
             out[f"{part}_nodes_per_attempt"] = rec["nodes_per_kernel"].get(
@@ -2482,6 +2509,20 @@ def fused_entry(fres, name):
                 "launches_cold_run"].get(name, 0)
         if "replays" in rec:
             out[f"{part}_replays"] = rec["replays"]
+    return out
+
+
+def batch_entry(fres, name):
+    """A batched kernel's numbers from fused_path's batches: its nodes per
+    captured step attempt at SPARSE_BATCH lanes and at one, per batch, and
+    its check and times at the lanes' shapes (``batch_kernel_checks``)."""
+    out = {"nodes_per_attempt": {
+        part: {"lanes": fres[part]["nodes_per_kernel"].get(name, 0),
+               "one_lane": fres[part]["single_nodes_per_kernel"].get(name, 0)}
+        for part in ("batch_gridmf_129", "batch_splu_129",
+                     f"genmf_{NPOINT_GENIES}", f"banded_{NPOINT_GENIES}")
+        if part in fres}}
+    out.update(fres.get("batch_kernels", {}).get(name, {}))
     return out
 
 
@@ -2751,7 +2792,425 @@ def phase_fused_path(gridmf_host, splu_host, erk_host):
                 or not worst <= 1e-12):
             raise AssertionError(f"solve_batch {name}: lanes {bad} differ "
                                  f"from single solves (y by {worst})")
+    del bsol, ys, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(fused_batch_path(res))
     return res
+
+
+# -- fused_path, batches through the sparse genies ---------------------------
+
+# lanes of solve_batch through the sparse genies (one batched numeric phase
+# over one plan), and the wider batch tried for GRIDMF at npoint 129
+SPARSE_BATCH = 8
+SPARSE_BATCH_WIDE = 16
+# GENMF and BANDED by name (AUTO gives GRIDMF with the grid hint), over
+# t 0 -> X1_GENIES (half bench.py's span: the smoke's time limit)
+NPOINT_GENIES = 65
+X1_GENIES = 0.5
+# the kernels batched: their nodes per captured step attempt must not grow
+# with the lanes
+BATCHED_KERNELS = ("splu_pairs", "gather_rows", "gj_inv")
+
+
+def spread_lanes(y0, lanes):
+    """``lanes`` initial states of the Brusselator: y0 scaled by 1 to 1.5,
+    which takes the lanes through different step counts."""
+    y0 = np.asarray(y0)
+    return y0[None] * (1.0 + 0.5 * np.arange(lanes) / (lanes - 1))[:, None]
+
+
+def captured_run(sol, y0s, t0, x1):
+    """A fused solve of the lanes ``y0s`` (B, ndim) on ``sol``'s fused
+    solver of B lanes, run as ``solve_batch`` runs it (``solve`` for one
+    lane), but with the kernel counts reset between the warm-up and the
+    capture. Returns (y (B, ndim), stats, each kernel's nodes per captured
+    step attempt, the wall of the whole: set-up, warm-up, capture,
+    replays; and of the set-up alone: ``start``, which uploads the plan
+    and, for several lanes, factors the kept pair eagerly)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y0t = torch.as_tensor(np.asarray(y0s), dtype=torch.float64,
+                          device="cuda")
+    fn = sol._fused_for(y0t.shape[0])
+    fn.start(t0, y0t, x1, min(sol.params.step.h_ini, x1 - t0))
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t
+    fn.loop.warm_up()
+    reset_launch_counts()
+    fn.loop.capture(warm_up=False)
+    nodes = fused_kernel_counts()
+    fn.loop.run()
+    y, st = fn.result()
+    torch.cuda.synchronize()
+    return y, st, nodes, time.perf_counter() - t, start_s
+
+
+def batch_vs_singles(name, params, system, t0, y0s, x1):
+    """``solve_batch`` of the lanes ``y0s`` on a fresh solver: cold (plan,
+    warm-up, capture, replays; the kernels' nodes per captured attempt)
+    and warm, with peak memory; then a single fused solve of lane 0
+    captured the same way (nodes at one lane) and the B single fused
+    solves, timed warm, each lane of the batch held to its single solve
+    (counters equal, y at atol 1e-12). Raises where a lane differs, where
+    all lanes take the same step count, or where a kernel's nodes per
+    attempt grow with the lanes. Returns (record, solver)."""
+    from russell_tpu_torch.ode import OdeSolver
+    B = len(y0s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sol = OdeSolver(params, system, "cuda")
+    setup_s = time.perf_counter() - t
+    ys, st, nodes, cold, start_s = captured_run(sol, y0s, t0, x1)
+    cold += setup_s
+    peak_cold = torch.cuda.max_memory_allocated()
+    fn = sol._fused_for(B)
+    rec = {"lanes": B, "genie": sol.actual.plan.genie.name,
+           "cold_wall_s": cold, "start_s": start_s,
+           "warmup_s": fn.loop.warmup_s,
+           "capture_instantiate_s": fn.loop.capture_s,
+           "nodes_per_attempt": fn.loop.nodes, "nodes_per_kernel": nodes,
+           "peak_mem_bytes_cold": peak_cold}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ys2, st2 = sol.solve_batch(y0s, t0, x1)
+    torch.cuda.synchronize()
+    rec.update(warm_wall_s=time.perf_counter() - t,
+               peak_mem_bytes_warm=torch.cuda.max_memory_allocated(),
+               replays=fn.loop.replays, flag_reads=fn.loop.reads,
+               warm_bit_identical=bool(torch.equal(ys, ys2)))
+    _, _, nodes1, cold1, _ = captured_run(sol, y0s[:1], t0, x1)
+    singles, walls = [], []
+    for b in range(B):
+        t = time.perf_counter()
+        yb = sol.solve(y0s[b], t0, x1, fused=True)
+        walls.append(time.perf_counter() - t)
+        singles.append((yb, counters(sol.stats())))
+    keys = [k for k in singles[0][1] if k in st]
+    worst = max(float((yb - ys[b]).abs().max())
+                for b, (yb, _) in enumerate(singles))
+    bad = [b for b, (_, c) in enumerate(singles)
+           if any(int(st[k][b]) != c[k] for k in keys)]
+    n_acc = st["n_accepted"].tolist()
+    rec.update(single_cold_wall_s=cold1, single_nodes_per_kernel=nodes1,
+               single_nodes_per_attempt=sol._fused_for(1).loop.nodes,
+               singles_wall_s=sum(walls), single_walls_s=walls,
+               warm_over_singles=rec["warm_wall_s"] / sum(walls),
+               n_accepted=n_acc, statuses=st["status"].tolist(),
+               lane_max_abs_err=worst, lanes_with_other_counters=bad)
+    say("fused_path", part=f"batch_{name}", **rec)
+    if (st["status"].tolist() != [1] * B or bad or not worst <= 1e-12
+            or not rec["warm_bit_identical"]):
+        raise AssertionError(f"solve_batch {name}: lanes {bad} differ from "
+                             f"single fused solves (y by {worst}), or a "
+                             "lane did not finish, or the warm run differs")
+    if len(set(n_acc)) < 2:
+        raise AssertionError(f"solve_batch {name}: every lane took "
+                             f"{n_acc[0]} steps")
+    for k in BATCHED_KERNELS:
+        if nodes[k] != nodes1[k]:
+            raise AssertionError(f"solve_batch {name}: {k} has {nodes[k]} "
+                                 f"nodes a step attempt at {B} lanes and "
+                                 f"{nodes1[k]} at one")
+    return rec, sol
+
+
+def host_vs_fused(name, params, system, t0, y0, x1):
+    """A host-stepped solve and a single fused solve of one configuration:
+    counters equal and y bit for bit. Returns the record."""
+    from russell_tpu_torch.ode import OdeSolver
+    t = time.perf_counter()
+    host = OdeSolver(params, system, "cuda")
+    analyze_s = time.perf_counter() - t
+    yh = host.solve(y0, t0, x1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    hc = counters(host.stats())
+    genie = host.actual.plan.genie.name
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, sol, yf = fused_runs(params, system, y0, t0, x1, 1)
+    rec.update(genie=genie, host_stepped_wall_s=host_s,
+               host_analyze_s=analyze_s, host_counters=hc,
+               y_bit_identical=bool(torch.equal(yf, yh)),
+               y_max_abs_err_vs_host=float((yf - yh).abs().max()))
+    say("fused_path", part=f"single_{name}", **rec)
+    check_counters(name, rec["counters"], hc)
+    if not rec["y_bit_identical"]:
+        raise AssertionError(f"fused {name}: y differs from the host-stepped"
+                             f" run's by {rec['y_max_abs_err_vs_host']}")
+    return rec
+
+
+def fused_batch_path(res):
+    """``solve_batch`` through the sparse genies, one batched numeric phase
+    over one plan: AUTO -> GRIDMF and SPLU at npoint 129 (the bench.py
+    configuration) with SPARSE_BATCH lanes, then GRIDMF at
+    SPARSE_BATCH_WIDE lanes where it fits (walls and peak only, or the
+    refusal, with what the capture's memory check read); GENMF and BANDED
+    by name at NPOINT_GENIES, first one lane fused against the
+    host-stepped run (counters, y bit for bit), then
+    SPARSE_BATCH lanes. Each batch's lanes are held to single fused solves
+    (``batch_vs_singles``), and its kernels' nodes per captured attempt to
+    one lane's. Then each batched kernel at these lanes' shapes
+    (``batch_kernel_checks``). Returns the records."""
+    from russell_tpu_torch.ode import Method, Params, samples
+    from russell_tpu_torch.sparse.enums import Genie
+    out = {}
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT)
+    y0s = spread_lanes(y0, SPARSE_BATCH)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    rec, sol = batch_vs_singles("gridmf_129", params, system, t0, y0s, 1.0)
+    if rec["genie"] != "GRIDMF":
+        raise AssertionError(f"AUTO picked {rec['genie']} at npoint 129")
+    gplan = sol.actual.plan.gridmf_plan
+    out["batch_gridmf_129"] = rec
+    del sol
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the wider batch: solve_batch refuses it before its capture where the
+    # warm-up's reservation does not fit on the card (a capture that runs
+    # out of memory inside a conditional body cannot be ended cleanly);
+    # the refusal is the reason recorded
+    from russell_tpu_torch.ode import OdeSolver
+    ysw = spread_lanes(y0, SPARSE_BATCH_WIDE)
+    wide = {"lanes": SPARSE_BATCH_WIDE,
+            "device_bytes": torch.cuda.get_device_properties(0).total_memory}
+    torch.cuda.reset_peak_memory_stats()
+    wsol = OdeSolver(params, system, "cuda")
+    t = time.perf_counter()
+    try:
+        _, stw = wsol.solve_batch(ysw, t0, 1.0)
+    except ValueError as e:
+        wide["skipped"] = str(e)
+    loop = wsol._fused_for(SPARSE_BATCH_WIDE).loop
+    wide.update(warmup_bytes=loop.warmup_bytes,
+                warmup_retries=loop.warmup_retries,
+                capture_free_bytes=loop.capture_free)
+    if "skipped" not in wide:
+        torch.cuda.synchronize()
+        wide["cold_wall_s"] = time.perf_counter() - t
+        wide["peak_mem_bytes_cold"] = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        _, stw = wsol.solve_batch(ysw, t0, 1.0)
+        torch.cuda.synchronize()
+        wide["warm_wall_s"] = time.perf_counter() - t
+        wide["statuses"] = sorted(set(stw["status"].tolist()))
+        wide["n_accepted"] = stw["n_accepted"].tolist()
+        if wide["statuses"] != [1]:
+            raise AssertionError(f"solve_batch gridmf_129 x "
+                                 f"{SPARSE_BATCH_WIDE}: {wide['statuses']}")
+    del wsol, loop
+    say("fused_path", part=f"batch_gridmf_129_x{SPARSE_BATCH_WIDE}", **wide)
+    out["batch_gridmf_129"]["wide"] = wide
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    params.newton.genie = Genie.SPLU
+    rec, sol = batch_vs_singles("splu_129", params, system, t0, y0s, 1.0)
+    splan = sol.actual.plan
+    out["batch_splu_129"] = rec
+    del sol
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, NPOINT_GENIES)
+    for genie in (Genie.GENMF, Genie.BANDED):
+        name = f"{genie.name.lower()}_{NPOINT_GENIES}"
+        params = Params(Method.RADAU5)
+        params.set_tolerances(1e-4, 1e-4)
+        params.newton.genie = genie
+        single = host_vs_fused(name, params, system, t0, y0, X1_GENIES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, sol = batch_vs_singles(name, params, system, t0,
+                                    spread_lanes(y0, SPARSE_BATCH),
+                                    X1_GENIES)
+        rec["single"] = single
+        if genie == Genie.BANDED:
+            rec["bcr"] = sol.actual.plan.use_bcr
+            rec["block_k"] = sol.actual.plan.block_k
+        out[name] = rec
+        del sol
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["batch_kernels"] = batch_kernel_checks(splan, gplan)
+    return out
+
+
+def batch_kernel_checks(splan, gplan):
+    """Each batched kernel on the card at the lane shapes of the npoint-129
+    SPARSE_BATCH-lane runs: ``splu_pairs`` and ``gather_rows`` over every
+    row of the SPLU plan with (B, N, be^2) blocks, be b and 2b, and
+    ``gj_inv`` at every base shape of a GRIDMF factorize pair with B
+    matrices' lanes and a pivot threshold per matrix (zero pivots to clamp,
+    and a small one only its matrix's threshold catches). Each is held to
+    its plain version (splu_pairs at rtol 1e-12 as phase 4; gather_rows
+    and gj_inv's Dinv bit for bit, log|det| at rtol 1e-14 as phase 11,
+    n_perturbed exact per lane) and bit for bit to B single-lane launches
+    of the same kernel on the same inputs. Timed (``time_ms``) at phase
+    4's rows and over the GRIDMF pair's base calls: the batched launch
+    against the B single-lane launches, beside the bound of the batched
+    work (each lane's distinct bytes once over 3.35 TB/s, or its flops).
+    Returns the kernels line's numbers."""
+    from russell_tpu_torch.sparse import splu
+    B = SPARSE_BATCH
+    sp = splan.splu_plan
+    dev = torch.device("cuda")
+    dp = splu._device_plan(sp, dev)
+    pk = sp.packed
+    named, _ = named_rows(sp, dp)
+    rng = np.random.default_rng(SEED + 16)
+    n_store = sp.nblk + pk["TL"] + 1
+    out = {"splu_pairs": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
+                          "plain_ms": 0.0, "max_abs_err": 0.0},
+           "gather_rows": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
+                           "plain_ms": 0.0, "max_abs_err": 0.0}}
+    for be in (sp.b, 2 * sp.b):
+        blocks = torch.as_tensor(rng.standard_normal((B, n_store, be * be)),
+                                 device=dev)
+
+        def row_args(r):
+            _, ln, _, npair, *_ = dp["rows"][r]
+            return (dp["pair_l"][r, :npair], dp["pair_u"][r, :npair],
+                    dp["pair_seg"][r, :npair], dp["work"][r], ln, be)
+
+        for r in range(len(dp["rows"])):
+            args = row_args(r)
+            got = splu.splu_pairs(blocks, *args)
+            idx = dp["dinv"][r, :args[4]]
+            rows = splu.gather_rows(blocks, idx)
+            for lane in range(B):
+                if not torch.equal(got[lane],
+                                   splu.splu_pairs(blocks[lane], *args)):
+                    raise AssertionError(f"splu_pairs row {r} be {be} lane "
+                                         f"{lane}: the batched launch "
+                                         "differs from a one-lane launch")
+                if not torch.equal(rows[lane],
+                                   splu.gather_rows(blocks[lane], idx)):
+                    raise AssertionError(f"gather_rows row {r} be {be} lane"
+                                         f" {lane}: the batched launch "
+                                         "differs from a one-lane launch")
+            if not torch.equal(rows, blocks[:, idx]):
+                raise AssertionError(f"gather_rows row {r} be {be}: the "
+                                     "batched launch differs from "
+                                     "blocks[:, idx]")
+        # timed at phase 4's rows
+        for name, r in (("splu_pairs", named["argmax_pairs"]),
+                        ("gather_rows", named["argmax_len"])):
+            args = row_args(r)
+            _, ln, _, npair, _, n_chunks, _ = dp["rows"][r]
+            rec = out[name]
+            if name == "splu_pairs":
+                got = splu.splu_pairs(blocks, *args)
+                plain = args[:3] + args[4:]     # no work list
+                err, _ = assert_close(f"splu_pairs batched row {r} be {be}",
+                                      got, splu._splu_pairs_plain(blocks,
+                                                                  *plain))
+                f_b = lambda: splu.splu_pairs(blocks, *args)  # noqa: E731
+                f_1 = lambda: [splu.splu_pairs(blocks[lane], *args)  # noqa
+                               for lane in range(B)]
+                f_p = lambda: splu._splu_pairs_plain(blocks, *plain)  # noqa
+                tiles = np.unique(np.concatenate([
+                    pk["pair_l"][r, :npair], pk["pair_u"][r, :npair]])).size
+                b_ms = bound(B * 8 * be * be * (tiles + ln)
+                             + 4 * (2 * npair + 2 * ln) + 16 * n_chunks,
+                             B * 2 * npair * be ** 3)
+            else:
+                idx = dp["dinv"][r, :ln]
+                err = 0.0
+                f_b = lambda: splu.gather_rows(blocks, idx)  # noqa: E731
+                f_1 = lambda: [splu.gather_rows(blocks[lane], idx)  # noqa
+                               for lane in range(B)]
+                f_p = lambda: splu._gather_rows_plain(blocks, idx)  # noqa
+                b_ms = bound(B * 8 * be * be * (torch.unique(idx).numel()
+                                                + ln) + 4 * ln, 0)
+            ms, ms1, pms = time_ms(f_b), time_ms(f_1), time_ms(f_p)
+            rec["ms"] += ms
+            rec["singles_ms"] += ms1
+            rec["plain_ms"] += pms
+            rec["bound_ms"] += b_ms[0]
+            rec["bound_by"] = b_ms[1]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            say("batch_kernel", name=name, row=r, be=be, lanes=B, len=ln,
+                pairs=npair, ms=ms, singles_ms=ms1, plain_ms=pms,
+                bound_ms=b_ms[0], bound_by=b_ms[1], max_abs_err=err)
+        del blocks
+        torch.cuda.empty_cache()
+    for k, row in (("splu_pairs", "argmax_pairs"),
+                   ("gather_rows", "argmax_len")):
+        out[k].update(lanes=B, rows_bit_identical=len(dp["rows"]),
+                      shapes=f"npoint-{NPOINT} SPLU row ({row}), b 32 + "
+                      f"2b 64, {B} lanes; every row held bit for bit")
+
+    # gj_inv: B matrices' pivot blocks a launch, one threshold a matrix
+    base = base_calls(gridmf_top_blocks(gplan))
+    deltas = torch.tensor([1e-14, 1e-6] * (B // 2), dtype=torch.float64,
+                          device=dev)
+    rec = {"ms": 0.0, "singles_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "logdet_max_rel_err": 0.0, "shapes": [],
+           "lanes": B}
+    nbytes = flops = 0
+    for (w, m), calls in sorted(base.items()):
+        D = torch.cat([gj_inputs(w, m, 1000 * b + w + m) for b in range(B)])
+        small = w >= 3 and m > 2
+        if small:
+            # a pivot of matrix 1 (in a lane without gj_inputs' zero
+            # pivots) that its threshold (1e-6) catches and matrix 0's
+            # (1e-14) would not
+            j = w + (1 if w // 2 != 1 else 2)
+            D[j, 1, :] *= 1e-5
+            D[j, :, 1] *= 1e-5
+        got = splu._gj_inv(D, deltas)
+        want = splu._gj_inv_plain(D, deltas)
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"gj_inv ({B} x {w}, {m}): Dinv differs "
+                                 "from the plain version")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0)
+        for g, p in zip(got[2:], want[2:]):
+            if not torch.equal(g, p):
+                raise AssertionError(f"gj_inv ({B} x {w}, {m}): a statistic "
+                                     "differs from the plain version")
+        for b in range(B):
+            one = splu._gj_inv(D[b * w:(b + 1) * w], deltas[b])
+            if not all(torch.equal(g[b * w:(b + 1) * w], o)
+                       for g, o in zip(got, one)):
+                raise AssertionError(f"gj_inv ({B} x {w}, {m}) matrix {b}: "
+                                     "the batched launch differs from a "
+                                     "one-matrix launch")
+        npert = got[3].view(B, w).sum(1).tolist()
+        if min(npert) < 1 or (small and npert[1] != npert[0] + 1):
+            raise AssertionError(f"gj_inv ({B} x {w}, {m}): n_perturbed per "
+                                 f"matrix {npert}")
+        lde = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+        rec["logdet_max_rel_err"] = max(rec["logdet_max_rel_err"], lde)
+        one_d = [D[b * w:(b + 1) * w] for b in range(B)]
+        ms = time_ms(gj_kernel_only(D, deltas))
+        ms1 = time_ms(lambda: [splu._gj_inv(one_d[b], deltas[b])
+                               for b in range(B)])
+        pms = time_ms(lambda: splu._gj_inv_plain(D, deltas), reps=3,
+                      warmup=1)
+        rec["ms"] += calls * ms
+        rec["singles_ms"] += calls * ms1
+        rec["plain_ms"] += calls * pms
+        wb, wf = gj_work(B * w, m)
+        nbytes += calls * wb
+        flops += calls * wf
+        rec["shapes"].append([w, m, calls, npert])
+        del D, got, want, one_d
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    say("batch_kernel", name="gj_inv", per=f"npoint-{NPOINT} GRIDMF "
+        f"factorize pair's base calls, {B} matrices a launch", **rec)
+    out["gj_inv"] = rec
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- lin_solver_path ---------------------------------------------------------
@@ -2760,7 +3219,7 @@ GEOMETRIC_N = 263_743   # geometric_264k (BENCHMARKS.md §2)
 LAPLACIAN_2D_NPOINT = 317
 LAPLACIAN_3D_NPOINT = 50  # laplacian_3d_50, the reference's SPLU size
 CLI_N = 30_000
-LS_WARM_RUNS = 3
+LS_WARM_RUNS = 2
 # the LinSolver path against SciPy's SuperLU: x and log|det|
 LS_RTOL = {"genmf": 1e-9, "banded": 1e-10, "splu": 1e-10}
 
@@ -3389,8 +3848,8 @@ def timed_user_solve(fdm, src):
 def pde_gridmf(res):
     """Poisson at PDE_NPOINT through one LinSolver on the SPS system that
     ``Fdm2d.solve_sps`` builds (AUTO + the grid hint: GRIDMF): assembly,
-    analysis, a cold and three warm factorizations, one more with every
-    gj_inv launch held to its plain version, a solve, the residual
+    analysis, a cold and LS_WARM_RUNS warm factorizations, one more with
+    every gj_inv launch held to its plain version, a solve, the residual
     and the error against phi; then ``solve_sps`` twice, bit-identical to
     each other and to the LinSolver's x."""
     from russell_tpu_torch.sparse import Genie, LinSolParams, LinSolver
@@ -5165,9 +5624,9 @@ def cli_part(gridmf_counters):
         raise AssertionError(f"bin.amplifier1t on the card {rep} != on the "
                              f"CPU {rep_cpu}")
     rc, text, wall = run_cli(mem_check.main, [])
-    lines = [ln for ln in text.splitlines() if "allocated=" in ln]
+    lines = [ln for ln in text.splitlines() if "requested=" in ln]
     res["mem_check"] = {"rc": rc, "wall_s": wall, "cases": len(lines),
-                        "allocated": [ln.split("allocated=")[1]
+                        "requested": [ln.split("requested=")[1]
                                       for ln in lines]}
     say("stat_tensor_path", part="cli", cli="mem_check", **res["mem_check"])
     if rc != 0 or len(lines) != 21:
@@ -5525,13 +5984,21 @@ def par_world1_batch(mesh, smi):
     rt = torch.as_tensor(rhs, device="cuda")
 
     def single():
-        return torch.stack([factor.factor_solve(
-            plan, factor.numeric_factorize(plan, v), r)
-            for v, r in zip(vt, rt)])
+        # one device, one batched numeric phase, as each rank runs its rows
+        return factor.factor_solve_batch(plan, vt, rt)
 
     def b_cmp(s, d):
         bit_equal("batch x", s, d)
-        return {"n": plan.n, "batch": PAR_BATCH, "genie": plan.genie.value}
+        # and the batch against one numeric phase per system: the batched
+        # GEMMs may take other cuBLAS kernels than a system's own
+        loop = torch.stack([factor.factor_solve(
+            plan, factor.numeric_factorize(plan, v), r)
+            for v, r in zip(vt, rt)])
+        err, scale = assert_close("batch x against one system a phase", s,
+                                  loop)
+        return {"n": plan.n, "batch": PAR_BATCH, "genie": plan.genie.value,
+                "per_system_max_abs_err": err, "per_system_scale": scale,
+                "per_system_bit_identical": bool(torch.equal(s, loop))}
 
     return par_world1_check(
         f"batch_factor_solve_{NPOINT}", single,
@@ -5871,27 +6338,36 @@ def parallel_entry(pres, name):
                 for r in pres["ranks"]}}
 
 
+def walled(name, fn, *args):
+    """``fn(*args)``, then one line with its wall (each phase's share of
+    the smoke's time limit)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    say("phase_wall", name=name, wall_s=time.perf_counter() - t)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
-    phase_device()
-    phase_build()
+    walled("device", phase_device)
+    walled("build", phase_build)
     plan = brusselator_plan(NPOINT)
     plan_rows = len(plan.splu_plan.packed["t0"])
     say("plan", npoint=NPOINT, ndim=plan.n, nblk=plan.splu_plan.nblk,
         rows=plan_rows, TL=plan.splu_plan.packed["TL"],
         C=int(plan.splu_plan.packed["pair_l"].shape[1]))
-    phase_warmup()
-    kres = phase_kernels(plan)
-    phase_van_der_pol()
-    phase_brusselator_small()
-    phase_gridmf_small()
-    sol, y, runs = phase_main_path(plan_rows)
+    walled("warmup", phase_warmup)
+    kres = walled("kernels", phase_kernels, plan)
+    walled("van_der_pol", phase_van_der_pol)
+    walled("brusselator_small", phase_brusselator_small)
+    walled("gridmf_small", phase_gridmf_small)
+    sol, y, runs = walled("main_path", phase_main_path, plan_rows)
     splu_y = y.clone()
-    phase_layers(sol, y)
+    walled("layers", phase_layers, sol, y)
     del sol, y
     torch.cuda.empty_cache()
-    gruns, gridmf_y = phase_gridmf_main_path(runs["warm"]["counters"],
-                                             splu_y)
+    gruns, gridmf_y = walled("gridmf_main_path", phase_gridmf_main_path,
+                             runs["warm"]["counters"], splu_y)
     splu_host = {"counters": runs["warm"]["counters"], "y": splu_y.cpu(),
                  "wall_s": runs["warm"]["wall_s"]}
     gridmf_host = {"counters": gruns[-1]["counters"], "y": gridmf_y,
@@ -5899,27 +6375,29 @@ def main():
                        r["wall_s"] for r in gruns[1:])}
     del splu_y
     torch.cuda.empty_cache()
-    gplans = phase_gridmf_layers()
-    gres = phase_gj_inv(plan, gplans)
+    gplans = walled("gridmf_layers", phase_gridmf_layers)
+    gres = walled("gj_inv", phase_gj_inv, plan, gplans)
     del gplans
-    rep = phase_replay(plan)
-    phase_ode_samples()
-    erk_recs, erk_ys = phase_erk_path()
+    rep = walled("replay", phase_replay, plan)
+    walled("ode_samples", phase_ode_samples)
+    erk_recs, erk_ys = walled("erk_path", phase_erk_path)
     erk_host = {(r["method"], r["npoint"]): {
         "counters": r["counters"], "wall_s": r["wall_s"],
         "y": erk_ys[(r["method"], r["npoint"])]} for r in erk_recs}
-    phase_bweuler_path()
-    phase_dense_factor()
-    phase_bsr_kernels()
-    bsr_launches, bres = phase_bsr_path()
-    cres = phase_bsr_complex()
-    fres = phase_fused_path(gridmf_host, splu_host, erk_host)
-    lres = phase_lin_solver_path()
-    pres = phase_pde_path()
-    phase_nonlin_path()
-    labres = phase_lab_path()
-    stres = phase_stat_tensor_path(fres["gridmf_129"]["counters"])
-    parres = phase_parallel_path()
+    walled("bweuler_path", phase_bweuler_path)
+    walled("dense_factor", phase_dense_factor)
+    walled("bsr_kernels", phase_bsr_kernels)
+    bsr_launches, bres = walled("bsr_path", phase_bsr_path)
+    cres = walled("bsr_complex", phase_bsr_complex)
+    fres = walled("fused_path", phase_fused_path, gridmf_host, splu_host,
+                  erk_host)
+    lres = walled("lin_solver_path", phase_lin_solver_path)
+    pres = walled("pde_path", phase_pde_path)
+    walled("nonlin_path", phase_nonlin_path)
+    labres = walled("lab_path", phase_lab_path)
+    stres = walled("stat_tensor_path", phase_stat_tensor_path,
+                   fres["gridmf_129"]["counters"])
+    parres = walled("parallel_path", phase_parallel_path)
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -5959,6 +6437,7 @@ def main():
                 "held_to_plain"][name],
             "pde_path": pde_entry(pres, name),
             "parallel_path": parallel_entry(parres, name),
+            "batch": batch_entry(fres, name),
             "shapes": f"npoint-129 SPLU factorize row ({row}), b 32 + 2b 64"})
     for name, res in bres.items():
         kernels.append({
@@ -5999,6 +6478,7 @@ def main():
             "trace_kernel_events": stres["cli"]["trace"][
                 "gj_inv_kernel_events"]},
         "parallel_path": parallel_entry(parres, "gj_inv"),
+        "batch": batch_entry(fres, "gj_inv"),
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -6167,6 +6647,218 @@ def main_ab(parent, rounds):
         ratio={k: c[k] / p[k] for k in keys if p[k]})
 
 
+def banded_walls():
+    """--banded [--tree DIR]: one line, the warm walls of BANDED (this
+    package's or DIR's) as the main run drives it: laplacian_2d_317
+    factorized and solved through cyclic reduction and through the
+    sequential scan (medians of LS_WARM_RUNS after a cold call, with the
+    relative residual), and two Bratu-2-D continuations at BRATU_BIG
+    (BANDED, BCR; their solve walls and counters)."""
+    import russell_tpu_torch
+    from russell_tpu_torch import nonlin
+    from russell_tpu_torch.sparse import Genie, VerifyLinSys, factor, samples
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
+    ii, jj, vv = coo.triplets()
+    b = np.random.default_rng(SEED + 1).standard_normal(coo.nrow)
+    vt = torch.as_tensor(vv, device="cuda")
+    bt = torch.as_tensor(b, device="cuda")
+    rec = {"package": os.path.dirname(russell_tpu_torch.__file__)}
+    for kernel in ("bcr", "scan"):
+        plan = factor.analyze(coo.nrow, ii, jj, genie=Genie.BANDED,
+                              banded_kernel=kernel)
+
+        def fact(plan=plan):
+            fac = factor.numeric_factorize(plan, vt)
+            float(fac["min_pivot"])
+            return fac
+        fac = fact()
+        walls = []
+        for _ in range(LS_WARM_RUNS):
+            t0 = time.perf_counter()
+            fac = fact()
+            walls.append(time.perf_counter() - t0)
+        x = factor.factor_solve(plan, fac, bt)
+        rec[f"{kernel}_factorize_s"] = statistics.median(walls)
+        rec[f"{kernel}_solve_s"] = timed_solves(
+            lambda: factor.factor_solve(plan, fac, bt))
+        rec[f"{kernel}_relative_error"] = VerifyLinSys.from_system(
+            coo, x.cpu().numpy(), b).relative_error
+        del fac, x, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    walls, counts = [], []
+    for _ in range(2):
+        _, status, cnt, _, wall, _, _, _, _ = continuation(
+            "bratu_2d_fdm", (BRATU_BIG,), nonlin.Method.ARCLENGTH,
+            lambda m: nonlin.Stop.max_comp_u(m, 6.0),
+            nonlin.DeltaLambda.auto(0.5))
+        if not status.success():
+            raise AssertionError(f"bratu_2d_{BRATU_BIG}: {status}")
+        walls.append(wall)
+        counts.append(dict(zip(NONLIN_COUNTERS, cnt)))
+    rec.update(bratu_wall_s=walls, bratu_counters=counts)
+    print(json.dumps(rec), flush=True)
+
+
+def lu_library_times():
+    """torch's batched LU and its solves at the shapes of cyclic
+    reduction's first level on laplacian_2d_317 (256 blocks of 320 x 320)
+    and of the sequential scan (one block): ``lu_factor_ex`` under torch's
+    default library choice and under cuSOLVER, and ``lu_solve`` (getrs)
+    against the stored row order's gather and two ``solve_triangular``
+    (``bcr.lu_solve``), for one column and for 320; device ms
+    (``time_ms``)."""
+    from russell_tpu_torch.sparse import bcr
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for m in (256, 1):
+        A = torch.randn((m, 320, 320), generator=g, dtype=torch.float64,
+                        device="cuda") + 320 * torch.eye(
+                            320, dtype=torch.float64, device="cuda")
+        for lib in ("default", "cusolver"):
+            prev = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library(lib)
+            try:
+                out[f"lu_{m}_{lib}_ms"] = time_ms(
+                    lambda: torch.linalg.lu_factor_ex(A))
+            finally:
+                torch.backends.cuda.preferred_linalg_library(prev)
+        lu, piv = bcr.lu_factor(A)
+        perm = bcr.lu_perm(lu, piv)
+        out[f"lu_perm_{m}_ms"] = time_ms(lambda: bcr.lu_perm(lu, piv))
+        for r in (1, 320):
+            B = torch.randn((m, 320, r), generator=g, dtype=torch.float64,
+                            device="cuda")
+            want = torch.linalg.lu_solve(lu, piv, B)
+            got = bcr.lu_solve(lu, perm, B)
+            out[f"solve_{m}x{r}_getrs_ms"] = time_ms(
+                lambda: torch.linalg.lu_solve(lu, piv, B))
+            out[f"solve_{m}x{r}_gather_trsm_ms"] = time_ms(
+                lambda: bcr.lu_solve(lu, perm, B))
+            out[f"solve_{m}x{r}_max_abs_diff"] = float(
+                (got - want).abs().max())
+    return out
+
+
+def main_banded_ab(parent, rounds):
+    """--banded-ab PARENT [ROUNDS]: ``banded_walls`` with the parent
+    tree's package (a ``git archive`` of the parent commit unpacked at
+    PARENT) and with this tree's, each in its own process, in turns P C C
+    P, ROUNDS times, on one card; then the medians of each wall, the
+    ratios change / parent, and ``lu_library_times``."""
+    phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    runs = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent") * rounds:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--banded", "--tree",
+             trees[which]], cwd=trees[which], capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"banded walls of {which} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not rec["package"].startswith(trees[which]):
+            raise AssertionError(f"{which} ran {rec['package']}")
+        say("banded_walls", tree=which, **rec)
+        runs[which].append(rec)
+    keys = ("bcr_factorize_s", "bcr_solve_s", "scan_factorize_s",
+            "scan_solve_s")
+    med = {which: {k: statistics.median(r[k] for r in recs) for k in keys}
+           for which, recs in runs.items()}
+    for which, recs in runs.items():
+        med[which]["bratu_wall_s"] = statistics.median(
+            w for r in recs for w in r["bratu_wall_s"])
+    p, c = med["parent"], med["change"]
+    say("banded_ab", order="P C C P", rounds=rounds, median=med,
+        ratio={k: c[k] / p[k] for k in p if p[k]},
+        bratu_counters_equal=len({json.dumps(r["bratu_counters"][0])
+                                  for recs in runs.values()
+                                  for r in recs}) == 1,
+        lu_library=lu_library_times())
+
+
+def fused_memory_case(genie, npoint, lanes, capture=True):
+    """The memory of one fused Radau5 loop (the bench.py configuration at
+    ``npoint``, AUTO or ``genie`` by name, ``lanes`` spread lanes) through
+    its set-up (``start``), warm-up, capture and first run, each with the
+    allocator's counters from a reset peak: allocated and reserved bytes
+    (current and peak), alloc retries (cached blocks returned to the card
+    to serve an allocation) and the reserved bytes by (pool, stream) after
+    the warm-up and after the capture, with what the capture's memory
+    check read (the warm-up's reservation and retries, the free bytes) and
+    its refusal, if it refused; without ``capture`` the warm-up only. One
+    line."""
+    from russell_tpu_torch.ode import Method, OdeSolver, Params, samples
+    from russell_tpu_torch.sparse.enums import Genie
+
+    def stats():
+        st = torch.cuda.memory_stats()
+        return {"allocated": st["allocated_bytes.all.current"],
+                "allocated_peak": st["allocated_bytes.all.peak"],
+                "reserved": st["reserved_bytes.all.current"],
+                "reserved_peak": st["reserved_bytes.all.peak"],
+                "alloc_retries": st["num_alloc_retries"]}
+
+    def by_stream():
+        out = collections.Counter()
+        for sg in torch.cuda.memory_snapshot():
+            out[f"pool {sg.get('segment_pool_id')} stream {sg['stream']}"] += \
+                sg["total_size"]
+        return dict(out)
+
+    system, t0, y0, _ = samples.brusselator_pde(ALPHA, npoint)
+    params = Params(Method.RADAU5)
+    params.set_tolerances(1e-4, 1e-4)
+    if genie != "auto":
+        params.newton.genie = Genie[genie.upper()]
+    sol = OdeSolver(params, system, "cuda")
+    fn = sol._fused_for(lanes)
+    y0s = torch.as_tensor(spread_lanes(y0, lanes) if lanes > 1
+                          else np.asarray(y0)[None], device="cuda")
+    rec = {"genie": genie, "npoint": npoint, "lanes": lanes}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn.start(t0, y0s, 1.0, min(params.step.h_ini, 1.0))
+    torch.cuda.synchronize()
+    rec["start"] = stats()
+    torch.cuda.reset_peak_memory_stats()
+    fn.loop.warm_up()
+    rec["warm_up"] = stats()
+    rec["warm_up_by_stream"] = by_stream()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["free_before_capture"] = torch.cuda.mem_get_info()[0]
+    rec.update(warmup_bytes=fn.loop.warmup_bytes,
+               warmup_retries=fn.loop.warmup_retries)
+    if capture:
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            fn.loop.capture(warm_up=False)
+        except ValueError as e:
+            rec.update(capture_free=fn.loop.capture_free, refused=str(e))
+            say("fused_memory", **rec)
+            return
+        torch.cuda.synchronize()
+        rec["capture_free"] = fn.loop.capture_free
+        rec["capture"] = stats()
+        rec["capture_by_stream"] = by_stream()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fn.loop.run()
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t
+        rec["run"] = stats()
+    say("fused_memory", **rec)
+    del fn, sol
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def base_sweep(bases=BASE_SWEEP, rounds=2):
     """The factorize pairs whose pivot inverses reach gj_inv (GRIDMF at
     npoint 129 and 513 at the leaf AUTO picks, 513 at leaf 16, SPLU at
@@ -6285,6 +6977,16 @@ if __name__ == "__main__":
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
+    elif "--fused-batch" in sys.argv:
+        phase_device()
+        phase_build()
+        fb = fused_batch_path({})
+        print(json.dumps({"kernels": [
+            {"name": k, "batch": batch_entry(fb, k)}
+            for k in BATCHED_KERNELS]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
     elif "--lab" in sys.argv:
         phase_device()
         phase_build()
@@ -6293,6 +6995,18 @@ if __name__ == "__main__":
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
+    elif "--fused-memory" in sys.argv:
+        # GENIE:NPOINT:LANES[:warmup] ... (warm-up only: no capture)
+        phase_device()
+        for arg in sys.argv[sys.argv.index("--fused-memory") + 1:]:
+            g, npt, ln, *only = arg.split(":")
+            fused_memory_case(g, int(npt), int(ln), capture=not only)
+    elif "--banded" in sys.argv:
+        banded_walls()
+    elif "--banded-ab" in sys.argv:
+        i = sys.argv.index("--banded-ab")
+        main_banded_ab(sys.argv[i + 1],
+                       int(sys.argv[i + 2]) if len(sys.argv) > i + 2 else 1)
     elif "--ab" in sys.argv:
         i = sys.argv.index("--ab")
         main_ab(sys.argv[i + 1],

@@ -114,7 +114,7 @@ def main():
             def launch(fn=fn, outs=outs):
                 _cuda.launch_check(name, fn(
                     D.data_ptr(), D.stride(0), D.stride(1), delta.data_ptr(),
-                    w, m, *(o.data_ptr() for o in outs),
+                    1, w, m, *(o.data_ptr() for o in outs),
                     _cuda.stream_of(D)))
             launch()
             torch.cuda.synchronize()

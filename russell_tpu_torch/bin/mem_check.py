@@ -5,9 +5,13 @@ Counterpart of ``russell_tpu.bin.mem_check`` (reference contract:
 russell_sparse/src/bin/mem_check.rs:5 — the valgrind harness target).
 Each case is factorized and solved twice on one LinSolver: the residual
 must be small and the second solution equal the first. On the card the
-bytes ``torch.cuda.memory_allocated()`` reports after the first and the
-second factorize-and-solve are printed, and the second must not exceed
-the first (no state leaks from one factorization to the next). Every
+bytes the live tensors requested (the caching allocator's
+``requested_bytes``) after the first and the second factorize-and-solve
+are printed, and the second must not exceed the first (no state leaks
+from one factorization to the next). ``memory_allocated()`` would count
+whole cached blocks: a free block up to 1 MB larger than a request is
+handed out unsplit, so the same live tensors can read up to ~1 MB apart
+from one run to the next. Every
 error counts as a failure; the exit code is 1 if any case failed. It
 runs on the card unless ``--device`` names another (``cpu``).
 
@@ -54,8 +58,8 @@ def main(argv=None) -> int:
         x = solver.solve(rhs).cpu().numpy()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        return x, (torch.cuda.memory_allocated(dev)
-                   if dev.type == "cuda" else None)
+        return x, (torch.cuda.memory_stats(dev)[
+            "requested_bytes.all.current"] if dev.type == "cuda" else None)
 
     failures = 0
     for name, coo in cases:
@@ -72,7 +76,7 @@ def main(argv=None) -> int:
                 x2, m2 = factorize_and_solve(solver, coo, rhs)
                 ok = ok and np.allclose(x, x2)
                 if m1 is not None:
-                    mem = f" allocated={m1}->{m2} B"
+                    mem = f" requested={m1}->{m2} B"
                     ok = ok and m2 <= m1
                 status = "OK " if ok else "FAIL"
                 if not ok:

@@ -1,5 +1,6 @@
 // Row gather out[k, :] = src[idx[k], :] of f64 rows, for the SPLU
-// factorize row step.
+// factorize row step; over a lane dimension, out[l, k, :] = src[l, idx[k], :]
+// for the L matrices of a batch factorized over one plan (one index list).
 //
 // Replaces: russell_tpu/sparse/splu.py, _gather_rows (the Pallas TPU
 // kernel: one async DMA per gathered row, issued in chunks of P rows with
@@ -20,7 +21,9 @@
 // and a 1,024-row call keeps 8 KB per CTA in flight. A design with
 // Hopper's bulk copy engine (cp.async.bulk global -> shared -> global, one
 // thread per CTA) was measured against this one and was no faster
-// (PERF.md).
+// (PERF.md). A batch adds a grid dimension over its lanes (blockIdx.y),
+// each lane's source and output offset by their lane strides, so B lanes
+// are one launch and each lane copies what a one-lane launch copies.
 
 #include <cuda_runtime.h>
 
@@ -42,13 +45,15 @@ template <int U>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const double2* __restrict__ src,
                    const int* __restrict__ idx, int w2, int n_chunks,
+                   long long src_lane, long long out_lane,
                    double2* __restrict__ out) {
   constexpr int CH = kThreads * U;   // words per chunk
   const int k = blockIdx.x / n_chunks;
   const int ch = blockIdx.x - k * n_chunks;
   const int base = ch * CH + threadIdx.x;
-  const double2* s = src + (size_t)__ldg(idx + k) * w2;
-  double2* d = out + (size_t)k * w2;
+  const double2* s =
+      src + blockIdx.y * src_lane + (size_t)__ldg(idx + k) * w2;
+  double2* d = out + blockIdx.y * out_lane + (size_t)k * w2;
   double2 v[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -64,31 +69,40 @@ gather_rows_kernel(const double2* __restrict__ src,
 
 template <int U>
 cudaError_t launch(const double* src, const int* idx, int n_rows, int w2,
-                   double* out, cudaStream_t stream) {
+                   int lanes, long long src_lane, double* out,
+                   cudaStream_t stream) {
   const int n_chunks = (w2 + kThreads * U - 1) / (kThreads * U);
   const long long grid = (long long)n_rows * n_chunks;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  gather_rows_kernel<U><<<(unsigned)grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const double2*>(src), idx, w2, n_chunks,
-      reinterpret_cast<double2*>(out));
+  gather_rows_kernel<U><<<dim3((unsigned)grid, (unsigned)lanes), kThreads, 0,
+                          stream>>>(
+      reinterpret_cast<const double2*>(src), idx, w2, n_chunks, src_lane / 2,
+      (long long)n_rows * w2, reinterpret_cast<double2*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t code (0 = launched). `width` (doubles per row) must
-// be even and both pointers 16-byte aligned; the caller checks. Launches on
-// `stream`, does not synchronise and allocates nothing.
+// Returns a cudaError_t code (0 = launched). `width` (doubles per row) and
+// `src_lane` (doubles from one lane's source rows to the next's) must be
+// even and both pointers 16-byte aligned; the caller checks. `out` is
+// (lanes, n_rows, width) contiguous. Launches on `stream`, does not
+// synchronise and allocates nothing.
 extern "C" int gather_rows_f64(const double* src, const int* idx, int n_rows,
-                               int width, double* out, void* stream) {
-  if (n_rows <= 0) return (int)cudaGetLastError();
-  if (width <= 0 || width % 2) return (int)cudaErrorInvalidValue;
+                               int width, int lanes, long long src_lane,
+                               double* out, void* stream) {
+  if (n_rows <= 0 || lanes == 0) return (int)cudaGetLastError();
+  if (width <= 0 || width % 2 || src_lane % 2 || lanes < 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w2 = width / 2;
-  switch (pick_u(n_rows, w2)) {
-    case 4: return (int)launch<4>(src, idx, n_rows, w2, out, s);
-    case 2: return (int)launch<2>(src, idx, n_rows, w2, out, s);
-    default: return (int)launch<1>(src, idx, n_rows, w2, out, s);
+  // the CTAs of all lanes fill the card
+  switch (pick_u(n_rows * lanes, w2)) {
+    case 4:
+      return (int)launch<4>(src, idx, n_rows, w2, lanes, src_lane, out, s);
+    case 2:
+      return (int)launch<2>(src, idx, n_rows, w2, lanes, src_lane, out, s);
+    default:
+      return (int)launch<1>(src, idx, n_rows, w2, lanes, src_lane, out, s);
   }
 }
-

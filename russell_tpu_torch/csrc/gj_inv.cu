@@ -138,7 +138,7 @@ __device__ __forceinline__ void publish(double (&W)[R], int jn, int qn,
 template <int R, int T>
 __global__ void __launch_bounds__(T)
     gj_inv_cta(const double* __restrict__ D, long long sb, long long sr,
-               const double* __restrict__ delta, int m,
+               const double* __restrict__ delta, int per_delta, int m,
                double* __restrict__ Dinv, double* __restrict__ ld,
                double* __restrict__ mp, int* __restrict__ np,
                double* __restrict__ ph) {
@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(T)
   double W[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) W[q] = q < n ? Dl[q * sr] : 0.0;
-  if (threadIdx.x == 0) s_delta = *delta;
+  if (threadIdx.x == 0) s_delta = delta[lane / per_delta];
   publish(W, 0, -i0, k, m, prow[0], pcol[0], i0);
   for (int j = 0; j < m; ++j) {
     const int b = j & 1;
@@ -197,11 +197,11 @@ __global__ void __launch_bounds__(T)
 
 template <int R, int T>
 void launch(const double* D, long long sb, long long sr, const double* delta,
-            int w, int m, double* Dinv, double* ld, double* mp, int* np,
-            double* ph, cudaStream_t stream) {
+            int per_delta, int w, int m, double* Dinv, double* ld, double* mp,
+            int* np, double* ph, cudaStream_t stream) {
   const int S = (m + R - 1) / R;  // slices of R rows
-  gj_inv_cta<R, T><<<(unsigned)w, S * m, 0, stream>>>(D, sb, sr, delta, m,
-                                                      Dinv, ld, mp, np, ph);
+  gj_inv_cta<R, T><<<(unsigned)w, S * m, 0, stream>>>(
+      D, sb, sr, delta, per_delta, m, Dinv, ld, mp, np, ph);
 }
 
 }  // namespace
@@ -211,31 +211,36 @@ void launch(const double* D, long long sb, long long sr, const double* delta,
 // contiguous and the per-lane ld, mp, ph (f64) and np (int32), each (w,).
 // Lane l's block is D[l * sb + i * sr + c] (row i, column c: the last
 // dimension contiguous, so a view into a larger block needs no copy);
-// delta points to one double on the device (read by the kernel, so the host
-// never waits for it).
+// delta points to n_delta doubles on the device (read by the kernel, so the
+// host never waits for them), one pivot threshold per run of w / n_delta
+// consecutive lanes: lane l reads delta[l / (w / n_delta)]. A batch of B
+// matrices' pivot blocks, B runs of w / B lanes, is one launch.
 extern "C" int gj_inv_f64(const double* D, long long sb, long long sr,
-                          const double* delta, int w, int m, double* Dinv,
-                          double* ld, double* mp, int* np, double* ph,
-                          void* stream) {
+                          const double* delta, int n_delta, int w, int m,
+                          double* Dinv, double* ld, double* mp, int* np,
+                          double* ph, void* stream) {
   if (w <= 0) return (int)cudaGetLastError();
-  if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > kMaxM || n_delta < 1 || w % n_delta)
+    return (int)cudaErrorInvalidValue;
+  const int per = w / n_delta;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // rows a thread holds, R, and the most threads a CTA of that R has, T
   // = ceil(m / R) * m for the band's largest m: 1 to 4 slices
   if (m <= 16) {
-    launch<8, 32>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<8, 32>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else if (m <= 48) {
-    launch<12, 192>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<12, 192>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else if (m <= 64) {
-    launch<16, 256>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<16, 256>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else if (m <= 96) {
-    launch<24, 384>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<24, 384>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else if (m <= 128) {
-    launch<32, 512>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<32, 512>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else if (m <= 138) {
-    launch<46, 414>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<46, 414>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   } else {
-    launch<48, 432>(D, sb, sr, delta, w, m, Dinv, ld, mp, np, ph, st);
+    launch<48, 432>(D, sb, sr, delta, per, w, m, Dinv, ld, mp, np, ph, st);
   }
   return (int)cudaGetLastError();
 }
+

@@ -45,6 +45,12 @@
 //     padded so that the fragment loads hit 16 distinct 8-byte bank pairs
 //     per half-warp. At BE 64 a stage is 35 KB (two CTAs per SM), at BE 32
 //     18 KB.
+// A batch of L matrices factorized over one plan (the lanes of an ensemble
+// of Radau5 integrations) shares the row's work list and index arrays: a
+// second grid dimension runs over the lanes (blockIdx.y), and each lane's
+// blocks, output, partials and tickets sit at their own lane offsets. Each
+// lane's CTAs do what a one-lane launch does, so its bits are the same, and
+// a row is one launch whatever L is.
 
 #include <cuda_runtime.h>
 
@@ -112,11 +118,17 @@ splu_pairs_kernel(const double* __restrict__ blocks,
                   const int* __restrict__ lane_off,
                   int* __restrict__ tickets,
                   double* __restrict__ out,
-                  double* __restrict__ scratch) {
+                  double* __restrict__ scratch,
+                  long long blocks_lane, int n_live, int n_multi) {
   using C = Cfg<BE>;
   extern __shared__ __align__(16) double smem[];
   __shared__ int s_last;
 
+  // this lane's blocks, output rows, partials and tickets
+  blocks += blockIdx.y * blocks_lane;
+  out += (size_t)blockIdx.y * n_live * C::BB;
+  if (scratch) scratch += (size_t)blockIdx.y * n_multi * C::BB;
+  tickets += (size_t)blockIdx.y * n_live;
   const int c = blockIdx.x;
   const int4 ck = chunk[c];           // lane, first pair, pairs, lane chunks
   const int tid = threadIdx.x;
@@ -237,7 +249,8 @@ splu_pairs_kernel(const double* __restrict__ blocks,
 template <int BE>
 cudaError_t launch(const double* blocks, const int* pair_l, const int* pair_u,
                    const int4* chunk, const int* lane_off, int* tickets,
-                   int n_chunks, double* out, double* scratch,
+                   int n_chunks, double* out, double* scratch, int lanes,
+                   long long blocks_lane, int n_live, int n_multi,
                    cudaStream_t stream) {
   using C = Cfg<BE>;
   static bool attr_set = false;
@@ -248,33 +261,41 @@ cudaError_t launch(const double* blocks, const int* pair_l, const int* pair_u,
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  splu_pairs_kernel<BE><<<n_chunks, C::THREADS, C::SMEM, stream>>>(
-      blocks, pair_l, pair_u, chunk, lane_off, tickets, out, scratch);
+  splu_pairs_kernel<BE><<<dim3(n_chunks, lanes), C::THREADS, C::SMEM,
+                          stream>>>(blocks, pair_l, pair_u, chunk, lane_off,
+                                    tickets, out, scratch, blocks_lane,
+                                    n_live, n_multi);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns `out` (n_live, be*be),
-// `scratch` (one be*be row per chunk of the multi-chunk lanes) and
-// `tickets` (one zeroed int per lane, left zeroed; launches that may overlap,
-// on two streams, need two buffers). `chunk` is (n_chunks, 4) int32, 16-byte
-// aligned.
+// synchronise and allocates nothing: the caller owns `out` (lanes, n_live,
+// be*be), `scratch` (lanes, n_multi, be*be: one be*be row per chunk of the
+// multi-chunk lanes; null when n_multi is 0) and `tickets` (lanes, n_live
+// zeroed ints, left zeroed; launches that may overlap, on two streams, need
+// two buffers). Lane l's blocks start at blocks + l * blocks_lane doubles.
+// `chunk` is (n_chunks, 4) int32, 16-byte aligned, one list for every lane.
 extern "C" int splu_pairs_f64(const double* blocks, const int* pair_l,
                               const int* pair_u, const int* chunk,
                               const int* lane_off, int* tickets, int n_chunks,
-                              int n_live, int be, double* out, double* scratch,
-                              void* stream) {
+                              int n_live, int n_multi, int be, int lanes,
+                              long long blocks_lane, double* out,
+                              double* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // every live lane owns at least one chunk
-  if (n_live <= 0 || n_chunks < n_live) return (int)cudaErrorInvalidValue;
+  if (n_live <= 0 || n_chunks < n_live || lanes < 1 || lanes > 65535 ||
+      n_multi < 0 || (n_multi && !scratch))
+    return (int)cudaErrorInvalidValue;
   const int4* ck = reinterpret_cast<const int4*>(chunk);
   if (be == 32)
     return (int)launch<32>(blocks, pair_l, pair_u, ck, lane_off, tickets,
-                           n_chunks, out, scratch, s);
+                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
+                           n_multi, s);
   if (be == 64)
     return (int)launch<64>(blocks, pair_l, pair_u, ck, lane_off, tickets,
-                           n_chunks, out, scratch, s);
+                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
+                           n_multi, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -308,9 +308,13 @@ def mat_eigen_sym_jacobi(a, max_sweeps: int = JACOBI_SWEEPS, device=None):
     decomposition, kept for cross-checking). Returns (w, V) with
     A = V diag(w) V^T, w ascending: all ``max_sweeps`` sweeps run (no
     early exit), through ``jacobi_eig`` (the CUDA kernel on the card; a
-    parallel rotation order where the reference runs the cyclic one, so
-    the bits differ from the reference's and the values agree to 1e-12),
-    then a stable ``argsort``."""
+    parallel rotation order where the reference runs the cyclic one),
+    then a stable ``argsort``. The bits differ from the reference's. Once
+    both orders have converged the values agree to 1e-12; a run cut off
+    before that (``max_sweeps`` below the sweeps convergence needs, about
+    5 to 7 at n 12 to 32) gives other values than the reference's
+    truncated run, since the two orders reach other intermediate
+    matrices."""
     (a,) = on(a, device=device)
     a = a.to(torch.float64)
     n = a.shape[0]

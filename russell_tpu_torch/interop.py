@@ -23,7 +23,10 @@ A BANDED factor dict (the sequential scan: ``lus``, ``pivs``, ``Cs``,
 and ``pivs``) and a GENMF factor dict (``classes``, a list of dicts of
 the planes ``sir``, ``sii``, ``lr``, ``li``, ``br``, ``bi``, each possibly
 None) are nested: ``tree_to_torch`` / ``tree_to_numpy`` carry them across
-whole, shifting every ``piv`` / ``pivs`` between 0- and 1-based.
+whole, shifting every ``piv`` / ``pivs`` between 0- and 1-based. This
+package's DENSE and BANDED factors also hold the pivots' row order
+(``perm``, ``perms``, from ``bcr.lu_perm``): the converters to it make
+them, the converters from it drop them.
 
 A continuation ``Config`` of the reference package becomes this package's
 field by field (``nonlin_config_from_reference``), its enums mapped by
@@ -51,6 +54,7 @@ from russell_tpu_torch.nonlin.config import Method as NonlinMethod
 from russell_tpu_torch.sparse.enums import Genie
 from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
                                               bsr_from_arrays)
+from russell_tpu_torch.sparse.bcr import lu_perm
 from russell_tpu_torch.sparse.genmf import GenMfPlan, _GClass, _GLink
 from russell_tpu_torch.sparse.splu import SpluPlan
 from russell_tpu_torch import stat
@@ -108,18 +112,20 @@ def factor_to_numpy(fac: dict) -> dict:
 
 def dense_factor_to_torch(fac: dict, device="cuda") -> dict:
     """A DENSE factor dict of numpy arrays with the reference package's
-    0-based ``piv`` as tensors on ``device``, ``piv`` 1-based int32."""
+    0-based ``piv`` as tensors on ``device``, ``piv`` 1-based int32, with
+    the row order ``perm`` this package's solve reads."""
     out = factor_to_torch({k: v for k, v in fac.items() if k != "piv"},
                           device)
     out["piv"] = torch.as_tensor(
         np.asarray(fac["piv"]).astype(np.int32) + 1, device=out["lu"].device)
+    out["perm"] = lu_perm(out["lu"], out["piv"])
     return out
 
 
 def dense_factor_to_numpy(fac: dict) -> dict:
     """A DENSE factor dict of tensors as numpy arrays on the host, ``piv``
-    0-based as in the reference package."""
-    out = factor_to_numpy(fac)
+    0-based as in the reference package, without ``perm``."""
+    out = factor_to_numpy({k: v for k, v in fac.items() if k != "perm"})
     out["piv"] = out["piv"] - 1
     return out
 
@@ -165,7 +171,10 @@ def tree_to_torch(obj, device="cuda"):
         if v is None:
             return None
         if isinstance(v, dict):
-            return {k: conv(x, k) for k, x in v.items()}
+            out = {k: conv(x, k) for k, x in v.items()}
+            if "lus" in out and "pivs" in out:
+                out["perms"] = lu_perm(out["lus"], out["pivs"])
+            return out
         if isinstance(v, (list, tuple)):
             return [conv(x) for x in v]
         a = np.asarray(v)
@@ -184,12 +193,13 @@ def tree_to_torch(obj, device="cuda"):
 
 def tree_to_numpy(obj):
     """A nested factor dict of tensors as numpy arrays on the host, with
-    ``piv`` / ``pivs`` 0-based as in the reference package."""
+    ``piv`` / ``pivs`` 0-based as in the reference package and without
+    the row orders ``perms``."""
     def conv(v, key=None):
         if v is None:
             return None
         if isinstance(v, dict):
-            return {k: conv(x, k) for k, x in v.items()}
+            return {k: conv(x, k) for k, x in v.items() if k != "perms"}
         if isinstance(v, (list, tuple)):
             return [conv(x) for x in v]
         a = v.detach().cpu().numpy()

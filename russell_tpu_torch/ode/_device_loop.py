@@ -28,6 +28,15 @@ stream for each nesting depth (and a stream of its own for a body given
 ``stream=name``): a tensor a body allocates and the code after the body
 reads keeps its address from replay to replay, and no work outside that
 stream ever reuses its memory.
+
+The capture takes about what the warm-up reserved: each stream's pool
+holds that stream's largest working set (the factorize body's
+temporaries, for Radau5 through a sparse genie, several times its
+factors), and no pool returns memory to the card while the capture runs.
+A capture that runs out of memory inside a conditional body cannot be
+ended cleanly, so ``capture`` refuses (``ValueError``) where the warm-up's
+reservation and ``CAPTURE_SPARE_BYTES`` exceed the card's free memory, or
+where the warm-up only fitted by returning cached memory to the card.
 """
 
 from __future__ import annotations
@@ -39,12 +48,16 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["REPLAYS_PER_READ", "when", "check_capturable", "DeviceLoop",
+__all__ = ["REPLAYS_PER_READ", "CAPTURE_SPARE_BYTES", "when",
+           "check_capturable", "capture_refusal", "DeviceLoop",
            "host_reads"]
 
 # replays of the captured step attempt between two host reads of the done
 # flag (the bits of a result do not depend on it)
 REPLAYS_PER_READ = 8
+
+# memory a capture must leave free beyond what its warm-up reserved
+CAPTURE_SPARE_BYTES = 2 << 30
 
 # the reads of a device value that ``when`` made on the host (eager mode)
 host_reads = 0
@@ -94,6 +107,25 @@ def check_capturable(device, *calls) -> None:
     torch.cuda.synchronize(device)
 
 
+def capture_refusal(need: int, retries: int, free: int,
+                    total: int) -> Optional[str]:
+    """Why a capture whose warm-up reserved ``need`` bytes, with
+    ``retries`` allocations served only by returning cached memory to the
+    card, would not fit in ``free`` of the card's ``total`` bytes (with
+    ``CAPTURE_SPARE_BYTES`` to spare); None where it fits."""
+    gib = 2 ** 30
+    if retries:
+        return (f"its warm-up only fitted in the card's {total / gib:.1f} "
+                f"GiB by returning cached memory ({retries} times), which "
+                "a capture cannot do")
+    if need + CAPTURE_SPARE_BYTES > free:
+        return (f"it needs about {need / gib:.1f} GiB (what its warm-up "
+                f"reserved) and {CAPTURE_SPARE_BYTES / gib:.1f} GiB to "
+                f"spare, and {free / gib:.1f} GiB of the card's "
+                f"{total / gib:.1f} GiB are free")
+    return None
+
+
 def _lib():
     from russell_tpu_torch.sparse import _cuda
     return _cuda.library("graph_cond")
@@ -134,6 +166,9 @@ class DeviceLoop:
         self.body_nodes: dict = {}
         self.replays = 0
         self.reads = 0
+        self.warmup_bytes = 0
+        self.warmup_retries = 0
+        self.capture_free = None
         self._mode = None
         self._streams: dict = {}
         self._depth = 0
@@ -191,12 +226,20 @@ class DeviceLoop:
     def warm_up(self):
         """One attempt with every body taken, on the capture's streams, so
         that each stream's library handles and workspaces exist before the
-        capture; the state is restored afterwards."""
+        capture; the state is restored afterwards. Records the memory it
+        reserved (``warmup_bytes``) and the allocations served only by
+        returning cached memory to the card (``warmup_retries``), which
+        ``capture`` reads."""
         global _active
         t0 = time.perf_counter()
         snap = [t.clone() for t in self.state]
         self._main = torch.cuda.Stream(self.device)
         self._main.wait_stream(torch.cuda.current_stream(self.device))
+        # what the set-up left cached on other streams, which the warm-up
+        # cannot use, goes back to the card first
+        gc.collect()
+        torch.cuda.empty_cache()
+        st0 = torch.cuda.memory_stats(self.device)
         _active, self._mode = self, "warmup"
         try:
             with torch.cuda.stream(self._main):
@@ -204,6 +247,11 @@ class DeviceLoop:
         finally:
             _active, self._mode = None, None
         torch.cuda.synchronize(self.device)
+        st1 = torch.cuda.memory_stats(self.device)
+        self.warmup_bytes = (st1["reserved_bytes.all.current"]
+                             - st0["reserved_bytes.all.current"])
+        self.warmup_retries = (st1["num_alloc_retries"]
+                               - st0["num_alloc_retries"])
         for t, v in zip(self.state, snap):
             t.copy_(v)
         torch.cuda.synchronize(self.device)
@@ -225,6 +273,13 @@ class DeviceLoop:
         # left to the card before the graph's pools take memory
         gc.collect()
         torch.cuda.empty_cache()
+        self.capture_free, total = torch.cuda.mem_get_info(self.device)
+        why = capture_refusal(self.warmup_bytes, self.warmup_retries,
+                              self.capture_free, total)
+        if why is not None:
+            raise ValueError(f"the fused step attempt is not captured: "
+                             f"{why}; integrate fewer lanes at once, or "
+                             "a smaller system")
         idx = self.device.index
         graph = torch.cuda.CUDAGraph()
         self.nodes = self.if_nodes = 0

@@ -87,9 +87,15 @@ def put(t: torch.Tensor, mask: torch.Tensor, value) -> None:
 
 
 def tree_commit(dst, src, mask: torch.Tensor) -> None:
-    """Commit the lanes ``mask`` of the tensors of ``src`` (dicts, lists,
-    tuples of tensors with a leading lane dimension) into ``dst``'s."""
+    """Commit the lanes ``mask`` (B,) of the tensors of ``src`` (dicts,
+    lists, tuples of tensors) into ``dst``'s. A tensor's leading dimension
+    is its lanes, or B runs of rows, lane-major (the fronts of a batched
+    multifrontal factorization); entries that are no tensor (None planes,
+    host ints) are left as they are."""
     if isinstance(dst, torch.Tensor):
+        B = mask.shape[0]
+        if dst.shape[0] != B:
+            dst, src = dst.unflatten(0, (B, -1)), src.unflatten(0, (B, -1))
         put(dst, mask, src)
     elif isinstance(dst, dict):
         for k in dst:

@@ -16,11 +16,11 @@ only a done flag. The arithmetic and its order are the host path's
 The step runs over a leading lane dimension B (``solve_batch``; a single
 solve is B = 1). Each lane keeps its own controller and stops changing
 once it is done; the lanes whose policy asks for a factorization are
-factored together, and ``torch.where`` commits only theirs. A batch
-factorizes through the DENSE route; one lane through any route, and its
-factor pair is the one the last factorize body made (the reference
-package refactorizes at the kept step size every step instead, which
-gives the same numbers).
+factored together, in one batched numeric phase of the plan's route
+(every genie: DENSE, BANDED, SPLU, GRIDMF, GENMF), and ``torch.where``
+commits only theirs. One lane's factor pair is the one the last factorize
+body made (the reference package refactorizes at the kept step size every
+step instead, which gives the same numbers).
 
 Not carried over: the chunked device calls and their environment
 variables (a workaround for the TPU worker's time limit) and mixed32.
@@ -37,7 +37,6 @@ from russell_tpu_torch.ode._lanes import (Lanes, lane_div, lane_pow,
                                           lane_sum, put, tree_commit)
 from russell_tpu_torch.ode.constants import radau5_constants
 from russell_tpu_torch.sparse import factor as _factor
-from russell_tpu_torch.sparse.enums import Genie
 
 __all__ = ["FusedRadau5"]
 
@@ -57,12 +56,6 @@ class FusedRadau5:
     def __init__(self, stepper, params, lanes: int = 1, dense_x=None):
         system = stepper.system
         self.plan = stepper.plan
-        if lanes > 1 and self.plan.genie != Genie.DENSE:
-            raise NotImplementedError(
-                "solve_batch factorizes its lanes through Genie.DENSE only "
-                f"(this system's plan is {self.plan.genie.name}); a batched "
-                "numeric phase of GRIDMF and SPLU over one plan is not "
-                "ported yet (ROADMAP.md §1, item 9)")
         self.device = dev = stepper.device
         self.B = B = int(lanes)
         self.ndim = n = system.ndim
@@ -521,7 +514,7 @@ class FusedRadau5:
                           lambda: self.lanes.function(s["x"], s["y"])),
                     ("Jacobian", self.lanes.jac_fn,
                      lambda: self.lanes.jacobian(s["x"], s["y"])))
-            _factor.prepare(self.plan, dev, stream)
+            _factor.prepare(self.plan, dev, stream, self.B)
             if self.B > 1:
                 # the kept pair the lanes' factorizations commit into
                 self.fac = self._factor_pair(s["jv"], s["h_fact"])

@@ -331,10 +331,15 @@ class OdeSolver:
         """Solve the same system from B initial values at once: lanes of
         one fused integration (the reference package vmaps its fused
         loop), each with its own stepsize and Newton path. Radau5 lanes
-        factorize through the DENSE route.
+        factorize through the plan's route, whichever genie it is, in one
+        batched numeric phase over the one plan.
 
         Returns (y (B, ndim), stats): a dict of (B,) tensors with
-        ``status`` (1 for a lane that reached x1) and the counters."""
+        ``status`` (1 for a lane that reached x1) and the counters. On the
+        card, raises ValueError before the step attempt's capture where
+        the memory its warm-up reserved would not fit on the card
+        (``_device_loop.capture_refusal``): the factorize body's
+        temporaries grow with the lanes."""
         y0s = self._y_on_device(y0_batch)
         if y0s.dim() != 2 or y0s.shape[1] != self.ndim:
             raise ValueError("y0_batch must be (B, ndim)")

@@ -2,9 +2,10 @@
 
 Counterpart of ``russell_tpu.parallel.batch``. The reference shards the
 batch axis of a vmapped factorize-and-solve over the mesh; here each rank
-factorizes and solves its own rows of the batch (``factor.factor_solve_
-batch``) and the solutions are all-gathered, so every rank returns the
-whole batch.
+factorizes and solves its own rows of the batch in one batched numeric
+phase and one batched solve over the plan (``factor.factor_solve_batch``,
+every genie), and the solutions are all-gathered, so every rank returns
+the whole batch.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ def batch_factor_solve(mesh, plan, batch_vals, batch_rhs,
     ``batch_vals`` (B, nnz) entry values and ``batch_rhs`` (B, n), numpy
     or tensors, the whole batch on every rank; B must be a multiple of the
     ranks on ``mesh``'s ``axis``. Rank r factorizes and solves rows
-    [r B/W, (r+1) B/W): DENSE in one batched numeric phase, the other
-    genies one numeric phase per system over the one plan. Returns the
-    (B, n) solutions on every rank."""
+    [r B/W, (r+1) B/W) in one batched numeric phase over the plan, as the
+    reference's vmap does. Returns the (B, n) solutions on every rank."""
     ax = MeshAxis(mesh, axis)
     vals = torch.as_tensor(batch_vals, device=ax.device)
     rhs = torch.as_tensor(batch_rhs, device=ax.device)

@@ -34,10 +34,12 @@ def dist_splu_factorize(mesh, plan: SpluPlan, data, axis: str = "rows"):
     (blocks, logdet, phase, min_pivot, n_perturbed) on every rank."""
     ax = MeshAxis(mesh, axis)
     data = torch.as_tensor(data, device=ax.device)
+    if data.dim() != 1:
+        raise ValueError(f"dist_splu_factorize takes one matrix's entries "
+                         f"(nnz,), got {tuple(data.shape)}")
     dp = _splu._device_plan(plan, data.device)
     states, deltas, cplxs = _splu._init_states(plan, (data,), dp)
     pairs = _splu._rank_pairs(plan, data.device, ax.world, ax.rank)
-    (blocks, ld, mp, npert, ph), = _splu._scan_packed(
-        plan, states, deltas, cplxs, dp, pairs=pairs, reduce=ax.reduce)
-    return {"blocks": blocks, "logdet": ld, "phase": ph, "min_pivot": mp,
-            "n_perturbed": npert}
+    state, = _splu._scan_packed(plan, states, deltas, cplxs, dp,
+                                pairs=pairs, reduce=ax.reduce)
+    return _splu._fac_dict(state, False)

@@ -53,10 +53,12 @@ _SPGEMM = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P]
 # cudaError_t code
 _SIGNATURES = {
     # blocks, pair_l, pair_u, chunk, lane_off, tickets, n_chunks, n_live,
-    # be, out, scratch, stream
+    # n_multi, be, lanes, blocks' lane stride, out, scratch, stream
     "splu_pairs": {"splu_pairs_f64":
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
-    "gather_rows": {"gather_rows_f64": [_P, _P, _I, _I, _P, _P]},
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P, _P,
+                    _P]},
+    # src, idx, n_rows, width, lanes, src's lane stride, out, stream
+    "gather_rows": {"gather_rows_f64": [_P, _P, _I, _I, _I, _L, _P, _P]},
     # val, col, slice_off, x, n_rows, n_slices, y, stream
     "bsr_spmv": {"bsr_spmv_f64": _SPMV, "bsr_spmv_c128": _SPMV},
     # val, col, slice_off, X, n_rows, n_slices, m, Y, stream
@@ -65,10 +67,10 @@ _SIGNATURES = {
     # n_block_rows, bm, bn, chunk_rows, chunk_blocks, C, stream
     "spgemm_blocks": {"spgemm_blocks_f64": _SPGEMM,
                       "spgemm_blocks_c128": _SPGEMM},
-    # D, lane stride, row stride, delta, w, m, Dinv, log|det|, min|pivot|,
-    # n_perturbed, sign, stream
-    "gj_inv": {"gj_inv_f64": [_P, _L, _L, _P, _I, _I, _P, _P, _P, _P, _P,
-                              _P]},
+    # D, lane stride, row stride, delta, n_delta, w, m, Dinv, log|det|,
+    # min|pivot|, n_perturbed, sign, stream
+    "gj_inv": {"gj_inv_f64": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P]},
     # parent stream, child stream, pred, capture mode, body graph out;
     # child stream; graph, count out; capturing stream, count out
     "graph_cond": {"cond_if_begin": [_P, _P, _P, _I, _P],

@@ -8,8 +8,9 @@ UMFPACK / cuDSS backends). The split is the same:
 - **analysis** (host, numpy): pick a path, compute the ordering and
   freeze every index set the numeric phase needs (MUMPS JOB_ANALYZE).
 - **numeric factorize / solve** (device): max-norm equilibration, then
-  the dense LU with partial pivoting (``torch.linalg.lu_factor_ex`` /
-  ``lu_solve``), the block-tridiagonal BANDED elimination (a sequential
+  the dense LU with partial pivoting (``bcr.lu_factor``, the pivots'
+  row order made once; a solve is a gather and two triangular solves,
+  ``bcr.lu_solve``), the block-tridiagonal BANDED elimination (a sequential
   scan or block cyclic reduction, ``bcr``), the SPLU block factorization
   and packed substitution, or the GRIDMF / GENMF multifrontal
   factorizations and their sweeps, and fixed-count iterative refinement
@@ -18,11 +19,13 @@ UMFPACK / cuDSS backends). The split is the same:
 ``Genie.AUTO`` routes as the reference does: n <= ``dense_threshold`` to
 DENSE (with or without a ``grid`` hint), a grid hint with a cell-local
 pattern above it to GRIDMF, else BANDED when the RCM bandwidth is at most
-``max_block`` and GENMF otherwise. The DENSE route also factorizes and
-solves a batch of matrices of one pattern (entry values (B, nnz),
-right-hand sides (B, n)), which ``solve_batch`` uses; ``prepare`` uploads
-every index array of a plan before a CUDA graph capture, which may not
-copy from the host. Factors are full f64/complex128: the H100 has f64, so
+``max_block`` and GENMF otherwise. Every route also factorizes and solves
+a batch of matrices of one pattern over the one plan (entry values (B,
+nnz), right-hand sides (B, n), one lane each), which ``solve_batch`` and
+``parallel.batch_factor_solve`` use: the numeric phase runs once over a
+leading lane dimension, not once a matrix. ``prepare`` uploads every
+index array of a plan before a CUDA graph capture, which may not copy
+from the host. Factors are full f64/complex128: the H100 has f64, so
 the reference package's mixed-precision regime (f32 factors and its
 adaptive refinement tiers) is not carried over, and neither are GRIDMF's
 out-of-core factors (ROADMAP.md).
@@ -332,12 +335,13 @@ def _device_indices(plan: SolvePlan, device):
         torch.as_tensor(plan.cols, device=d)))
 
 
-def prepare(plan: SolvePlan, device, stream=None):
+def prepare(plan: SolvePlan, device, stream=None, lanes: int = 1):
     """Upload every array the plan's numeric phase reads to ``device``
     (each is uploaded once per (plan, device) anyway), and for SPLU the
     pair kernel's ticket buffer of the CUDA ``stream`` that will run the
-    factorization: afterwards a factorize or solve copies nothing from
-    the host, so it can be captured into a CUDA graph."""
+    factorization of ``lanes`` matrices at once: afterwards a factorize or
+    solve copies nothing from the host, so it can be captured into a CUDA
+    graph."""
     device = torch.device(device)
     _device_indices(plan, device)
     _seg_index(plan, "rows", device)
@@ -352,7 +356,7 @@ def prepare(plan: SolvePlan, device, stream=None):
     elif plan.genie == Genie.SPLU:
         _splu._device_plan(plan.splu_plan, device)
         if stream is not None and device.type == "cuda":
-            _splu.prepare_stream(plan.splu_plan, device, stream)
+            _splu.prepare_stream(plan.splu_plan, device, stream, lanes)
 
 
 def _segment_max(vals, seg, n):
@@ -420,6 +424,20 @@ def _equilibrate(plan: SolvePlan, data):
     return data * (rs[..., rows] * cs[..., cols]).to(data.dtype), rs, cs
 
 
+def _prod(x):
+    """The product over the last dimension. A complex one is a tree of
+    elementwise products: ``torch.prod`` of complex values on the card
+    compiles its reduction kernel at run time (NVRTC) at its first call
+    in a process for each layout, ~14 s on an H100's host."""
+    if not x.is_complex():
+        return x.prod(-1)
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+        x = x[..., 0::2] * x[..., 1::2]
+    return x[..., 0]
+
+
 def _logdet_update(diag, piv):
     """(log|det|, phase) of LU factors' U diagonals and their pivots, one
     per matrix of a batch (``torch.linalg`` pivots are 1-based, where the
@@ -433,8 +451,8 @@ def _logdet_update(diag, piv):
     logdet = torch.sum(torch.where(absd > 0, torch.log(safe), -torch.inf),
                        dim=-1)
     if diag.is_complex():
-        phase = torch.prod(torch.where(absd > 0, diag / safe.to(diag.dtype),
-                                       0.0), dim=-1) * sign
+        phase = _prod(torch.where(absd > 0, diag / safe.to(diag.dtype),
+                                  0.0)) * sign
     else:
         phase = torch.prod(torch.sign(diag), dim=-1) * sign
     return logdet, phase
@@ -454,10 +472,11 @@ def _dense_factorize(plan: SolvePlan, data):
     a = torch.zeros(batch + (n * n,), dtype=data.dtype, device=data.device)
     for ids, slots in _dense_passes_on(plan, data.device):
         a[..., slots] = a[..., slots] + data[..., ids]
-    lu, piv, _ = torch.linalg.lu_factor_ex(a.reshape(batch + (n, n)))
+    lu, piv = _bcr.lu_factor(a.reshape(batch + (n, n)))
     diag = torch.diagonal(lu, dim1=-2, dim2=-1)
     logdet, phase = _logdet_update(diag, piv)
-    return {"lu": lu, "piv": piv, "rs": rs, "cs": cs, "logdet": logdet,
+    return {"lu": lu, "piv": piv, "perm": _bcr.lu_perm(lu, piv), "rs": rs,
+            "cs": cs, "logdet": logdet,
             "phase": phase, "min_pivot": diag.abs().amin(dim=-1),
             "data": data}  # scaled entries (kept for refinement)
 
@@ -465,7 +484,7 @@ def _dense_factorize(plan: SolvePlan, data):
 def _dense_solve(plan: SolvePlan, fac, b):
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
-    x = torch.linalg.lu_solve(fac["lu"], fac["piv"], y[..., None])[..., 0]
+    x = _bcr.lu_solve(fac["lu"], fac["perm"], y[..., None])[..., 0]
     return fac["cs"].to(out_dtype) * x
 
 
@@ -485,24 +504,29 @@ def _banded_indices(plan: SolvePlan, device):
 
 
 def _banded_scatter(plan: SolvePlan, data):
-    """The (3, nb, k, k) band blocks E, D, F of the scaled entries, a unit
-    diagonal in the padding rows; duplicates add in entry order."""
+    """The (..., 3, nb, k, k) band blocks E, D, F of the scaled entries
+    (..., nnz), a unit diagonal in the padding rows; duplicates add in
+    entry order."""
     nb, k = plan.nb, plan.block_k
+    lead = data.shape[:-1]
     ix = _banded_indices(plan, data.device)
-    flat = torch.zeros(3 * nb * k * k, dtype=data.dtype, device=data.device)
-    flat[ix["pad"]] = flat.new_ones(())
+    flat = torch.zeros(lead + (3 * nb * k * k,), dtype=data.dtype,
+                       device=data.device)
+    flat[..., ix["pad"]] = flat.new_ones(())
     for ids, slots in ix["passes"]:
-        flat.index_add_(0, slots, data.index_select(0, ids))
-    return flat.view(3, nb, k, k)
+        flat.index_add_(-1, slots, data.index_select(-1, ids))
+    return flat.view(lead + (3, nb, k, k))
 
 
 def _banded_factorize_bcr(plan: SolvePlan, data, split=None):
     """BANDED through cyclic reduction; ``split`` spreads its levels over
     ranks (``bcr.bcr_factorize``), each split level's log|det| and sign
-    then summed over the ranks in rank order."""
+    then summed over the ranks in rank order. A batch (B, nnz) runs every
+    matrix's levels together."""
     data, rs, cs = _equilibrate(plan, data)
     blocks = _banded_scatter(plan, data)
-    fac = _bcr.bcr_factorize(blocks[1], blocks[0], blocks[2],
+    fac = _bcr.bcr_factorize(blocks[..., 1, :, :, :], blocks[..., 0, :, :, :],
+                             blocks[..., 2, :, :, :],
                              pivot_epsilon=plan.pivot_epsilon, split=split)
     fac["rs"] = rs
     fac["cs"] = cs
@@ -514,7 +538,7 @@ def _banded_factorize_bcr(plan: SolvePlan, data, split=None):
     for lv in fac["levels"] + [fac["root"]]:
         l, p = _logdet_update(torch.diagonal(lv["lus"], dim1=-2, dim2=-1),
                               lv["pivs"])
-        l, p = l.sum(), p.prod()
+        l, p = l.sum(-1), _prod(p)
         if lv.get("range") is not None:
             st = split.combine(logdet=l, phase=p)
             l, p = st["logdet"], st["phase"]
@@ -525,69 +549,85 @@ def _banded_factorize_bcr(plan: SolvePlan, data, split=None):
     return fac
 
 
-def _banded_solve_bcr(plan: SolvePlan, fac, b, split=None):
+def _banded_rhs(plan: SolvePlan, fac, b):
+    """The scaled, permuted and padded right-hand sides (..., nb, k)."""
     n, k, nb = plan.n, plan.block_k, plan.nb
-    out_dtype = fac["data"].dtype
     ix = _banded_indices(plan, b.device)
-    bs = (fac["rs"] * b.to(out_dtype))[ix["perm"]]
-    bp = torch.zeros(nb * k, dtype=out_dtype, device=b.device)
-    bp[:n] = bs
-    x = _bcr.bcr_solve(fac, bp.view(nb, k), split).reshape(nb * k)[:n]
-    return fac["cs"].to(out_dtype) * x[ix["iperm"]]
+    bs = (fac["rs"] * b.to(fac["data"].dtype))[..., ix["perm"]]
+    bp = torch.zeros(b.shape[:-1] + (nb * k,), dtype=bs.dtype,
+                     device=b.device)
+    bp[..., :n] = bs
+    return bp.view(b.shape[:-1] + (nb, k))
+
+
+def _banded_x(plan: SolvePlan, fac, xp):
+    """x from the padded, permuted solution (..., nb, k)."""
+    ix = _banded_indices(plan, xp.device)
+    x = xp.reshape(xp.shape[:-2] + (-1,))[..., :plan.n]
+    return fac["cs"].to(x.dtype) * x[..., ix["iperm"]]
+
+
+def _banded_solve_bcr(plan: SolvePlan, fac, b, split=None):
+    return _banded_x(plan, fac, _bcr.bcr_solve(
+        fac, _banded_rhs(plan, fac, b), split))
 
 
 def _banded_factorize(plan: SolvePlan, data):
     """Sequential block elimination over the nb block rows: S_i = D_i -
     E_i C_{i-1}, its LU (with the static pivot perturbation of
-    ``bcr.lu_static``), C_i = S_i^{-1} F_i."""
+    ``bcr.lu_static``), C_i = S_i^{-1} F_i. A batch (B, nnz) steps every
+    matrix's rows together."""
     data, rs, cs = _equilibrate(plan, data)
     blocks = _banded_scatter(plan, data)
-    E, D, F = blocks[0], blocks[1], blocks[2]
-    # static pivot perturbation threshold (MUMPS-style)
-    delta = plan.pivot_epsilon * (1.0 + data.abs().max())
-    lus, pivs, Cs, bads = [], [], [], []
+    E, D, F = (blocks[..., j, :, :, :] for j in range(3))
+    # static pivot perturbation threshold (MUMPS-style), per matrix
+    delta = plan.pivot_epsilon * (1.0 + data.abs().amax(-1))
+    lus, pivs, perms, Cs, bads = [], [], [], [], []
     C = None
     for i in range(plan.nb):
-        S = D[i] if C is None else D[i] - E[i] @ C
-        lu, piv, bad = _bcr.lu_static(S, delta)
-        C = torch.linalg.lu_solve(lu, piv, F[i])
+        Di = D[..., i, :, :]
+        S = Di if C is None else Di - E[..., i, :, :] @ C
+        # one block a matrix: the lu_static batch of each lane's m = 1
+        lu, piv, perm, bad = _bcr.lu_static(S.unsqueeze(-3), delta)
+        lu, piv, perm, bad = (lu[..., 0, :, :], piv[..., 0, :],
+                              perm[..., 0, :], bad[..., 0])
+        C = _bcr.lu_solve(lu, perm, F[..., i, :, :])
         lus.append(lu)
         pivs.append(piv)
+        perms.append(perm)
         Cs.append(C)
         bads.append(bad)
-    lus = torch.stack(lus)
-    pivs = torch.stack(pivs)
+    lus = torch.stack(lus, dim=-3)
+    pivs = torch.stack(pivs, dim=-2)
     diag = torch.diagonal(lus, dim1=-2, dim2=-1)
     ld, ph = _logdet_update(diag, pivs)
-    return {"lus": lus, "pivs": pivs, "Cs": torch.stack(Cs), "E": E,
-            "rs": rs, "cs": cs, "logdet": ld.sum(), "phase": ph.prod(),
-            "min_pivot": diag.abs().amin(),
-            "n_perturbed": torch.stack(bads).sum(dtype=torch.int32),
+    return {"lus": lus, "pivs": pivs, "perms": torch.stack(perms, dim=-2),
+            "Cs": torch.stack(Cs, dim=-3), "E": E,
+            "rs": rs, "cs": cs, "logdet": ld.sum(-1), "phase": _prod(ph),
+            "min_pivot": diag.abs().amin(dim=(-2, -1)),
+            "n_perturbed": torch.stack(bads, dim=-1).sum(-1,
+                                                         dtype=torch.int32),
             "data": data}
 
 
 def _banded_solve(plan: SolvePlan, fac, b):
-    n, k, nb = plan.n, plan.block_k, plan.nb
-    out_dtype = fac["data"].dtype
-    ix = _banded_indices(plan, b.device)
-    bs = (fac["rs"] * b.to(out_dtype))[ix["perm"]]
-    bp = torch.zeros(nb * k, dtype=out_dtype, device=b.device)
-    bp[:n] = bs
-    bp = bp.view(nb, k)
-    lus, pivs, E, Cs = fac["lus"], fac["pivs"], fac["E"], fac["Cs"]
+    nb = plan.nb
+    bp = _banded_rhs(plan, fac, b)
+    lus, perms, E, Cs = fac["lus"], fac["perms"], fac["E"], fac["Cs"]
     ys = []
     y = None
     for i in range(nb):
-        rhs = bp[i] if y is None else bp[i] - E[i] @ y
-        y = torch.linalg.lu_solve(lus[i], pivs[i], rhs[:, None])[:, 0]
+        bi = bp[..., i, :]
+        rhs = bi if y is None else bi - _bcr._mv(E[..., i, :, :], y)
+        y = _bcr.lu_solve(lus[..., i, :, :], perms[..., i, :],
+                          rhs[..., None])[..., 0]
         ys.append(y)
     xs = [None] * nb
     x = None
     for i in range(nb - 1, -1, -1):
-        x = ys[i] if x is None else ys[i] - Cs[i] @ x
+        x = ys[i] if x is None else ys[i] - _bcr._mv(Cs[..., i, :, :], x)
         xs[i] = x
-    xp = torch.cat(xs)[:n]
-    return fac["cs"].to(out_dtype) * xp[ix["iperm"]]
+    return _banded_x(plan, fac, torch.stack(xs, dim=-2))
 
 
 def det_phase(plan: SolvePlan, fac) -> complex:
@@ -600,7 +640,11 @@ def det_phase(plan: SolvePlan, fac) -> complex:
     fill-reducing permutation has sign^2 = 1 and static pivoting does no
     row swaps). Runs only on an explicit determinant request, on the
     factors' device, in complex128 (``torch.linalg.slogdet`` per front
-    where the reference package fetches planes to the host)."""
+    where the reference package fetches planes to the host). The factors
+    of a batch are refused."""
+    if fac["logdet"].dim():
+        raise ValueError(f"det_phase takes the factors of one matrix, got "
+                         f"a batch of {fac['logdet'].shape[0]}")
     if plan.splu_plan is not None and "blocks" in fac:
         pri = _splu.splu_det_phase(plan.splu_plan, fac).cpu()
         return complex(float(pri[0]), float(pri[1]))
@@ -616,19 +660,30 @@ def det_phase(plan: SolvePlan, fac) -> complex:
     return complex(fac["phase"].cpu())
 
 
-def _check_plan(plan: SolvePlan, values=None):
-    if values is not None and values.dim() > 1 and plan.genie != Genie.DENSE:
-        raise NotImplementedError(
-            f"a batch of matrices factorizes through Genie.DENSE only; a "
-            f"batched numeric phase of {plan.genie.name} over one plan is "
-            "not ported yet (ROADMAP.md §1, item 9)")
+def _check_data(data):
+    if data.dim() not in (1, 2):
+        raise ValueError(f"entry values (nnz,) or a batch (B, nnz) "
+                         f"expected, got {tuple(data.shape)}")
+
+
+def _check_rhs(fac, b):
+    """A right-hand side per lane of the factors: (n,) for one matrix's,
+    (B, n) for a batch's."""
+    lanes = fac["rs"].shape[:-1]
+    if b.shape[:-1] != lanes or b.dim() > 2:
+        raise ValueError(
+            f"right-hand side {tuple(b.shape)} does not match factors of "
+            f"{'a batch of ' + str(lanes[0]) if lanes else 'one matrix'} "
+            f"(scaling {tuple(fac['rs'].shape)}): a batch's factors take "
+            "(B, n), one matrix's (n,)")
 
 
 def numeric_factorize(plan: SolvePlan, data):
     """Numeric factorization of the entry values ``data`` (f64 or
     complex128 tensor, on the device to factorize on) laid out as
-    (plan.rows, plan.cols); DENSE also takes a batch (B, nnz)."""
-    _check_plan(plan, data)
+    (plan.rows, plan.cols): (nnz,), or a batch (B, nnz) of matrices of
+    the plan's pattern, factorized in one numeric phase (statistics (B,))."""
+    _check_data(data)
     if plan.genie == Genie.DENSE:
         return _dense_factorize(plan, data)
     if plan.genie == Genie.BANDED:
@@ -653,8 +708,10 @@ def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
     complex Newton matrices). For SPLU both run in ONE pass over the
     packed schedule (splu_factorize_multi) — the analog of the reference's
     concurrent real/complex factorization (radau5.rs, P5); the other
-    genies factor them one after the other, as the reference package does."""
-    _check_plan(plan, data_r)
+    genies factor them one after the other, as the reference package does.
+    Each may be a batch (B, nnz)."""
+    _check_data(data_r)
+    _check_data(data_c)
     if plan.genie != Genie.SPLU:
         return (numeric_factorize(plan, data_r),
                 numeric_factorize(plan, data_c))
@@ -698,8 +755,8 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
     """Solve A x = b from a numeric factorization, with ``refine_steps``
     (default ``plan.refine_steps``) rounds of iterative refinement
     against the scaled matrix. Radau5 passes 0 for its Newton solves.
-    DENSE factors of a batch take right-hand sides (B, n)."""
-    _check_plan(plan, b)
+    The factors of a batch take right-hand sides (B, n), one lane each."""
+    _check_rhs(fac, b)
     if refine_steps is None:
         refine_steps = plan.refine_steps
     x = _solve_once(plan, fac, b)
@@ -711,14 +768,13 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
 def factor_solve_batch(plan: SolvePlan, data, b):
     """Factorize and solve a batch of systems of one structure: entry
     values ``data`` (B, nnz) and right-hand sides ``b`` (B, n), returning
-    x (B, n). DENSE runs its batched numeric phase; every other genie one
-    numeric phase and solve per system over the one plan, since a batched
-    numeric phase of theirs is not ported (ROADMAP.md §1, item 9). For
+    x (B, n), with the plan's rounds of refinement. Every genie runs one
+    batched numeric phase and one batched solve over the one plan. For
     ``parallel.batch_factor_solve``, which gives each rank its rows."""
-    if plan.genie == Genie.DENSE:
-        return factor_solve(plan, numeric_factorize(plan, data), b)
-    return torch.stack([factor_solve(plan, numeric_factorize(plan, v), r)
-                        for v, r in zip(data, b)])
+    if data.dim() != 2:
+        raise ValueError(f"a batch of entry values (B, nnz) expected, got "
+                         f"{tuple(data.shape)}")
+    return factor_solve(plan, numeric_factorize(plan, data), b)
 
 
 def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
@@ -726,8 +782,9 @@ def factor_solve_pair(plan: SolvePlan, fac_r, fac_c, b_r, b_c,
     """Solve the real and complex systems TOGETHER (for SPLU one
     packed-substitution pass per refinement round covers both; the other
     genies solve them one after the other, as the reference package
-    does)."""
-    _check_plan(plan, b_r)
+    does). Batched factors take right-hand sides (B, n)."""
+    _check_rhs(fac_r, b_r)
+    _check_rhs(fac_c, b_c)
     if refine_steps is None:
         refine_steps = plan.refine_steps
     if plan.genie != Genie.SPLU:

@@ -49,9 +49,10 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from russell_tpu_torch.sparse.gridmf import (_combine, _inv_planes, _mm,
+from russell_tpu_torch.sparse.gridmf import (_combine, _inv_planes,
+                                             _lane_data, _lane_rhs, _mm,
                                              _node_block, _scatter_blocks,
-                                             _solve_ranges)
+                                             _solve_ranges, _stats_dict)
 from russell_tpu_torch.sparse.ordering import idx32 as _idx32, rank_passes
 
 __all__ = ["GenMfPlan", "genmf_analyze", "genmf_factorize", "genmf_solve"]
@@ -483,10 +484,12 @@ def _device_plan(plan: GenMfPlan, device):
 
 def _presum(plan: GenMfPlan, dp, data):
     """Duplicate entries collapse onto their unique front positions,
-    summed in entry order, one duplicate rank a pass."""
-    out = torch.zeros(plan.n_uniq, dtype=data.dtype, device=data.device)
+    summed in entry order, one duplicate rank a pass: (lanes, nnz) to
+    (lanes, n_uniq)."""
+    out = torch.zeros((data.shape[0], plan.n_uniq), dtype=data.dtype,
+                      device=data.device)
     for perm, seg in dp["presum"]:
-        out.index_add_(0, seg, data.index_select(0, perm))
+        out.index_add_(1, seg, data.index_select(1, perm))
     return out
 
 
@@ -522,47 +525,54 @@ def _block(plan: GenMfPlan, dp, ci, rng):
 
 
 def _assemble(c: _GClass, dc, uniq, ghost=True, blk=None):
-    """The class's fronts (n_nodes, F, F) from the pre-summed values; with
-    ``ghost``, a unit diagonal in every padded pivot slot (the REAL plane
-    only). The ghost and entry positions are unique and apart. With
-    ``blk`` (``_block``) only that block of nodes."""
+    """The class's fronts (lanes * n_nodes, F, F), lane-major, from the
+    pre-summed values (lanes, n_uniq); with ``ghost``, a unit diagonal in
+    every padded pivot slot (the REAL plane only). The ghost and entry
+    positions are unique and apart. With ``blk`` (``_block``) only that
+    block of nodes."""
     F = c.F
+    lanes = uniq.shape[0]
     n_nodes = c.n_nodes if blk is None else blk["n"]
     pd = dc["pd"] if blk is None else blk["gd"]
-    flat = torch.zeros(n_nodes * F * F, dtype=uniq.dtype,
+    flat = torch.zeros((lanes, n_nodes * F * F), dtype=uniq.dtype,
                        device=uniq.device)
     if ghost and pd.numel():
-        flat[pd] = flat.new_ones(())
+        flat[:, pd] = flat.new_ones(())
     if blk is None:
         if c.asm_len:
-            flat.index_put_((dc["asm"],),
-                            uniq[c.asm_off:c.asm_off + c.asm_len])
+            flat[:, dc["asm"]] = uniq[:, c.asm_off:c.asm_off + c.asm_len]
     elif blk["asm"].numel():
-        flat.index_put_((blk["asm"],), uniq.index_select(0, blk["src"]))
-    return flat.view(n_nodes, F, F)
+        flat[:, blk["asm"]] = uniq.index_select(1, blk["src"])
+    return flat.view(lanes * n_nodes, F, F)
 
 
-def _gather_schur(dl, S):
-    """(m, F_p, F_p) block of one child class's Schur complements:
-    T[i, a, b] = S[cs[i], inv[i, a], inv[i, b]] (pad -> zero slot)."""
-    Spad = tnf.pad(S, (0, 1, 0, 1))
+def _gather_schur(dl, S, lanes):
+    """(lanes, m, F_p, F_p) block of one child class's Schur complements
+    (lanes * n_child, r, r): T[l, i, a, b] = S[l, cs[i], inv[i, a],
+    inv[i, b]] (pad -> zero slot)."""
+    Spad = tnf.pad(S.unflatten(0, (lanes, -1)), (0, 1, 0, 1))
     inv = dl["inv"]
-    return Spad[dl["cs"][:, None, None], inv[:, :, None], inv[:, None, :]]
+    return Spad[:, dl["cs"][:, None, None], inv[:, :, None],
+                inv[:, None, :]]
 
 
-def _gather_vec(dl, v):
-    return tnf.pad(v, (0, 1))[dl["cs"][:, None], dl["inv"]]
+def _gather_vec(dl, v, lanes):
+    return tnf.pad(v.unflatten(0, (lanes, -1)), (0, 1))[
+        :, dl["cs"][:, None], dl["inv"]]
 
 
 def _add_rows(front, dl, vals):
-    """front[ps[i]] += vals[i], in link order where two rows share a
-    parent slot (one duplicate rank a pass)."""
+    """front[l, ps[i]] += vals[l, i] for the lanes l of ``vals`` (lanes,
+    m, ...) and the lane-major ``front`` (lanes * n_nodes, ...), in link
+    order where two rows share a parent slot (one duplicate rank a
+    pass)."""
+    front = front.unflatten(0, (vals.shape[0], -1))
     passes = dl["passes"]
     if len(passes) == 1:
-        front.index_add_(0, dl["ps"], vals)
+        front.index_add_(1, dl["ps"], vals)
         return
     for ids, ps in passes:
-        front.index_add_(0, ps, vals.index_select(0, ids))
+        front.index_add_(1, ps, vals.index_select(1, ids))
 
 
 def genmf_factorize(plan: GenMfPlan, data, split=None):
@@ -582,12 +592,13 @@ def genmf_factorize(plan: GenMfPlan, data, split=None):
     ``_gather_schur`` may read any child; the other classes run on every
     rank. A split class's statistics are summed over the ranks in rank
     order (``split.combine``). The fac then holds each class's block and,
-    in ``ranges``, each class's node range (None: every node)."""
-    cplx = data.is_complex()
-    rdt = data.real.dtype if cplx else data.dtype
-    if rdt != torch.float64:
-        raise TypeError(f"GENMF factorizes float64/complex128, got "
-                        f"{data.dtype}")
+    in ``ranges``, each class's node range (None: every node).
+
+    ``data`` (B, nnz) factorizes B matrices at once, each class's fronts
+    (B * n_nodes, ...) lane-major (``gridmf.gridmf_factorize``); a batch
+    takes no ``split``."""
+    cplx, rdt, batched, data = _lane_data("GENMF", data, split)
+    lanes = data.shape[0]
     dev = data.device
     dp = _device_plan(plan, dev)
     if cplx:
@@ -596,16 +607,16 @@ def genmf_factorize(plan: GenMfPlan, data, split=None):
     else:
         uniq_re = _presum(plan, dp, data)
         uniq_im = None
-    delta = plan.pivot_epsilon * (1.0 + data.abs().max())
+    delta = plan.pivot_epsilon * (1.0 + data.abs().amax(-1))
 
     store = [None] * len(plan.classes)
     ranges = [None] * len(plan.classes)
     schur_re: Dict[int, torch.Tensor] = {}
     schur_im: Dict[int, torch.Tensor] = {}
-    ld = torch.zeros((), dtype=rdt, device=dev)
-    mp = torch.full((), float("inf"), dtype=rdt, device=dev)
-    npc = torch.zeros((), dtype=torch.int32, device=dev)
-    ph = torch.ones((), dtype=rdt, device=dev)
+    ld = torch.zeros(lanes, dtype=rdt, device=dev)
+    mp = torch.full((lanes,), float("inf"), dtype=rdt, device=dev)
+    npc = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    ph = torch.ones(lanes, dtype=rdt, device=dev)
     for ci, c in enumerate(plan.classes):
         dc = dp["classes"][ci]
         rng = None if split is None else split.block(c.n_nodes)
@@ -617,9 +628,10 @@ def genmf_factorize(plan: GenMfPlan, data, split=None):
         for link, dl in zip(c.links, links):
             if not dl["passes"]:
                 continue        # no parent of this block in the link
-            _add_rows(fr, dl, _gather_schur(dl, schur_re[link.src]))
+            _add_rows(fr, dl, _gather_schur(dl, schur_re[link.src], lanes))
             if cplx:
-                _add_rows(fi, dl, _gather_schur(dl, schur_im[link.src]))
+                _add_rows(fi, dl, _gather_schur(dl, schur_im[link.src],
+                                                lanes))
         for src in dc["free"]:
             schur_re.pop(src)
             schur_im.pop(src, None)
@@ -645,8 +657,9 @@ def genmf_factorize(plan: GenMfPlan, data, split=None):
         npc = npc + np_d
         if not cplx:
             ph = ph * ph_d
-    fac = {"classes": store, "logdet": ld, "phase": ph, "min_pivot": mp,
-           "n_perturbed": npc}
+    fac = _stats_dict(batched, logdet=ld, phase=ph, min_pivot=mp,
+                      n_perturbed=npc)
+    fac["classes"] = store
     if split is not None:
         fac["ranges"] = ranges
     return fac
@@ -667,20 +680,25 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
     ``split`` solves factors made with the same ``split``: a split class's
     sweeps run on this rank's node block, and its keep right-hand sides
     (up) and front solutions (down) are all-gathered before another class
-    reads them; every rank returns x whole."""
+    reads them; every rank returns x whole. The factors of a batch take
+    ``bvec`` (B, n) and return x (B, n)."""
     first = fac["classes"][0]
     cplx = first["sii"] is not None
     rdt, dev = first["sir"].dtype, first["sir"].device
+    last = fac["classes"][-1]["sir"]
+    batched, bvec = _lane_rhs("GENMF", bvec, split, last.shape[0],
+                              plan.classes[-1].n_nodes)
+    L = bvec.shape[0]
     dp = _device_plan(plan, dev)
     ranges = _solve_ranges([c.n_nodes for c in plan.classes], fac, split)
     n = plan.n
-    bp_re = torch.zeros(n + 1, dtype=rdt, device=dev)
-    bp_re[:n] = bvec.real if bvec.is_complex() else bvec
+    bp_re = torch.zeros((L, n + 1), dtype=rdt, device=dev)
+    bp_re[:, :n] = bvec.real if bvec.is_complex() else bvec
     bp_im = None
     if cplx:
-        bp_im = torch.zeros(n + 1, dtype=rdt, device=dev)
+        bp_im = torch.zeros((L, n + 1), dtype=rdt, device=dev)
         if bvec.is_complex():
-            bp_im[:n] = bvec.imag
+            bp_im[:, :n] = bvec.imag
 
     fe_st = [None] * len(plan.classes)
     fk_re: Dict[int, torch.Tensor] = {}
@@ -693,21 +711,21 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
         blk = _block(plan, dp, ci, rng)
         nn, ev, links = ((c.n_nodes, dc["ev"], dc["links"]) if blk is None
                          else (blk["n"], blk["ev"], blk["links"]))
-        fr = torch.zeros((nn, c.F), dtype=rdt, device=dev)
-        fi = torch.zeros((nn, c.F), dtype=rdt, device=dev) \
+        fr = torch.zeros((L * nn, c.F), dtype=rdt, device=dev)
+        fi = torch.zeros((L * nn, c.F), dtype=rdt, device=dev) \
             if cplx else None
         for link, dl in zip(c.links, links):
             if not dl["passes"]:
                 continue
-            _add_rows(fr, dl, _gather_vec(dl, fk_re[link.src]))
+            _add_rows(fr, dl, _gather_vec(dl, fk_re[link.src], L))
             if cplx:
-                _add_rows(fi, dl, _gather_vec(dl, fk_im[link.src]))
+                _add_rows(fi, dl, _gather_vec(dl, fk_im[link.src], L))
         for src in dc["free"]:
             fk_re.pop(src)
             fk_im.pop(src, None)
-        fr[:, :e] += bp_re.index_select(0, ev).view(nn, e)
+        fr[:, :e] += bp_re.index_select(1, ev).view(L * nn, e)
         if cplx:
-            fi[:, :e] += bp_im.index_select(0, ev).view(nn, e)
+            fi[:, :e] += bp_im.index_select(1, ev).view(L * nn, e)
         fer, fei = fr[:, :e], (fi[:, :e] if cplx else None)
         fe_st[ci] = (fer, fei)
         if c.r:
@@ -719,8 +737,8 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
 
     # x gets one slot past n: padded elim vars (index n) are written there
     # and dropped
-    x_re = torch.zeros(n + 1, dtype=rdt, device=dev)
-    x_im = torch.zeros(n + 1, dtype=rdt, device=dev) if cplx else None
+    x_re = torch.zeros((L, n + 1), dtype=rdt, device=dev)
+    x_im = torch.zeros((L, n + 1), dtype=rdt, device=dev) if cplx else None
     xk_re: Dict[int, torch.Tensor] = {}
     xk_im: Dict[int, torch.Tensor] = {}
     pending = []
@@ -731,9 +749,9 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
         rng = ranges[ci]
         xkr = xk_re.pop(ci, None)
         if xkr is None:
-            xkr = torch.zeros((c.n_nodes, c.r), dtype=rdt, device=dev)
-            xki = torch.zeros((c.n_nodes, c.r), dtype=rdt, device=dev) \
-                if cplx else None
+            xkr = torch.zeros((L * c.n_nodes, c.r), dtype=rdt, device=dev)
+            xki = torch.zeros((L * c.n_nodes, c.r), dtype=rdt,
+                              device=dev) if cplx else None
         else:
             xki = xk_im.pop(ci) if cplx else None
         fer, fei = fe_st[ci]
@@ -751,17 +769,14 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
                        ri[:, :, None] if cplx else None)
         xer = xer[:, :, 0]
         xei = xei[:, :, 0] if cplx else None
-        if rng is None:
-            x_re.index_put_((dc["ev"],), xer.reshape(-1))
-            if cplx:
-                x_im.index_put_((dc["ev"],), xei.reshape(-1))
-        elif c.links:
+        if rng is not None and c.links:
             # the children of any node may read it: every node's solution
             xer = split.gather(xer)
             xei = split.gather(xei) if cplx else None
-            x_re.index_put_((dc["ev"],), xer.reshape(-1))
+        if rng is None or c.links:
+            x_re[:, dc["ev"]] = xer.reshape(L, -1)
             if cplx:
-                x_im.index_put_((dc["ev"],), xei.reshape(-1))
+                x_im[:, dc["ev"]] = xei.reshape(L, -1)
         else:
             pending.append((dc["ev"], (xer, xei)))
         # distribute this class's front solution to its children's keeps
@@ -778,10 +793,11 @@ def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
                     tgt = xk.get(link.src)
                     if tgt is None:
                         tgt = xk[link.src] = torch.zeros(
-                            (src.n_nodes, src.r), dtype=rdt, device=dev)
+                            (L * src.n_nodes, src.r), dtype=rdt, device=dev)
                     # every child has one parent: the slots are unique
-                    tgt[dl["cs"]] = xf[rows, dl["fwd"]]
-    _scatter_blocks(split, (x_re, x_im), pending)
-    if cplx:
-        return torch.complex(x_re[:n], x_im[:n])
-    return x_re[:n]
+                    tgt.unflatten(0, (L, -1))[:, dl["cs"]] = xf.unflatten(
+                        0, (L, -1))[:, rows, dl["fwd"]]
+    # a split solve has one lane
+    _scatter_blocks(split, (x_re[0], x_im[0] if cplx else None), pending)
+    x = torch.complex(x_re[:, :n], x_im[:, :n]) if cplx else x_re[:, :n]
+    return x if batched else x[0]

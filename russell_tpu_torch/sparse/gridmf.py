@@ -418,10 +418,12 @@ def _presum(plan: GridMfPlan, dp, data):
     summed in entry order: one gather and one index_add per duplicate
     rank, each over distinct positions, so no two adds to one address
     race on the card and every run gives the same bits (the Brusselator's
-    diagonal has three entries: Jacobian, Laplacian centre, mass)."""
-    out = torch.zeros(plan.n_uniq, dtype=data.dtype, device=data.device)
+    diagonal has three entries: Jacobian, Laplacian centre, mass). ``data``
+    (lanes, nnz) gives (lanes, n_uniq)."""
+    out = torch.zeros((data.shape[0], plan.n_uniq), dtype=data.dtype,
+                      device=data.device)
     for perm, seg in dp["presum"]:
-        out.index_add_(0, seg, data.index_select(0, perm))
+        out.index_add_(1, seg, data.index_select(1, perm))
     return out
 
 
@@ -457,26 +459,27 @@ def _node_block(cache, n_nodes, F, gd, asm, asm_off, ev, rng):
 
 
 def _assemble(lv: _Level, dl, uniq, ghost=True, blk=None):
-    """The depth's fronts (n_nodes, F, F) from the pre-summed values; with
-    ``ghost``, a unit diagonal in every ghost pivot slot (the REAL plane
-    only, so each contributes exactly 0 to log|det|). Every position is
-    written once: the ghost and entry positions are unique and apart.
-    With ``blk`` (``_node_block``) only that block of nodes."""
+    """The depth's fronts (lanes * n_nodes, F, F), lane-major, from the
+    pre-summed values (lanes, n_uniq); with ``ghost``, a unit diagonal in
+    every ghost pivot slot (the REAL plane only, so each contributes
+    exactly 0 to log|det|). Every position is written once: the ghost and
+    entry positions are unique and apart. With ``blk`` (``_node_block``)
+    only that block of nodes."""
     F = lv.F
+    lanes = uniq.shape[0]
     n_nodes = lv.n_nodes if blk is None else blk["n"]
     gd = dl["gd"] if blk is None else blk["gd"]
-    flat = torch.zeros(n_nodes * F * F, dtype=uniq.dtype,
+    flat = torch.zeros((lanes, n_nodes * F * F), dtype=uniq.dtype,
                        device=uniq.device)
     if ghost and gd.numel():
         # a device scalar: a Python one is copied from the host
-        flat[gd] = flat.new_ones(())
+        flat[:, gd] = flat.new_ones(())
     if blk is None:
         if lv.asm_len:
-            flat.index_put_((dl["asm"],),
-                            uniq[lv.asm_off:lv.asm_off + lv.asm_len])
+            flat[:, dl["asm"]] = uniq[:, lv.asm_off:lv.asm_off + lv.asm_len]
     elif blk["asm"].numel():
-        flat.index_put_((blk["asm"],), uniq.index_select(0, blk["src"]))
-    return flat.view(n_nodes, F, F)
+        flat[:, blk["asm"]] = uniq.index_select(1, blk["src"])
+    return flat.view(lanes * n_nodes, F, F)
 
 
 def _regroup(split, child_rng, rng, planes):
@@ -505,7 +508,9 @@ def _embed_mat(parent_dl, schur_re, schur_im):
     """Extend-add both children's Schur complements into zero-initialised
     parent fronts: T[n, a, b] = Sch[n, side, inv[a], inv[b]] as two gathers
     with constant index vectors per side (ghost overflow positions read a
-    zero pad slot)."""
+    zero pad slot). Lane-major fronts of a batch keep their lanes apart:
+    each lane's node count at a depth is even, so its children pair up
+    within the lane."""
     r = schur_re.shape[-1]
     outs = []
     for S in (schur_re, schur_im):
@@ -568,18 +573,25 @@ def _mm(Ar, Ai, Br, Bi):
 def _inv_planes(Sr, Si, delta):
     """Planes inverse via the real embedding K=[[R,-I],[I,R]] and
     splu._inv_block (static pivot clamping). For complex inputs the
-    K determinant is |det|^2 -> halve log|det|, phase unrecoverable."""
+    K determinant is |det|^2 -> halve log|det|, phase unrecoverable.
+    ``delta`` (lanes,) holds each matrix's pivot threshold, the fronts
+    being lanes runs of as many fronts; the statistics are each lane's
+    (lanes,), reduced over its fronts."""
+    lanes = delta.numel()
     if Si is None:
         Dinv, ld, mp, npc, ph = _inv_block(Sr, delta)
-        return (Dinv.contiguous(), None, ld.sum(), mp.amin(),
-                npc.sum(dtype=torch.int32), ph.prod())
+        return (Dinv.contiguous(), None, ld.view(lanes, -1).sum(-1),
+                mp.view(lanes, -1).amin(-1),
+                npc.view(lanes, -1).sum(-1, dtype=torch.int32),
+                ph.view(lanes, -1).prod(-1))
     e = Sr.shape[-1]
     K = torch.cat([torch.cat([Sr, -Si], dim=-1),
                    torch.cat([Si, Sr], dim=-1)], dim=-2)
     Kinv, ld, mp, npc, _ = _inv_block(K, delta)
     return (Kinv[:, :e, :e].contiguous(), Kinv[:, e:, :e].contiguous(),
-            0.5 * ld.sum(), mp.amin(), npc.sum(dtype=torch.int32),
-            torch.ones((), dtype=Sr.dtype, device=Sr.device))
+            0.5 * ld.view(lanes, -1).sum(-1), mp.view(lanes, -1).amin(-1),
+            npc.view(lanes, -1).sum(-1, dtype=torch.int32),
+            torch.ones(lanes, dtype=Sr.dtype, device=Sr.device))
 
 
 def _block(plan: GridMfPlan, dp, d, rng):
@@ -605,12 +617,14 @@ def gridmf_factorize(plan: GridMfPlan, data, split=None):
     Schur complements are all-gathered and the rest runs on every rank.
     A split depth's statistics are summed over the ranks in rank order
     (``split.combine``). The fac then holds each depth's block and, in
-    ``ranges``, each depth's node range (None: every node)."""
-    cplx = data.is_complex()
-    rdt = data.real.dtype if cplx else data.dtype
-    if rdt != torch.float64:
-        raise TypeError(f"GRIDMF factorizes float64/complex128, got "
-                        f"{data.dtype}")
+    ``ranges``, each depth's node range (None: every node).
+
+    ``data`` (B, nnz) factorizes B matrices at once: each depth's fronts
+    are (B * n_nodes, ...), lane-major, so one launch of each operation
+    (and of ``gj_inv``, with one pivot threshold per matrix) serves every
+    matrix, and the statistics are (B,). A batch takes no ``split``."""
+    cplx, rdt, batched, data = _lane_data("GRIDMF", data, split)
+    lanes = data.shape[0]
     dev = data.device
     dp = _device_plan(plan, dev)
     if cplx:
@@ -619,15 +633,15 @@ def gridmf_factorize(plan: GridMfPlan, data, split=None):
     else:
         uniq_re = _presum(plan, dp, data)
         uniq_im = None
-    delta = plan.pivot_epsilon * (1.0 + data.abs().max())
+    delta = plan.pivot_epsilon * (1.0 + data.abs().amax(-1))
 
     store = [None] * len(plan.levels)
     ranges = [None] * len(plan.levels)
     sch_re = sch_im = None
-    ld = torch.zeros((), dtype=rdt, device=dev)
-    mp = torch.full((), float("inf"), dtype=rdt, device=dev)
-    npc = torch.zeros((), dtype=torch.int32, device=dev)
-    ph = torch.ones((), dtype=rdt, device=dev)
+    ld = torch.zeros(lanes, dtype=rdt, device=dev)
+    mp = torch.full((lanes,), float("inf"), dtype=rdt, device=dev)
+    npc = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    ph = torch.ones(lanes, dtype=rdt, device=dev)
     child_rng = None
     for d in range(len(plan.levels) - 1, -1, -1):
         lv = plan.levels[d]
@@ -663,11 +677,57 @@ def gridmf_factorize(plan: GridMfPlan, data, split=None):
         npc = npc + np_d
         if not cplx:
             ph = ph * ph_d
-    fac = {"levels": store, "logdet": ld, "phase": ph, "min_pivot": mp,
-           "n_perturbed": npc}
+    fac = _stats_dict(batched, logdet=ld, phase=ph, min_pivot=mp,
+                      n_perturbed=npc)
+    fac["levels"] = store
     if split is not None:
         fac["ranges"] = ranges
     return fac
+
+
+def _lane_data(name, data, split):
+    """(complex?, real dtype, batched?, data as (lanes, nnz)) of a
+    factorization's entry values (nnz,) or (B, nnz); a batch with a
+    ``split`` raises."""
+    cplx = data.is_complex()
+    rdt = data.real.dtype if cplx else data.dtype
+    if rdt != torch.float64:
+        raise TypeError(f"{name} factorizes float64/complex128, got "
+                        f"{data.dtype}")
+    if data.dim() not in (1, 2):
+        raise ValueError(f"{name}: entry values (nnz,) or (B, nnz) "
+                         f"expected, got {tuple(data.shape)}")
+    batched = data.dim() == 2
+    if batched and split is not None:
+        raise ValueError(f"{name}: a split factorization takes one matrix, "
+                         f"got a batch {tuple(data.shape)}")
+    return cplx, rdt, batched, data.reshape(-1, data.shape[-1])
+
+
+def _stats_dict(batched, **stats):
+    """The statistics (lanes,) of a factorization; an unbatched one's as
+    0-dim tensors."""
+    return {k: v if batched else v[0] for k, v in stats.items()}
+
+
+def _lane_rhs(name, bvec, split, stored, n_nodes):
+    """(batched?, bvec as (lanes, n)) of a solve's right-hand side (n,) or
+    (B, n), checked against the factors: ``stored`` fronts of a depth (or
+    class) of ``n_nodes`` nodes a matrix (unchecked for split factors,
+    which hold a rank's block)."""
+    if bvec.dim() not in (1, 2):
+        raise ValueError(f"{name}: right-hand side (n,) or (B, n) expected, "
+                         f"got {tuple(bvec.shape)}")
+    batched = bvec.dim() == 2
+    if batched and split is not None:
+        raise ValueError(f"{name}: a split solve takes one right-hand side, "
+                         f"got {tuple(bvec.shape)}")
+    lanes = bvec.shape[0] if batched else 1
+    if split is None and stored != lanes * n_nodes:
+        raise ValueError(f"{name}: right-hand side {tuple(bvec.shape)} does "
+                         f"not match factors of {stored // n_nodes} "
+                         "matrices")
+    return batched, bvec.reshape(-1, bvec.shape[-1])
 
 
 def gridmf_flops(plan: GridMfPlan) -> int:
@@ -733,21 +793,27 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     depth's sweeps run on this rank's node block, the keep right-hand
     sides are all-gathered where the children are split and the parent is
     not, and the split depths' solution blocks are all-gathered into x,
-    which every rank returns whole."""
+    which every rank returns whole.
+
+    The factors of a batch take ``bvec`` (B, n), one lane each, and
+    return x (B, n)."""
     cplx = fac["levels"][-1]["sii"] is not None
     sir = fac["levels"][-1]["sir"]
     rdt, dev = sir.dtype, sir.device
+    batched, bvec = _lane_rhs("GRIDMF", bvec, split, sir.shape[0],
+                              plan.levels[-1].n_nodes)
+    L = bvec.shape[0]
     dp = _device_plan(plan, dev)
     ranges = _solve_ranges([lv.n_nodes for lv in plan.levels], fac, split)
     n = plan.n
     b_re = bvec.real if bvec.is_complex() else bvec
-    bp_re = torch.zeros(n + 1, dtype=rdt, device=dev)
-    bp_re[:n] = b_re
+    bp_re = torch.zeros((L, n + 1), dtype=rdt, device=dev)
+    bp_re[:, :n] = b_re
     bp_im = None
     if cplx:
-        bp_im = torch.zeros(n + 1, dtype=rdt, device=dev)
+        bp_im = torch.zeros((L, n + 1), dtype=rdt, device=dev)
         if bvec.is_complex():
-            bp_im[:n] = bvec.imag
+            bp_im[:, :n] = bvec.imag
 
     D = len(plan.levels) - 1
     fe_st = [None] * (D + 1)
@@ -762,8 +828,8 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
         blk = _block(plan, dp, d, rng)
         nn, ev = (lv.n_nodes, dl["ev"]) if blk is None else (blk["n"],
                                                              blk["ev"])
-        fr = torch.zeros((nn, lv.F), dtype=rdt, device=dev)
-        fi = torch.zeros((nn, lv.F), dtype=rdt, device=dev) \
+        fr = torch.zeros((L * nn, lv.F), dtype=rdt, device=dev)
+        fi = torch.zeros((L * nn, lv.F), dtype=rdt, device=dev) \
             if cplx else None
         if fk_re is not None:
             fk_re, fk_im = _regroup(split, child_rng, rng, (fk_re, fk_im))
@@ -771,9 +837,9 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
             fr = fr + tr
             if cplx:
                 fi = fi + ti
-        fr[:, :e] += bp_re.index_select(0, ev).view(nn, e)
+        fr[:, :e] += bp_re.index_select(1, ev).view(L * nn, e)
         if cplx:
-            fi[:, :e] += bp_im.index_select(0, ev).view(nn, e)
+            fi[:, :e] += bp_im.index_select(1, ev).view(L * nn, e)
         fer, fei = fr[:, :e], (fi[:, :e] if cplx else None)
         fe_st[d] = (fer, fei)
         # keep-rhs update: fk - Lhat @ fe
@@ -785,8 +851,8 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
 
     # x gets one slot past n: ghost elim vars (index n) are written there
     # and dropped
-    x_re = torch.zeros(n + 1, dtype=rdt, device=dev)
-    x_im = torch.zeros(n + 1, dtype=rdt, device=dev) if cplx else None
+    x_re = torch.zeros((L, n + 1), dtype=rdt, device=dev)
+    x_im = torch.zeros((L, n + 1), dtype=rdt, device=dev) if cplx else None
     xf_re = xf_im = None
     parent_rng = None
     pending = []
@@ -797,8 +863,8 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
         rng = ranges[d]
         if d == 0:
             nn = lv.n_nodes if rng is None else rng[1] - rng[0]
-            xk_re = torch.zeros((nn, lv.r), dtype=rdt, device=dev)
-            xk_im = torch.zeros((nn, lv.r), dtype=rdt, device=dev) \
+            xk_re = torch.zeros((L * nn, lv.r), dtype=rdt, device=dev)
+            xk_im = torch.zeros((L * nn, lv.r), dtype=rdt, device=dev) \
                 if cplx else None
         else:
             if parent_rng is not None and rng is None:
@@ -819,15 +885,15 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
         xer = xer[:, :, 0]
         xei = xei[:, :, 0] if cplx else None
         if rng is None:
-            x_re.index_put_((dl["ev"],), xer.reshape(-1))
+            x_re[:, dl["ev"]] = xer.reshape(L, -1)
             if cplx:
-                x_im.index_put_((dl["ev"],), xei.reshape(-1))
+                x_im[:, dl["ev"]] = xei.reshape(L, -1)
         else:
             pending.append((dl["ev"], (xer, xei)))
         xf_re = torch.cat([xer, xk_re], dim=1)
         xf_im = torch.cat([xei, xk_im], dim=1) if cplx else None
         parent_rng = rng
-    _scatter_blocks(split, (x_re, x_im), pending)
-    if cplx:
-        return torch.complex(x_re[:n], x_im[:n])
-    return x_re[:n]
+    # a split solve has one lane
+    _scatter_blocks(split, (x_re[0], x_im[0] if cplx else None), pending)
+    x = torch.complex(x_re[:, :n], x_im[:, :n]) if cplx else x_re[:, :n]
+    return x if batched else x[0]

@@ -28,6 +28,11 @@ Complex matrices are stored as their real embedding K = [[R,-I],[I,R]]
 per block (block size 2b), so the complex elimination is the real one and
 all three kernels are real f64 kernels.
 
+A batch of matrices of one pattern (entry values (B, nnz), right-hand sides
+(B, n)) runs the same rows over a leading lane dimension: one block storage
+(B, N, width) per kind, one launch of each kernel per row whatever B is,
+one pivot threshold and one set of statistics per lane.
+
 Each kernel's wrapper (``splu_pairs``, ``gather_rows``, ``_gj_inv``) is
 the only place that chooses between the kernel and its plain PyTorch
 version: a CPU tensor takes the plain version, a CUDA tensor launches the
@@ -518,8 +523,9 @@ def _kform_indices(plan: SpluPlan):
 def _check_kernel_args(name, blocks, index_tensors):
     if blocks.dtype != torch.float64:
         raise TypeError(f"{name}: blocks must be float64, got {blocks.dtype}")
-    if blocks.dim() != 2 or not blocks.is_contiguous():
-        raise ValueError(f"{name}: blocks must be a contiguous 2-D tensor")
+    if blocks.dim() not in (2, 3) or not blocks.is_contiguous():
+        raise ValueError(f"{name}: blocks must be a contiguous (N, W) or "
+                         "(lanes, N, W) tensor")
     for t in index_tensors:
         if t.device != blocks.device:
             raise ValueError(f"{name}: index tensors must be on "
@@ -533,14 +539,16 @@ def _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, n_live, be):
     """Plain PyTorch version of ``splu_pairs`` (splu.py:878-891 of the
     reference package): batched products of the gathered blocks, summed
     per segment into an (n_live + 1)-row buffer whose last row takes the
-    pads (every segment >= n_live) and is dropped."""
-    Ls = blocks[pair_l].view(-1, be, be)
-    Us = blocks[pair_u].view(-1, be, be)
-    prod = torch.bmm(Ls, Us).view(-1, be * be)
-    out = torch.zeros((n_live + 1, be * be), dtype=blocks.dtype,
+    pads (every segment >= n_live) and is dropped; per lane for (lanes, N,
+    W) blocks."""
+    lead = blocks.shape[:-2]
+    Ls = blocks.index_select(-2, pair_l).view(-1, be, be)
+    Us = blocks.index_select(-2, pair_u).view(-1, be, be)
+    prod = torch.bmm(Ls, Us).view(lead + (-1, be * be))
+    out = torch.zeros(lead + (n_live + 1, be * be), dtype=blocks.dtype,
                       device=blocks.device)
-    out.index_add_(0, pair_seg.clamp(max=n_live), prod)
-    return out[:n_live]
+    out.index_add_(-2, pair_seg.clamp(max=n_live), prod)
+    return out[..., :n_live, :]
 
 
 @dataclass(frozen=True)
@@ -573,13 +581,14 @@ def _stream_tickets(device, stream, n):
     return t
 
 
-def prepare_stream(plan: SpluPlan, device, stream):
+def prepare_stream(plan: SpluPlan, device, stream, lanes: int = 1):
     """Create the ticket buffer of the CUDA ``stream`` at the plan's
-    widest row before a CUDA graph capture on it (a buffer created during
-    a capture would come from the graph's memory pool)."""
+    widest row times ``lanes`` (a batch's matrices) before a CUDA graph
+    capture on it (a buffer created during a capture would come from the
+    graph's memory pool)."""
     dp = _device_plan(plan, device)
     n = max(ln for _, ln, *_ in dp["rows"])
-    _stream_tickets(torch.device(device), stream.cuda_stream, n)
+    _stream_tickets(torch.device(device), stream.cuda_stream, n * lanes)
 
 
 def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
@@ -588,7 +597,9 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
     the ``n_live`` live lanes s, with B = ``blocks`` viewed as
     (N, be, be). Pairs are sorted by segment; pairs of segment >= n_live
     are pads (the plan puts no real pair there, ``_device_plan`` checks).
-    ``work`` is the row's ``PairWork``. Returns (n_live, be*be).
+    ``work`` is the row's ``PairWork``. Returns (n_live, be*be); blocks
+    (lanes, N, be*be) of a batch give (lanes, n_live, be*be), each lane
+    summed over its own blocks with the one work list, in one launch.
 
     Replaces the reference package's ``_pairs_pallas`` (whose lanes past
     the row's ``len`` are always zero). A CPU tensor takes the plain
@@ -603,7 +614,7 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
             or not chunk.is_contiguous()):
         raise ValueError("splu_pairs: work.chunk must be a contiguous "
                          f"(n, 4) int32 tensor on {blocks.device}")
-    if blocks.shape[1] != be * be:
+    if blocks.shape[-1] != be * be:
         raise ValueError(f"splu_pairs: blocks must be (N, be*be), got "
                          f"be={be}, {tuple(blocks.shape)}")
     if not (pair_l.shape == pair_u.shape == pair_seg.shape):
@@ -621,18 +632,22 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
     if be not in (32, 64) or blocks.data_ptr() % 16:
         raise ValueError(f"splu_pairs: the kernel takes be 32 or 64 "
                          f"(got {be}) and 16-byte aligned blocks")
+    lead = blocks.shape[:-2]
+    lanes = blocks.shape[0] if lead else 1
     stream = _cuda.stream_of(blocks)
-    tickets = _stream_tickets(blocks.device, stream, n_live)
-    out = torch.empty((n_live, be * be), dtype=blocks.dtype,
+    tickets = _stream_tickets(blocks.device, stream, lanes * n_live)
+    out = torch.empty(lead + (n_live, be * be), dtype=blocks.dtype,
                       device=blocks.device)
-    # one partial per chunk of the multi-chunk lanes
-    scratch = (torch.empty((work.n_multi, be * be), dtype=blocks.dtype,
-                           device=blocks.device) if work.n_multi else None)
+    # one partial per chunk of the multi-chunk lanes, per matrix
+    scratch = (torch.empty((lanes, work.n_multi, be * be),
+                           dtype=blocks.dtype, device=blocks.device)
+               if work.n_multi else None)
     fn = _cuda.library("splu_pairs").splu_pairs_f64
     _cuda.launch_check("splu_pairs", fn(
         blocks.data_ptr(), pair_l.data_ptr(), pair_u.data_ptr(),
         chunk.data_ptr(), work.lane_off.data_ptr(), tickets.data_ptr(),
-        n_chunks, n_live, be, out.data_ptr(),
+        n_chunks, n_live, work.n_multi, be, lanes, blocks.stride(0) if lead
+        else 0, out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stream))
     splu_pairs.launches += 1
     return out
@@ -640,30 +655,33 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
 
 def _gather_rows_plain(blocks, idx):
     """Plain PyTorch version of ``gather_rows``."""
-    return blocks[idx]
+    return blocks.index_select(-2, idx)
 
 
 def gather_rows(blocks, idx):
     """Row gather ``blocks[idx]`` of a contiguous (N, W) f64 tensor with
-    even W. Replaces the reference package's ``_gather_rows``. A CPU
-    tensor takes the plain version; a CUDA tensor launches
-    ``csrc/gather_rows.cu`` or raises. Index ranges are plan constants,
-    checked once per plan by ``_device_plan``."""
+    even W; of each lane's rows, ``blocks[:, idx]`` (lanes, n, W), for
+    (lanes, N, W) blocks, in one launch. Replaces the reference package's
+    ``_gather_rows``. A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/gather_rows.cu`` or raises. Index ranges are plan
+    constants, checked once per plan by ``_device_plan``."""
     _check_kernel_args("gather_rows", blocks, (idx,))
     if blocks.device.type == "cpu":
         return _gather_rows_plain(blocks, idx)
     if blocks.device.type != "cuda":
         raise ValueError(f"gather_rows: no kernel for {blocks.device}")
-    W = blocks.shape[1]
-    if W % 2 or blocks.data_ptr() % 16:
+    lead = blocks.shape[:-2]
+    W = blocks.shape[-1]
+    if W % 2 or blocks.data_ptr() % 16 or (lead and blocks.stride(0) % 2):
         raise ValueError("gather_rows: rows must have an even width and "
                          "blocks be 16-byte aligned")
-    out = torch.empty((idx.shape[0], W), dtype=blocks.dtype,
+    out = torch.empty(lead + (idx.shape[0], W), dtype=blocks.dtype,
                       device=blocks.device)
     fn = _cuda.library("gather_rows").gather_rows_f64
     _cuda.launch_check("gather_rows", fn(
-        blocks.data_ptr(), idx.data_ptr(), idx.shape[0], W, out.data_ptr(),
-        _cuda.stream_of(blocks)))
+        blocks.data_ptr(), idx.data_ptr(), idx.shape[0], W,
+        blocks.shape[0] if lead else 1, blocks.stride(0) if lead else 0,
+        out.data_ptr(), _cuda.stream_of(blocks)))
     gather_rows.launches += 1
     return out
 
@@ -903,6 +921,18 @@ def _device_plan(plan: SpluPlan, device):
 # ---------------------------------------------------------------------------
 
 
+def _lane_delta(delta, w):
+    """The pivot threshold of each of ``w`` lanes: ``delta`` holds one
+    value, or one per run of w / len(delta) consecutive lanes."""
+    d = torch.as_tensor(delta).reshape(-1)
+    if d.numel() == 1:
+        return d.reshape(())
+    if d.numel() == 0 or w % d.numel():
+        raise ValueError(f"gj_inv: {d.numel()} pivot thresholds do not "
+                         f"split {w} lanes")
+    return d.repeat_interleave(w // d.numel())
+
+
 def _gj_inv_plain(D, delta):
     """Plain PyTorch version of ``_gj_inv`` (the reference package's
     ``_gj_inv``, splu.py:476-513): the elimination as torch ops over the
@@ -914,7 +944,7 @@ def _gj_inv_plain(D, delta):
     eye = torch.eye(m, dtype=dtype, device=D.device)
     # augmented [D | I] so each elimination step is ONE rank-1 update
     W = torch.cat([D, eye.expand(w, m, m)], dim=-1)
-    d = delta.to(rdt)
+    d = _lane_delta(delta, w).to(rdt)
     ld = torch.zeros(w, dtype=rdt, device=D.device)
     mp = torch.full((w,), float("inf"), dtype=rdt, device=D.device)
     npert = torch.zeros(w, dtype=torch.int32, device=D.device)
@@ -942,7 +972,9 @@ def _gj_inv(D, delta):
     """Batched Gauss-Jordan inverse of D (w, m, m) with MUMPS-style static
     pivot clamping (no row interchanges; pivots with |p| <= delta are
     replaced by delta * p/|p|, counted and reported —
-    interface_cudss.cu:288-351). ``delta`` is a 0-dim tensor.
+    interface_cudss.cu:288-351). ``delta`` is a tensor of one value, or
+    of one value per matrix of a batch whose pivot blocks are runs of w /
+    len(delta) consecutive lanes (``_lane_delta``).
 
     Returns (Dinv, log|det|, min|pivot|, n_perturbed, phase) per batch
     lane; ``phase`` is the product of pivot signs (sign of the
@@ -967,10 +999,12 @@ def _gj_inv(D, delta):
                          f"1 <= m <= {GJ_MAX_M}, got {tuple(D.shape)}")
     if D.stride(-1) != 1:
         D = D.contiguous()
-    d = torch.as_tensor(delta, dtype=torch.float64, device=D.device)
-    if d.numel() != 1:
-        raise ValueError("gj_inv: delta must hold one value")
-    d = d.reshape(()).contiguous()
+    d = torch.as_tensor(delta, dtype=torch.float64,
+                        device=D.device).reshape(-1).contiguous()
+    n_delta = d.numel()
+    if n_delta == 0 or w % n_delta:
+        raise ValueError(f"gj_inv: {n_delta} pivot thresholds do not split "
+                         f"{w} lanes")
     Dinv = torch.empty((w, m, m), dtype=D.dtype, device=D.device)
     ld, mp, ph = (torch.empty(w, dtype=D.dtype, device=D.device)
                   for _ in range(3))
@@ -978,9 +1012,9 @@ def _gj_inv(D, delta):
     if w:
         fn = _cuda.library("gj_inv").gj_inv_f64
         _cuda.launch_check("gj_inv", fn(
-            D.data_ptr(), D.stride(0), D.stride(1), d.data_ptr(), w, m,
-            Dinv.data_ptr(), ld.data_ptr(), mp.data_ptr(), npert.data_ptr(),
-            ph.data_ptr(), _cuda.stream_of(D)))
+            D.data_ptr(), D.stride(0), D.stride(1), d.data_ptr(), n_delta,
+            w, m, Dinv.data_ptr(), ld.data_ptr(), mp.data_ptr(),
+            npert.data_ptr(), ph.data_ptr(), _cuda.stream_of(D)))
         _gj_inv.launches += 1
     return Dinv, ld, mp, npert, ph
 
@@ -988,7 +1022,8 @@ def _gj_inv(D, delta):
 def _inv_block(D, delta):
     """Batched inverse of (w, m, m) via recursive 2x2 Schur splitting down
     to a Gauss-Jordan base of at most ``GJ_MAX_M`` (the products are
-    batched GEMMs). log|det D| = log|det A| + log|det S|."""
+    batched GEMMs). log|det D| = log|det A| + log|det S|. ``delta`` as
+    ``_gj_inv`` takes it."""
     m = D.shape[-1]
     if m <= GJ_MAX_M:
         return _gj_inv(D, delta)
@@ -1018,14 +1053,18 @@ def _init_states(plan: SpluPlan, datas, dp):
     elimination at block size 2b. Storage row ``nblk + TL`` holds an
     IDENTITY block (the U lanes' right-multiplier) and the last row is
     spare, so every row window ``t0 ... t0+TL`` stays inside the storage.
-    Returns (states, deltas, cplxs); a state is [blocks, log|det|,
-    min|pivot|, n_perturbed, phase]."""
+    Each of ``datas`` is (nnz,) or a batch (lanes, nnz). Returns (states,
+    deltas, cplxs); a state is [blocks (lanes, N, width), log|det|,
+    min|pivot|, n_perturbed, phase], each statistic and each delta
+    (lanes,), with one lane for an unbatched matrix."""
     b, nblk = plan.b, plan.nblk
     bb = b * b
     TL = plan.packed["TL"]
     nrow_store = nblk + TL + 1
     states, deltas, cplxs = [], [], []
     for data in datas:
+        data = data.reshape(-1, data.shape[-1])
+        lanes = data.shape[0]
         cplx = data.is_complex()
         cplxs.append(cplx)
         rdt = data.real.dtype if cplx else data.dtype
@@ -1036,28 +1075,31 @@ def _init_states(plan: SpluPlan, datas, dp):
         # duplicate entries add in entry order, one duplicate rank a pass
         # (no two adds of a pass meet, so no race on the card)
         if cplx:
-            flat = torch.zeros(nrow_store * 4 * bb, dtype=rdt, device=dev)
-            flat[dp["ones_k"]] = flat.new_ones(())
+            flat = torch.zeros((lanes, nrow_store * 4 * bb), dtype=rdt,
+                               device=dev)
+            flat[:, dp["ones_k"]] = flat.new_ones(())
             for ids, _, (i_re1, i_re2, i_im1, i_im2) in dp["scatter_passes"]:
-                d = data.index_select(0, ids)
+                d = data.index_select(1, ids)
                 dre, dim = d.real, d.imag
-                flat.index_add_(0, i_re1, dre)
-                flat.index_add_(0, i_re2, dre)
-                flat.index_add_(0, i_im1, dim)
-                flat.index_add_(0, i_im2, -dim)
-            blocks = flat.view(nrow_store, 4 * bb)
+                flat.index_add_(1, i_re1, dre)
+                flat.index_add_(1, i_re2, dre)
+                flat.index_add_(1, i_im1, dim)
+                flat.index_add_(1, i_im2, -dim)
+            blocks = flat.view(lanes, nrow_store, 4 * bb)
         else:
-            flat = torch.zeros(nrow_store * bb, dtype=rdt, device=dev)
-            flat[dp["ones_r"]] = flat.new_ones(())
+            flat = torch.zeros((lanes, nrow_store * bb), dtype=rdt,
+                               device=dev)
+            flat[:, dp["ones_r"]] = flat.new_ones(())
             for ids, pos, _ in dp["scatter_passes"]:
-                flat.index_add_(0, pos, data.index_select(0, ids))
-            blocks = flat.view(nrow_store, bb)
-        deltas.append(plan.pivot_epsilon * (1.0 + data.abs().max()))
+                flat.index_add_(1, pos, data.index_select(1, ids))
+            blocks = flat.view(lanes, nrow_store, bb)
+        deltas.append(plan.pivot_epsilon * (1.0 + data.abs().amax(-1)))
         states.append([blocks,
-                       torch.zeros((), dtype=rdt, device=dev),
-                       torch.full((), float("inf"), dtype=rdt, device=dev),
-                       torch.zeros((), dtype=torch.int32, device=dev),
-                       torch.ones((), dtype=rdt, device=dev)])
+                       torch.zeros(lanes, dtype=rdt, device=dev),
+                       torch.full((lanes,), float("inf"), dtype=rdt,
+                                  device=dev),
+                       torch.zeros(lanes, dtype=torch.int32, device=dev),
+                       torch.ones(lanes, dtype=rdt, device=dev)])
     return states, deltas, cplxs
 
 
@@ -1069,12 +1111,14 @@ def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp, pairs=None,
     lanes), right-multiply every other live lane by its per-lane block —
     the freshly inverted in-row diagonal for L lanes of MERGED rows, the
     stored Dinv for L lanes of split panel rows, the identity slot for U
-    lanes (``gather_rows``) — and write the row's live range back.
+    lanes (``gather_rows``) — and write the row's live range back. A
+    state carries every matrix of its batch: one launch of each kernel a
+    row, whatever the batch.
 
     Where the reference package's ``lax.scan`` writes the row window with
     ``dynamic_update_slice`` and masks dead lanes, this loop writes the
-    live range ``blocks[t0:t0+len]`` in place: ``len`` and ``nd`` are host
-    ints. The states are updated in place.
+    live range ``blocks[:, t0:t0+len]`` in place: ``len`` and ``nd`` are
+    host ints. The states are updated in place.
 
     With ``pairs`` (``_rank_pairs``) each row sums only this rank's share
     of its pairs, and ``reduce`` (an all-reduce over the ranks) makes the
@@ -1090,45 +1134,59 @@ def _scan_packed(plan: SpluPlan, states, deltas, cplxs, dp, pairs=None,
         dinv_r = dp["dinv"][r, :ln]
         for st, delta, cplx in zip(states, deltas, cplxs):
             blocks = st[0]
-            width = blocks.shape[1]
+            lanes, width = blocks.shape[0], blocks.shape[2]
             be = 2 * b if cplx else b
             acc = splu_pairs(blocks, pl_r, pu_r, ps_r, work_r, ln, be)
             if reduce is not None:
                 acc = reduce(acc)
-            vals = (blocks[t0:t0 + ln] - acc).view(ln, be, be)
-            Dv = gather_rows(blocks, dinv_r).view(ln, be, be)
+            vals = (blocks[:, t0:t0 + ln] - acc).view(lanes, ln, be, be)
+            Dv = gather_rows(blocks, dinv_r).view(lanes, ln, be, be)
             if nd:
-                Dinv, ldw, mpw, npw, phw = _inv_block(vals[:nd], delta)
+                Dinv, ldw, mpw, npw, phw = _inv_block(
+                    vals[:, :nd].reshape(lanes * nd, be, be), delta)
+                Dinv = Dinv.view(lanes, nd, be, be)
                 if has_fresh:
                     eye = torch.eye(be, dtype=blocks.dtype,
                                     device=blocks.device)
-                    Dtab = torch.cat([Dinv, eye[None]], dim=0)
-                    Dl = Dtab[dp["dloc"][r, :ln]]
+                    Dtab = torch.cat([Dinv, eye.expand(lanes, 1, be, be)],
+                                     dim=1)
+                    Dl = Dtab[:, dp["dloc"][r, :ln]]
                     Dv = torch.where(dp["fresh"][r, :ln, None, None], Dl, Dv)
-                blocks[t0:t0 + nd] = Dinv.reshape(nd, width)
+                blocks[:, t0:t0 + nd] = Dinv.reshape(lanes, nd, width)
                 if ln > nd:
-                    pan = torch.bmm(vals[nd:], Dv[nd:])
-                    blocks[t0 + nd:t0 + ln] = pan.view(ln - nd, width)
-                ldd = ldw.sum()
+                    pan = torch.matmul(vals[:, nd:], Dv[:, nd:])
+                    blocks[:, t0 + nd:t0 + ln] = pan.view(lanes, ln - nd,
+                                                          width)
+                ldd = ldw.view(lanes, nd).sum(-1)
                 if cplx:
                     # K embedding: det K = |det M|^2 -> halve log|det|;
                     # the complex phase of det M is not recoverable here
                     st[1].add_(0.5 * ldd)
                 else:
                     st[1].add_(ldd)
-                    st[4].mul_(phw.prod())
-                torch.minimum(st[2], mpw.amin(), out=st[2])
-                st[3].add_(npw.sum(dtype=torch.int32))
+                    st[4].mul_(phw.view(lanes, nd).prod(-1))
+                torch.minimum(st[2], mpw.view(lanes, nd).amin(-1),
+                              out=st[2])
+                st[3].add_(npw.view(lanes, nd).sum(-1, dtype=torch.int32))
             else:
-                pan = torch.bmm(vals, Dv)
-                blocks[t0:t0 + ln] = pan.view(ln, width)
+                pan = torch.matmul(vals, Dv)
+                blocks[:, t0:t0 + ln] = pan.view(lanes, ln, width)
     return states
+
+
+def _fac_dict(state, batched: bool):
+    """A factorization's dict from its state; an unbatched matrix's
+    without the lane dimension."""
+    blocks, ld, mp, npert, ph = (t if batched else t[0] for t in state)
+    return {"blocks": blocks, "logdet": ld, "phase": ph, "min_pivot": mp,
+            "n_perturbed": npert}
 
 
 def splu_factorize(plan: SpluPlan, data):
     """Numeric block elimination over the PACKED schedule; ``data`` are the
     entry values (f64 or complex128 tensor) in the original entry order,
-    on the device the factorization runs on."""
+    on the device the factorization runs on: (nnz,), or (B, nnz) for B
+    matrices at once."""
     return splu_factorize_multi(plan, (data,))[0]
 
 
@@ -1137,13 +1195,13 @@ def splu_factorize_multi(plan: SpluPlan, datas):
     the packed schedule (the Radau5 real/complex pair shares every row's
     fixed cost). Returns one dict per matrix: ``blocks`` (K-embedding
     layout iff complex), ``logdet``, ``phase`` (the determinant sign for
-    REAL matrices, 1 for complex ones), ``min_pivot``, ``n_perturbed``."""
+    REAL matrices, 1 for complex ones), ``min_pivot``, ``n_perturbed``.
+    Each of ``datas`` may be a batch (B, nnz): its dict then holds blocks
+    (B, N, width) and (B,) statistics."""
     dp = _device_plan(plan, datas[0].device)
     states, deltas, cplxs = _init_states(plan, datas, dp)
     states = _scan_packed(plan, states, deltas, cplxs, dp)
-    return [{"blocks": blocks, "logdet": ld, "phase": ph, "min_pivot": mp,
-             "n_perturbed": npert}
-            for blocks, ld, mp, npert, ph in states]
+    return [_fac_dict(st, data.dim() > 1) for st, data in zip(states, datas)]
 
 
 def splu_det_phase(plan: SpluPlan, fac):
@@ -1188,63 +1246,75 @@ def splu_solve_multi(plan: SpluPlan, facs, bvecs):
     """Solve SEVERAL systems (their own factors and right-hand sides, same
     plan) in ONE pass over the substitution rows. Complex systems run on
     the real K embedding: the substitution is the real one at width 2b on
-    stacked [re; im] vector blocks."""
+    stacked [re; im] vector blocks. The factors of a batch (blocks (B, N,
+    width)) take right-hand sides (B, n), one lane each."""
     b, nb = plan.b, plan.nb
     bb = b * b
     dev = facs[0]["blocks"].device
     dp = _device_plan(plan, dev)
     perm = dp["perm"]
 
-    blks, cplxs, bps = [], [], []
+    blks, cplxs, bps, batched = [], [], [], []
     for fac, bvec in zip(facs, bvecs):
         bl = fac["blocks"]
-        cplx = bl.shape[1] == 4 * bb   # K-embedding layout
+        batched.append(bl.dim() == 3)
+        bl = bl.view((-1,) + bl.shape[-2:])
+        bvec = bvec.reshape(-1, bvec.shape[-1])
+        lanes = bl.shape[0]
+        cplx = bl.shape[-1] == 4 * bb   # K-embedding layout
         blks.append(bl)
         cplxs.append(cplx)
         if cplx:
-            bpr = torch.zeros(nb * b, dtype=bl.dtype, device=dev)
-            bpi = torch.zeros(nb * b, dtype=bl.dtype, device=dev)
-            bpr[perm] = bvec.real.to(bl.dtype)
-            bpi[perm] = bvec.imag.to(bl.dtype)
-            bp = torch.stack([bpr.view(nb, b), bpi.view(nb, b)],
-                             dim=1).reshape(nb, 2 * b)
+            bpr = torch.zeros((lanes, nb * b), dtype=bl.dtype, device=dev)
+            bpi = torch.zeros((lanes, nb * b), dtype=bl.dtype, device=dev)
+            bpr[:, perm] = bvec.real.to(bl.dtype)
+            bpi[:, perm] = bvec.imag.to(bl.dtype)
+            bp = torch.stack([bpr.view(lanes, nb, b),
+                              bpi.view(lanes, nb, b)],
+                             dim=2).reshape(lanes, nb, 2 * b)
         else:
-            bp = torch.zeros(nb * b, dtype=bl.dtype, device=dev)
-            bp[perm] = bvec.to(bl.dtype)
-            bp = bp.view(nb, b)
+            bp = torch.zeros((lanes, nb * b), dtype=bl.dtype, device=dev)
+            bp[:, perm] = bvec.to(bl.dtype)
+            bp = bp.view(lanes, nb, b)
         bps.append(bp)
 
     def run(sched, rhs_list, apply_dinv):
-        vs = [torch.zeros((nb, (2 if c else 1) * b), dtype=bl.dtype,
-                          device=dev) for bl, c in zip(blks, cplxs)]
+        vs = [torch.zeros((bl.shape[0], nb, (2 if c else 1) * b),
+                          dtype=bl.dtype, device=dev)
+              for bl, c in zip(blks, cplxs)]
         for r, (n_src, n_tgt) in enumerate(sched["rows"]):
             tgt = sched["tgt"][r, :n_tgt]
             src = sched["src"][r, :n_src]
             col = sched["col"][r, :n_src]
             order, offsets = sched["sums"][r]
             for v, bl, rhs, cplx in zip(vs, blks, rhs_list, cplxs):
+                lanes = bl.shape[0]
                 be = 2 * b if cplx else b
-                rr = rhs[tgt]
+                rr = rhs[:, tgt]
                 if n_src:
-                    S = bl[src].view(n_src, be, be)
-                    prod = torch.bmm(S, v[col].unsqueeze(-1)).squeeze(-1)
-                    rr = rr - segment_sum(prod, order, offsets)
+                    S = bl[:, src].view(lanes * n_src, be, be)
+                    vc = v[:, col].reshape(lanes * n_src, be, 1)
+                    prod = torch.bmm(S, vc).view(lanes, n_src, be)
+                    rr = rr - segment_sum(prod.transpose(0, 1), order,
+                                          offsets).transpose(0, 1)
                 if apply_dinv:
-                    Dv = bl[dp["diag_g"][tgt]].view(n_tgt, be, be)
-                    rr = torch.bmm(Dv, rr.unsqueeze(-1)).squeeze(-1)
-                v[tgt] = rr
+                    Dv = bl[:, dp["diag_g"][tgt]].view(lanes * n_tgt, be,
+                                                       be)
+                    rr = torch.bmm(Dv, rr.reshape(lanes * n_tgt, be, 1)
+                                   ).view(lanes, n_tgt, be)
+                v[:, tgt] = rr
         return vs
 
     zs = run(dp["fwd"], bps, False)
     xs_out = run(dp["bwd"], zs, True)
     outs = []
-    for x, cplx in zip(xs_out, cplxs):
+    for x, cplx, bat in zip(xs_out, cplxs, batched):
+        lanes = x.shape[0]
         if cplx:
-            v = x.view(nb, 2, b)
-            xc = torch.complex(v[:, 0], v[:, 1]).reshape(nb * b)
-            outs.append(xc[perm])
-        else:
-            outs.append(x.reshape(nb * b)[perm])
+            v = x.view(lanes, nb, 2, b)
+            x = torch.complex(v[:, :, 0], v[:, :, 1])
+        x = x.reshape(lanes, nb * b)[:, perm]
+        outs.append(x if bat else x[0])
     return outs
 
 

@@ -918,6 +918,213 @@ def test_solve_batch_lanes_on_card_equal_single_solves(cuda):
         assert int(st["n_accepted"][b]) == sol.stats().n_accepted
 
 
+@pytest.mark.parametrize("genie", ["GRIDMF", "SPLU", "GENMF", "BANDED"])
+def test_solve_batch_sparse_lanes_on_card_equal_single_solves(cuda, genie):
+    # a batched numeric phase over one plan: each lane against its single
+    # fused solve
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 16)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie[genie]
+    sol = OdeSolver(params, system, cuda)
+    y0s = np.tile(np.asarray(y0)[None, :], (3, 1))
+    y0s[:, 0] += np.linspace(0.0, 2.0, 3)
+    y0s[:, -1] *= np.linspace(1.0, 3.0, 3)
+    ys, st = sol.solve_batch(y0s, t0, 0.3)
+    assert sol.actual.plan.genie == Genie[genie]
+    assert st["status"].tolist() == [1] * 3
+    assert len(set(st["n_accepted"].tolist())) > 1
+    keys = ("n_function", "n_jacobian", "n_factor", "n_lin_sol", "n_steps",
+            "n_accepted", "n_rejected", "n_iterations_max")
+    for b in range(3):
+        y = sol.solve(y0s[b], t0, 0.3, fused=True)
+        np.testing.assert_allclose(ys[b].cpu().numpy(), y.cpu().numpy(),
+                                   rtol=0, atol=1e-12)
+        assert {k: int(st[k][b]) for k in keys} == {
+            k: getattr(sol.stats(), k) for k in keys}, b
+
+
+def test_solve_batch_refuses_a_capture_that_does_not_fit(cuda, monkeypatch):
+    # the capture would need what the warm-up reserved and the spare; with
+    # more spare than the card has, solve_batch refuses before it captures,
+    # and the same solver captures and runs once the spare is back
+    from russell_tpu_torch.ode import _device_loop
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 16)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie.GRIDMF
+    sol = OdeSolver(params, system, cuda)
+    y0s = np.tile(np.asarray(y0)[None, :], (2, 1))
+    total = torch.cuda.mem_get_info(cuda)[1]
+    monkeypatch.setattr(_device_loop, "CAPTURE_SPARE_BYTES", total)
+    with pytest.raises(ValueError, match="not captured.*GiB to spare"):
+        sol.solve_batch(y0s, t0, 0.1)
+    loop = sol._fused_for(2).loop
+    assert loop.graph is None and loop.warmup_bytes > 0
+    monkeypatch.undo()
+    ys, st = sol.solve_batch(y0s, t0, 0.1)
+    assert st["status"].tolist() == [1, 1]
+    assert loop.graph is not None
+
+
+@pytest.mark.parametrize("genie", ["BANDED", "GENMF"])
+def test_radau5_fused_banded_genmf_on_card_equal_host_stepped(cuda, genie):
+    system, t0, y0, _ = samples.brusselator_pde(2e-3, 16)
+    params = Params(Method.RADAU5)
+    params.newton.genie = Genie[genie]
+    sol = OdeSolver(params, system, cuda)
+    yh = sol.solve(y0, t0, 0.5)
+    keys = ("n_function", "n_jacobian", "n_factor", "n_lin_sol", "n_steps",
+            "n_accepted", "n_rejected", "n_iterations_max")
+    host = {k: getattr(sol.stats(), k) for k in keys}
+    yf = sol.solve(y0, t0, 0.5, fused=True)
+    assert {k: getattr(sol.stats(), k) for k in keys} == host
+    assert torch.equal(yf, yh)
+
+
+@pytest.mark.parametrize("shape", [(40, 40), (1, 136, 136), (3, 1, 40, 40),
+                                   (32, 136, 136), (3, 32, 136, 136)])
+def test_banded_lu_replays_in_a_conditional_body(cuda, shape):
+    # BANDED's LU and solves (bcr.lu_factor, bcr.lu_solve) inside the body
+    # of a CUDA graph IF node, as the fused Radau5 runs them: torch's
+    # default picks MAGMA's batched LU for more than 16 blocks above 128 x
+    # 128 and cuSOLVER's getrs for one matrix and one column, neither of
+    # which replays there
+    from russell_tpu_torch.ode._device_loop import DeviceLoop, when
+    from russell_tpu_torch.sparse import bcr
+    g = torch.Generator(device=cuda).manual_seed(3)
+    A = torch.randn(shape, generator=g, dtype=torch.float64, device=cuda)
+    A = A + shape[-1] * torch.eye(shape[-1], dtype=torch.float64,
+                                  device=cuda)
+    B = torch.randn(shape[:-1] + (1,), generator=g, dtype=torch.float64,
+                    device=cuda)
+    out = torch.zeros_like(B)
+    done = torch.zeros((), dtype=torch.bool, device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+
+    def body():
+        lu, piv = bcr.lu_factor(A)
+        out.copy_(bcr.lu_solve(lu, bcr.lu_perm(lu, piv), B))
+
+    def step():
+        when(pred, body)
+        done.fill_(True)
+
+    loop = DeviceLoop(step, [out], done, cuda)
+    loop.capture()
+    out.zero_()
+    loop.graph.replay()
+    torch.cuda.synchronize()
+    assert loop.if_nodes == 1
+    assert float((A @ out - B).abs().max()) <= 1e-12 * shape[-1]
+
+
+@pytest.mark.parametrize("n,lanes", [(40, 1), (136, 1), (136, 3),
+                                     (136, 20)])
+def test_dense_route_replays_in_a_conditional_body(cuda, n, lanes):
+    # the DENSE route's factorization and solve (factor._dense_*) inside
+    # the body of a CUDA graph IF node, as the fused Radau5 runs them: one
+    # matrix's solve through cuSOLVER's getrs was refused at the graph's
+    # instantiation there; the stored row order's gather and two
+    # triangular solves replay, and so does a batch of more than 16
+    # matrices above 128 x 128, which torch's default gives MAGMA
+    from russell_tpu_torch.ode._device_loop import DeviceLoop, when
+    rng = np.random.default_rng(n + lanes)
+    rows, cols = np.nonzero(rng.random((n, n)) < 0.2)
+    rows = np.concatenate([rows, np.arange(n)])
+    cols = np.concatenate([cols, np.arange(n)])
+    plan = factor.analyze(n, rows, cols, genie=Genie.DENSE)
+    vals = rng.standard_normal((lanes, len(rows)))
+    vals[:, -n:] += n
+    v = torch.as_tensor(vals if lanes > 1 else vals[0], device=cuda)
+    b = torch.as_tensor(rng.standard_normal((lanes, n) if lanes > 1 else n),
+                        device=cuda)
+    out = torch.zeros_like(b)
+    done = torch.zeros((), dtype=torch.bool, device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+
+    def body():
+        fac = factor.numeric_factorize(plan, v)
+        out.copy_(factor.factor_solve(plan, fac, b, refine_steps=0))
+
+    def step():
+        when(pred, body)
+        done.fill_(True)
+
+    loop = DeviceLoop(step, [out], done, cuda)
+    loop.capture()
+    out.zero_()
+    loop.graph.replay()
+    torch.cuda.synchronize()
+    assert loop.if_nodes == 1
+    fac = factor.numeric_factorize(plan, v)
+    want = factor.factor_solve(plan, fac, b, refine_steps=0)
+    assert torch.equal(out, want)
+    a = np.zeros((lanes, n, n))
+    np.add.at(a, (slice(None), rows, cols), vals)
+    x = out.cpu().numpy().reshape(lanes, n)
+    res = np.einsum("lij,lj->li", a, x) - b.cpu().numpy().reshape(lanes, n)
+    assert np.abs(res).max() <= 1e-10 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("be", [32, 64])
+def test_splu_kernels_batched_equal_single_lane_launches(cuda, be):
+    # lanes (L, N, W) of blocks: one launch, each lane's bits those of a
+    # one-lane launch on its blocks
+    plan, _ = _brusselator_plan(16)
+    sp = plan.splu_plan
+    dp = splu._device_plan(sp, cuda)
+    L = 4
+    rng = np.random.default_rng(be + 7)
+    blocks = torch.as_tensor(rng.standard_normal(
+        (L, sp.nblk + sp.packed["TL"] + 1, be * be)), device=cuda)
+    for r in range(len(dp["rows"])):
+        args = _row_args(dp, blocks, r, be)
+        ln = args[5]
+        n0 = splu.splu_pairs.launches
+        got = splu.splu_pairs(*args)
+        assert splu.splu_pairs.launches == n0 + 1
+        assert got.shape == (L, ln, be * be)
+        for lane in range(L):
+            one = splu.splu_pairs(blocks[lane], *args[1:])
+            assert torch.equal(got[lane], one), (r, lane)
+        want = splu._splu_pairs_plain(*args[:4], ln, be)
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-13)
+        idx = dp["dinv"][r, :ln]
+        n0 = splu.gather_rows.launches
+        rows = splu.gather_rows(blocks, idx)
+        assert splu.gather_rows.launches == n0 + 1
+        assert torch.equal(rows, blocks[:, idx])
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in splu._tickets.values())
+
+
+def test_gj_inv_lanes_take_a_delta_per_matrix(cuda):
+    # B matrices' pivot blocks in one launch, each with its own threshold:
+    # the bits of B one-matrix launches, and each lane's clamps its own
+    B, w, m = 4, 16, 40
+    D = torch.cat([_gj_inputs(w, m, 70 + b, cuda) for b in range(B)])
+    # a pivot only the second matrix's threshold catches
+    D[w + 3, 5, :] *= 1e-5
+    D[w + 3, :, 5] *= 1e-5
+    delta = torch.tensor([1e-14, 1e-6, 1e-14, 1e-12], dtype=torch.float64,
+                         device=cuda)
+    n0 = splu._gj_inv.launches
+    got = splu._gj_inv(D, delta)
+    assert splu._gj_inv.launches == n0 + 1
+    want = splu._gj_inv_plain(D, delta)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0)
+    for g, p in zip(got[2:], want[2:]):
+        assert torch.equal(g, p)
+    for b in range(B):
+        one = splu._gj_inv(D[b * w:(b + 1) * w], delta[b])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b * w:(b + 1) * w], o), b
+    npert = got[3].view(B, w).sum(1).tolist()
+    assert npert == [2, 3, 2, 2], npert
+    with pytest.raises(ValueError, match="do not split"):
+        splu._gj_inv(D[:w + 1], delta)
+
+
 def test_capture_names_a_system_function_that_reads_the_device(cuda):
     system, x0, y0, args, _ = samples.hairer_wanner_eq1()
     f = system.function

@@ -235,6 +235,20 @@ def test_erk_solve_batch_lanes_equal_single_solves():
         _lane_matches_single(sol, y0s, b, ys, st, x0, 1.5, ERK_COUNTERS)
 
 
+def test_capture_refusal_reads_the_warm_up():
+    # what DeviceLoop.capture checks before it captures: the warm-up's
+    # reservation and the spare against the card's free memory, and
+    # whether the warm-up had to return cached memory to fit
+    gib = 2 ** 30
+    spare = _device_loop.CAPTURE_SPARE_BYTES
+    assert _device_loop.capture_refusal(30 * gib, 0, 30 * gib + spare,
+                                        80 * gib) is None
+    why = _device_loop.capture_refusal(30 * gib, 0, 31 * gib, 80 * gib)
+    assert "about 30.0 GiB" in why and "31.0 GiB of the card's 80.0" in why
+    why = _device_loop.capture_refusal(gib, 2, 70 * gib, 80 * gib)
+    assert "returning cached memory (2 times)" in why
+
+
 def test_replay_count_does_not_change_the_bits(monkeypatch):
     # the counterpart of tests/test_ode.py:456: reading the done flag after
     # every attempt or after every 8 gives the same bits
@@ -312,12 +326,3 @@ def test_fused_refusals_match_reference(what):
           "bwd_euler": {}}[what]
     with pytest.raises(ValueError):
         sol.solve(y0, x0, x1, fused=True, **kw)
-
-
-def test_solve_batch_through_sparse_routes_names_roadmap():
-    system, t0, y0, _ = samples.brusselator_pde(2e-3, 5)
-    params = Params(Method.RADAU5)
-    params.newton.genie = Genie.SPLU
-    sol = OdeSolver(params, system, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sol.solve_batch(np.stack([y0, y0]), t0, 1.0)

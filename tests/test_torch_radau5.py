@@ -118,9 +118,9 @@ def test_unported_paths_raise(what):
     ``output``, ``genie`` (AUTO, which routes van der Pol to DENSE) and
     ``numerical_jacobian`` are ported now and must give the reference
     package's counters, through AUTO's DENSE route. ``fused`` is ported
-    too and must give radau5.f's counters through SPLU; ``solve_batch``
-    through SPLU still raises, naming ROADMAP.md (a batch factorizes
-    through DENSE only)."""
+    too and must give radau5.f's counters through SPLU, and each lane of
+    ``solve_batch`` through SPLU (a batched numeric phase over the one
+    plan) must equal the single fused solve over a short span."""
     system, x0, y0, x1, args = samples.van_der_pol(1e-6, False)
     params = Params(Method.DOPRI5 if what == "method" else Method.RADAU5)
     params.newton.genie = (Genie.SPLU if what in ("fused", "solve_batch")
@@ -139,9 +139,18 @@ def test_unported_paths_raise(what):
                 st.n_iterations_max) == (2249, 162, 253, 668, 280, 242, 8, 6)
         return
     if what == "solve_batch":
+        params.step.h_ini = 1e-6
         sol = OdeSolver(params, system, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sol.solve_batch(np.stack([y0, y0]), x0, x1)
+        x1 = 0.02     # the single "fused" run above holds the whole span
+        ys, st = sol.solve_batch(np.stack([y0, y0]), x0, x1)
+        assert sol.actual.plan.genie == Genie.SPLU
+        y = sol.solve(y0, x0, x1, fused=True)
+        single = _counters(sol.stats())
+        assert single["n_steps"] > 10
+        for lane in range(2):
+            np.testing.assert_allclose(ys[lane].numpy(), y.numpy(), rtol=0,
+                                       atol=1e-12)
+            assert {k: int(st[k][lane]) for k in COUNTERS} == single
         return
     # short runs: the reference package runs them too (DoPri5 takes steps
     # of ~3e-6 on this stiff problem)
