@@ -291,6 +291,27 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    kernel of a check launched on every rank; a rank that raises or runs
    past PAR_RANK_TIMEOUT_S fails the phase. The kernels line's
    ``splu_pairs``, ``gather_rows`` and ``gj_inv`` gain the launches.
+27. ooc_path: GRIDMF out of core through ``LinSolver(Genie.AUTO)`` with
+   the grid hint (N, N, N) on ``samples.laplacian_3d(N)``. The host's
+   MemTotal and MemAvailable; the transfers' yardstick, a 1 GiB ``copy_``
+   each way from torch's pinned memory and from an out-of-core store
+   (GB/s). (a) N = OOC_NPOINT_IN_CORE, in core by the default budget
+   (13.2 GiB of f64 factors under 15): cold and warm factorize walls, the
+   solve's wall, peak device memory, relative error; then out of core
+   (``factor.GRIDMF_BUDGET_GB`` set under its store here): x within
+   OOC_X_TOL of max|x| of the in-core x, log|det|, min|pivot| and
+   n_perturbed equal, peak device memory below the in-core run's (one
+   factorization: each maps and pins its host stores anew). (b) N =
+   OOC_NPOINT (49.1 GiB: out of core by the default budget): one
+   factorization under the profiler with the first ``gj_inv`` launch at
+   each (w, m) held to its plain version (``held_once_a_shape``): wall,
+   launches, peak device memory below the store's bytes, host bytes pinned
+   against the store's, GFLOP/s, the copies' device time and the busy
+   share; a solve (wall, peak), relative error <= OOC_RES_TOL, log|det|
+   within OOC_LOGDET_RTOL of the analytic sum, one sweep pair under the
+   profiler (H2D GB/s), and the time to free the host stores. The kernels
+   line's ``gj_inv`` gains the path's launches and checks. ``--ooc`` runs it
+   alone (with the kernels line and the last line).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -314,7 +335,8 @@ layout build. ``--replay [--tree DIR]`` is one such process.
 phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
 (with its kernels line and the last line), ``--stat-tensor`` only phase
 25 (with the last line; the fused GRIDMF-129 counters from a run of its
-own), ``--parallel`` only phase 26 (with the last line). ``--chunk-sweep`` times
+own), ``--parallel`` only phase 26 (with the last line), ``--ooc`` only
+phase 27. ``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -3058,8 +3080,9 @@ def batch_kernel_checks(splan, gplan):
     of the same kernel on the same inputs. Timed (``time_ms``) at phase
     4's rows and over the GRIDMF pair's base calls: the batched launch
     against the B single-lane launches, beside the bound of the batched
-    work (each lane's distinct bytes once over 3.35 TB/s, or its flops).
-    Returns the kernels line's numbers."""
+    work (each lane's distinct bytes once over 3.35 TB/s, or its flops),
+    and gather_rows beside ``index_select`` on the same blocks. Returns the
+    kernels line's numbers."""
     from russell_tpu_torch.sparse import splu
     B = SPARSE_BATCH
     sp = splan.splu_plan
@@ -3070,7 +3093,8 @@ def batch_kernel_checks(splan, gplan):
     rng = np.random.default_rng(SEED + 16)
     n_store = sp.nblk + pk["TL"] + 1
     out = {"splu_pairs": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
-                          "plain_ms": 0.0, "max_abs_err": 0.0},
+                          "plain_ms": 0.0, "library_ms": None,
+                          "max_abs_err": 0.0},
            "gather_rows": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
                            "plain_ms": 0.0, "max_abs_err": 0.0}}
     for be in (sp.b, 2 * sp.b):
@@ -3118,6 +3142,7 @@ def batch_kernel_checks(splan, gplan):
                 f_1 = lambda: [splu.splu_pairs(blocks[lane], *args)  # noqa
                                for lane in range(B)]
                 f_p = lambda: splu._splu_pairs_plain(blocks, *plain)  # noqa
+                f_l = None          # no one library call computes it
                 tiles = np.unique(np.concatenate([
                     pk["pair_l"][r, :npair], pk["pair_u"][r, :npair]])).size
                 b_ms = bound(B * 8 * be * be * (tiles + ln)
@@ -3130,18 +3155,23 @@ def batch_kernel_checks(splan, gplan):
                 f_1 = lambda: [splu.gather_rows(blocks[lane], idx)  # noqa
                                for lane in range(B)]
                 f_p = lambda: splu._gather_rows_plain(blocks, idx)  # noqa
+                f_l = lambda: blocks.index_select(1, idx)  # noqa: E731
                 b_ms = bound(B * 8 * be * be * (torch.unique(idx).numel()
                                                 + ln) + 4 * ln, 0)
             ms, ms1, pms = time_ms(f_b), time_ms(f_1), time_ms(f_p)
+            lms = None if f_l is None else time_ms(f_l)
             rec["ms"] += ms
             rec["singles_ms"] += ms1
             rec["plain_ms"] += pms
+            if lms is not None:
+                rec["library_ms"] = rec.get("library_ms", 0.0) + lms
             rec["bound_ms"] += b_ms[0]
             rec["bound_by"] = b_ms[1]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             say("batch_kernel", name=name, row=r, be=be, lanes=B, len=ln,
                 pairs=npair, ms=ms, singles_ms=ms1, plain_ms=pms,
-                bound_ms=b_ms[0], bound_by=b_ms[1], max_abs_err=err)
+                library_ms=lms, bound_ms=b_ms[0], bound_by=b_ms[1],
+                max_abs_err=err)
         del blocks
         torch.cuda.empty_cache()
     for k, row in (("splu_pairs", "argmax_pairs"),
@@ -6338,6 +6368,327 @@ def parallel_entry(pres, name):
                 for r in pres["ranks"]}}
 
 
+# -- ooc_path ------------------------------------------------------------------
+
+OOC_NPOINT_IN_CORE = 60   # laplacian_3d, hint (N, N, N): 13.2 GiB of factors
+OOC_NPOINT = 79           # 49.1 GiB: out of core by the default budget;
+                          # the host pins 60 GiB (factors, Schur buffers)
+OOC_RES_TOL = 1e-10       # VerifyLinSys relative error
+OOC_X_TOL = 1e-12         # out-of-core x against in-core x, of max|x|
+OOC_LOGDET_RTOL = 1e-10   # log|det| against the analytic sum
+OOC_COPY_BYTES = 1 << 30  # the pinned copy_ that is the transfers' yardstick
+
+
+def lap3d_logdet(npoint):
+    """log|det| of ``samples.laplacian_3d(npoint)``: c (T x I x I + I x T x I
+    + I x I x T) with T = tridiag(-1, 2, -1) of size N and c = (N - 1)^2,
+    so its eigenvalues are c (mu_i + mu_j + mu_k), mu_m = 2 - 2 cos(m pi /
+    (N + 1))."""
+    mu = 2.0 - 2.0 * np.cos(np.arange(1, npoint + 1) * np.pi / (npoint + 1))
+    c = float(npoint - 1) ** 2
+    s = mu[:, None, None] + mu[None, :, None] + mu[None, None, :]
+    return math.fsum(np.log(c * s).ravel())
+
+
+def det_logabs(sol):
+    """log|det| from LinSolver.determinant's (mantissa, 10, exponent)."""
+    m, base, e = sol.determinant()
+    return (e + math.log10(abs(m))) * math.log(base)
+
+
+@contextlib.contextmanager
+def held_once_a_shape():
+    """Within the block, the first gj_inv launch at each (w, m) is held
+    against its plain version (``held_to_plain``'s check, on the path's own
+    inputs and strides); the others run unchecked. Yields held_to_plain's
+    record; the wrapper keeps counting its launches."""
+    from russell_tpu_torch.sparse import splu
+    orig = splu._gj_inv
+    with held_to_plain() as held:
+        check = splu._gj_inv
+
+        def once(D, delta):
+            if (D.shape[0], D.shape[-1]) in held["gj_inv"]["shapes"]:
+                return orig(D, delta)
+            return check(D, delta)
+
+        once.launches = check.launches
+        splu._gj_inv = once
+        try:
+            yield held
+        finally:
+            check.launches = once.launches
+            splu._gj_inv = check
+
+
+def copy_gbps(host, dev):
+    """(H2D, D2H) GB/s of one ``copy_`` between ``host`` and ``dev`` (the same
+    bytes), each the median of three timed by CUDA events."""
+    out = []
+    for dst, src in ((dev, host), (host, dev)):
+        times = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        out.append(host.numel() * host.element_size() / statistics.median(
+            times) / 1e9)
+    return out
+
+
+def copy_yardstick():
+    """The transfers' yardstick: a plain 1 GiB ``copy_`` from and to torch's
+    pinned memory, and the same from and to a store of the out-of-core path
+    (an anonymous mapping registered with CUDA), in GB/s; and the GB/s of
+    making each (torch's pinned allocation, and ``gridmf._host_empty``'s
+    mapping and registration) on the idle card."""
+    from russell_tpu_torch.sparse import gridmf
+    dev = torch.empty(OOC_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned = torch.empty(OOC_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    alloc_s = time.perf_counter() - t0
+    h2d, d2h = copy_gbps(pinned, dev)
+    t0 = time.perf_counter()
+    store = gridmf._host_empty((OOC_COPY_BYTES,), torch.uint8, dev.device)
+    register_s = time.perf_counter() - t0
+    s_h2d, s_d2h = copy_gbps(store, dev)
+    del dev, pinned, store
+    return {"pinned_h2d_gbps": h2d, "pinned_d2h_gbps": d2h,
+            "registered_h2d_gbps": s_h2d, "registered_d2h_gbps": s_d2h,
+            "pinned_alloc_gbps": OOC_COPY_BYTES / alloc_s / 1e9,
+            "map_and_register_gbps": OOC_COPY_BYTES / register_s / 1e9}
+
+
+def store_bytes(fac):
+    return sum(t.numel() * t.element_size() for st in fac["levels"]
+               for t in st.values() if t is not None)
+
+
+def copy_device_ms(ms_by_name, way):
+    """Summed device ms of the profiled copies one way ("HtoD", "DtoH")."""
+    return sum(v for k, v in ms_by_name.items() if way in k)
+
+
+def compute_busy(ms_by_name, wall_s):
+    """Kernel device time (copies excluded) over the wall."""
+    return sum(v for k, v in ms_by_name.items()
+               if "Memcpy" not in k and "Memset" not in k) / (1e3 * wall_s)
+
+
+def ooc_in_core_limit(res):
+    """(a) laplacian_3d(OOC_NPOINT_IN_CORE) with the hint (N, N, N) through
+    LinSolver(AUTO): in core by the default budget, then out of core with
+    the budget under its store; x, log|det|, min|pivot| and n_perturbed
+    held between the two."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          VerifyLinSys, factor, gridmf,
+                                          samples)
+    N = OOC_NPOINT_IN_CORE
+    coo = samples.laplacian_3d(N)
+    n = coo.nrow
+    b = np.random.default_rng(SEED + 17).standard_normal(n)
+    params = LinSolParams(grid=(N, N, N))
+    runs = {}
+    budget = factor.GRIDMF_BUDGET_GB
+    for ooc in (False, True):
+        rec = {}
+        s = LinSolver(Genie.AUTO, device="cuda")
+        if ooc:
+            # under the store: out of core
+            factor.GRIDMF_BUDGET_GB = 0.5 * res["store_gib_60"]
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            s.factorize(coo, params)
+            rec["cold_factorize_s"] = time.perf_counter() - t0
+            rec["analyze_s"] = s.stats.time_nanoseconds["initialize"] / 1e9
+            rec["gj_inv_launches"] = gj_inv_launches()
+            if not ooc:
+                # out of core, each factorization maps and pins its stores
+                # anew: one is timed
+                t0 = time.perf_counter()
+                s.factorize(coo, params)
+                torch.cuda.synchronize()
+                rec["warm_factorize_s"] = time.perf_counter() - t0
+            rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            x = s.solve(b)
+            rec["solve_s"] = time.perf_counter() - t0
+        finally:
+            factor.GRIDMF_BUDGET_GB = budget
+        rec["out_of_core"] = bool(s.stats.output.get("out_of_core"))
+        if rec["out_of_core"] is not ooc or s.plan.genie != Genie.GRIDMF:
+            raise AssertionError(f"laplacian_3d_{N}: genie {s.plan.genie}, "
+                                 f"out of core {rec['out_of_core']}")
+        if ooc:
+            rec["pinned_bytes"] = s.fac["levels"].pinned_bytes
+            rec["store_bytes"] = store_bytes(s.fac)
+        rec["relative_error"] = VerifyLinSys.from_system(
+            coo, x.cpu().numpy(), b).relative_error
+        rec["stats"] = {k: s.fac[k].item() for k in (
+            "logdet", "min_pivot", "n_perturbed")}
+        say("ooc_path", part=f"3d_{N}_" + ("out_of_core" if ooc else
+                                           "in_core"), **rec)
+        runs[ooc] = (rec, x)
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ri, xi), (ro, xo) = runs[False], runs[True]
+    scale = float(xi.abs().max())
+    err = float((xo - xi).abs().max())
+    if not err <= OOC_X_TOL * scale:
+        raise AssertionError(f"laplacian_3d_{N}: out-of-core x off the "
+                             f"in-core x by {err} (max|x| {scale})")
+    if ri["stats"] != ro["stats"]:
+        raise AssertionError(f"laplacian_3d_{N}: statistics differ in and "
+                             f"out of core: {ri['stats']} {ro['stats']}")
+    if not ro["peak_mem_bytes"] < ri["peak_mem_bytes"]:
+        raise AssertionError(f"laplacian_3d_{N}: out-of-core peak "
+                             f"{ro['peak_mem_bytes']} not under the in-core "
+                             f"{ri['peak_mem_bytes']}")
+    for r in (ri, ro):
+        if not r["relative_error"] <= OOC_RES_TOL:
+            raise AssertionError(f"laplacian_3d_{N}: relative error "
+                                 f"{r['relative_error']}")
+    res["3d_60"] = {"in_core": ri, "out_of_core": ro,
+                    "x_max_abs_diff": err, "x_max_abs": scale}
+    say("ooc_path", part=f"3d_{N}_held", x_max_abs_diff=err, x_max_abs=scale,
+        stats_equal=True, peak_ratio=ro["peak_mem_bytes"]
+        / ri["peak_mem_bytes"])
+
+
+def ooc_full(res):
+    """(b) laplacian_3d(OOC_NPOINT) with the hint (N, N, N) through
+    LinSolver(AUTO): out of core by the default budget. One factorization
+    under the profiler (wall, launches, the copies' device time, the busy
+    share) with the first gj_inv launch at each shape held to its plain
+    version; a solve, VerifyLinSys and the determinant against the
+    analytic log|det|; one sweep pair under the profiler."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          VerifyLinSys, factor, gridmf,
+                                          samples)
+    N = OOC_NPOINT
+    t0 = time.perf_counter()
+    coo = samples.laplacian_3d(N)
+    n = coo.nrow
+    b = np.random.default_rng(SEED + 79).standard_normal(n)
+    rec = {"n": n, "nnz": int(coo.nnz), "build_s": time.perf_counter() - t0}
+    s = LinSolver(Genie.AUTO, device="cuda")
+    params = LinSolParams(grid=(N, N, N))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with held_once_a_shape() as held:
+        ms, wall, launches = kernel_device_ms(
+            lambda: s.factorize(coo, params))
+    rec["analyze_s"] = s.stats.time_nanoseconds["initialize"] / 1e9
+    rec["factorize_s"] = s.stats.time_nanoseconds["factorize"] / 1e9
+    rec["gj_inv_launches"] = gj_inv_launches()
+    rec["peak_mem_factorize_bytes"] = torch.cuda.max_memory_allocated()
+    n_shapes = len(held["gj_inv"]["shapes"])
+    rec["held_to_plain"] = held_record(held, {"gj_inv": n_shapes})["gj_inv"]
+    rec["held_to_plain"]["shapes_list"] = sorted(held["gj_inv"]["shapes"])
+    del held
+    if not s.stats.output.get("out_of_core"):
+        raise AssertionError(f"laplacian_3d_{N}: not out of core")
+    # the busy share over the numeric factorization (the profiled wall
+    # holds the host analysis too)
+    p = {"analyze_and_factorize_wall_s": wall,
+         "factorize_device_launches": launches,
+         "factorize_busy": compute_busy(ms, rec["factorize_s"]),
+         "d2h_device_s": copy_device_ms(ms, "DtoH") / 1e3}
+    plan = s.plan.gridmf_plan
+    rec["levels"] = [(lv.n_nodes, lv.F, lv.e) for lv in plan.levels]
+    rec["store_bytes"] = store_bytes(s.fac)
+    rec["pinned_bytes"] = s.fac["levels"].pinned_bytes
+    rec["flops"] = gridmf.gridmf_flops(plan)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = s.solve(b)
+    rec["solve_s"] = time.perf_counter() - t0
+    rec["peak_mem_solve_bytes"] = torch.cuda.max_memory_allocated()
+    rec["relative_error"] = VerifyLinSys.from_system(
+        coo, x.cpu().numpy(), b).relative_error
+    got = det_logabs(s)
+    want = lap3d_logdet(N)
+    rec["logdet"], rec["logdet_analytic"] = got, want
+    rec["logdet_rel_err"] = abs(got - want) / abs(want)
+    if not rec["relative_error"] <= OOC_RES_TOL:
+        raise AssertionError(f"laplacian_3d_{N}: relative error "
+                             f"{rec['relative_error']}")
+    if not rec["logdet_rel_err"] <= OOC_LOGDET_RTOL:
+        raise AssertionError(f"laplacian_3d_{N}: log|det| {got} against "
+                             f"{want}")
+    if not rec["peak_mem_factorize_bytes"] < rec["store_bytes"]:
+        raise AssertionError(f"laplacian_3d_{N}: peak device memory over "
+                             "the store's bytes")
+    del x
+    bt = torch.as_tensor(b, device="cuda")
+    ms, wall, _ = kernel_device_ms(
+        lambda: factor.factor_solve(s.plan, s.fac, bt, refine_steps=0))
+    p.update(sweeps_wall_s=wall, sweeps_busy=compute_busy(ms, wall),
+             h2d_device_s=copy_device_ms(ms, "HtoD") / 1e3)
+    rec["profiled"] = p
+    # every byte of the store crosses once a factorization and a sweep pair
+    sb = rec["store_bytes"]
+    rec["d2h_gbps_wall"] = sb / rec["factorize_s"] / 1e9
+    rec["d2h_gbps_device"] = sb / max(p["d2h_device_s"], 1e-9) / 1e9
+    rec["h2d_gbps_wall"] = sb / p["sweeps_wall_s"] / 1e9
+    rec["h2d_gbps_device"] = sb / max(p["h2d_device_s"], 1e-9) / 1e9
+    rec["gflops_factorize"] = rec["flops"] / rec["factorize_s"] / 1e9
+    t0 = time.perf_counter()
+    del s, bt
+    gc.collect()
+    rec["free_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    say("ooc_path", part=f"3d_{N}", **rec)
+    res[f"3d_{N}"] = rec
+
+
+def phase_ooc_path():
+    """GRIDMF out of core through LinSolver on the card: the in-core limit
+    at laplacian_3d_60 and its out-of-core run, then laplacian_3d_79, with
+    the transfers' yardstick and the host's memory."""
+    from russell_tpu_torch.sparse import gridmf, samples
+    t_start = time.perf_counter()
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) for ln in f}
+    res = {"mem_available_gib": mem["MemAvailable"] / 2 ** 20,
+           "mem_total_gib": mem["MemTotal"] / 2 ** 20}
+    N = OOC_NPOINT_IN_CORE
+    coo = samples.laplacian_3d(N)
+    ii, jj, _ = coo.triplets()
+    res["store_gib_60"] = gridmf.gridmf_store_gb(gridmf.gridmf_analyze(
+        coo.nrow, np.asarray(ii), np.asarray(jj), (N, N, N),
+        leaf_cells=16))
+    del coo, ii, jj
+    res["yardstick"] = copy_yardstick()
+    say("ooc_path", part="setup", **res)
+    ooc_in_core_limit(res)
+    ooc_full(res)
+    res["wall_s"] = time.perf_counter() - t_start
+    say("ooc_path", part="done", wall_s=res["wall_s"])
+    return res
+
+
+def ooc_entry(ores):
+    """The ooc_path numbers of gj_inv's entry on the kernels line."""
+    full = ores[f"3d_{OOC_NPOINT}"]
+    return {"launches_3d_79_factorization": full["gj_inv_launches"],
+            "launches_3d_60_out_of_core": ores["3d_60"]["out_of_core"][
+                "gj_inv_launches"],
+            "launches_3d_60_in_core": ores["3d_60"]["in_core"][
+                "gj_inv_launches"],
+            "held_to_plain_3d_79": full["held_to_plain"]}
+
+
 def walled(name, fn, *args):
     """``fn(*args)``, then one line with its wall (each phase's share of
     the smoke's time limit)."""
@@ -6398,6 +6749,9 @@ def main():
     stres = walled("stat_tensor_path", phase_stat_tensor_path,
                    fres["gridmf_129"]["counters"])
     parres = walled("parallel_path", phase_parallel_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ores = walled("ooc_path", phase_ooc_path)
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -6479,6 +6833,7 @@ def main():
                 "gj_inv_kernel_events"]},
         "parallel_path": parallel_entry(parres, "gj_inv"),
         "batch": batch_entry(fres, "gj_inv"),
+        "ooc_path": ooc_entry(ores),
         "shapes": f"the base calls of one npoint-{NPOINT} GRIDMF factorize "
                   "pair, summed (inv_block: per factorize pair, the "
                   "top-level pivot blocks)"})
@@ -6992,6 +7347,15 @@ if __name__ == "__main__":
         phase_build()
         lab_kernels = [jacobi_entry(phase_lab_path())]
         print(json.dumps({"kernels": lab_kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    elif "--ooc" in sys.argv:
+        phase_device()
+        phase_build()
+        ores = phase_ooc_path()
+        print(json.dumps({"kernels": [
+            {"name": "gj_inv", "ooc_path": ooc_entry(ores)}]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

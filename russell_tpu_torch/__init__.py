@@ -19,8 +19,9 @@ CLIs:
                (``fused=True``, ``solve_batch``) as a captured CUDA graph
 - ``sparse`` : COO/CSR/CSC matrices, samples, MatrixMarket I/O,
                VerifyLinSys, orderings, SPLU (host plan + numeric scan
-               with its CUDA kernels), GRIDMF, GENMF, BANDED, every path of
-               ``factor``, ``LinSolver``, the numerical Jacobian, BSR
+               with its CUDA kernels), GRIDMF (its factors in pinned host
+               memory past the device budget), GENMF, BANDED, every path
+               of ``factor``, ``LinSolver``, the numerical Jacobian, BSR
                SpMV/SpMM and block SpGEMM (three CUDA kernels)
 - ``pde``    : grids, boundary conditions, Fdm1d/Fdm2d, Spc1d/Spc2d,
                SpcMap2d, transfinite maps and metrics; every solve through

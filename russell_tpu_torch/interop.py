@@ -26,7 +26,11 @@ None) are nested: ``tree_to_torch`` / ``tree_to_numpy`` carry them across
 whole, shifting every ``piv`` / ``pivs`` between 0- and 1-based. This
 package's DENSE and BANDED factors also hold the pivots' row order
 (``perm``, ``perms``, from ``bcr.lu_perm``): the converters to it make
-them, the converters from it drop them.
+them, the converters from it drop them. An out-of-core GRIDMF factor dict
+holds its ``levels`` in host memory: numpy arrays in the reference
+package, a ``gridmf.HostLevels`` of CPU tensors here; ``tree_to_torch``
+keeps such levels on the CPU (the statistics and the scaling go to the
+device) and ``tree_to_numpy`` gives them back as numpy.
 
 A continuation ``Config`` of the reference package becomes this package's
 field by field (``nonlin_config_from_reference``), its enums mapped by
@@ -56,6 +60,7 @@ from russell_tpu_torch.sparse.kernels import (BsrMatrix, SpgemmPlan, _c_ptr,
                                               bsr_from_arrays)
 from russell_tpu_torch.sparse.bcr import lu_perm
 from russell_tpu_torch.sparse.genmf import GenMfPlan, _GClass, _GLink
+from russell_tpu_torch.sparse.gridmf import HostLevels
 from russell_tpu_torch.sparse.splu import SpluPlan
 from russell_tpu_torch import stat
 from russell_tpu_torch.tensor import Mandel, Tensor2, Tensor4
@@ -161,22 +166,35 @@ def genmf_plan_from(plan) -> GenMfPlan:
 _PIVOTS = ("piv", "pivs")
 
 
+def _host_levels(v):
+    """Whether ``v`` holds an out-of-core GRIDMF fac's levels: stores
+    whose Sinv is a numpy array (the reference package's in-core levels
+    are device arrays)."""
+    return (isinstance(v, (list, tuple)) and len(v) > 0
+            and isinstance(v[-1], dict)
+            and isinstance(v[-1].get("sir"), np.ndarray))
+
+
 def tree_to_torch(obj, device="cuda"):
     """A factor dict of numpy arrays (or anything ``np.asarray`` reads),
     nested in dicts and lists with None leaves, as tensors on ``device``
-    in this package's dtypes; ``piv`` / ``pivs`` 1-based int32."""
+    in this package's dtypes; ``piv`` / ``pivs`` 1-based int32. The
+    ``levels`` of an out-of-core GRIDMF fac (numpy stores) become a
+    ``HostLevels`` of CPU tensors."""
     device = russell_tpu_torch.device(device)
 
-    def conv(v, key=None):
+    def conv(v, key=None, dev=device):
         if v is None:
             return None
         if isinstance(v, dict):
-            out = {k: conv(x, k) for k, x in v.items()}
+            out = {k: conv(x, k, dev) for k, x in v.items()}
             if "lus" in out and "pivs" in out:
                 out["perms"] = lu_perm(out["lus"], out["pivs"])
             return out
+        if key == "levels" and _host_levels(v):
+            return HostLevels(conv(x, None, torch.device("cpu")) for x in v)
         if isinstance(v, (list, tuple)):
-            return [conv(x) for x in v]
+            return [conv(x, None, dev) for x in v]
         a = np.asarray(v)
         if key in _PIVOTS:
             a = a.astype(np.int32) + 1
@@ -186,7 +204,7 @@ def tree_to_torch(obj, device="cuda"):
             a = a.astype(np.float64)
         elif a.dtype.kind == "c":
             a = a.astype(np.complex128)
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     return conv(obj)
 

@@ -91,7 +91,7 @@ class EulerBackward:
                                               dtype=jv.dtype,
                                               device=jv.device)])
         self._fac = None  # drop the old factors before making new ones
-        self._fac = _factor.numeric_factorize(self.plan, data)
+        self._fac = _factor._numeric_factorize(self.plan, data)
 
     def _solve(self, r):
         return _factor.factor_solve(self.plan, self._fac, r)

@@ -27,8 +27,16 @@ leading lane dimension, not once a matrix. ``prepare`` uploads every
 index array of a plan before a CUDA graph capture, which may not copy
 from the host. Factors are full f64/complex128: the H100 has f64, so
 the reference package's mixed-precision regime (f32 factors and its
-adaptive refinement tiers) is not carried over, and neither are GRIDMF's
-out-of-core factors (ROADMAP.md).
+adaptive refinement tiers) is not carried over.
+
+GRIDMF factors too large for the device budget (``GRIDMF_BUDGET_GB``) go
+out of core, as in the reference package: ``analyze`` marks the plan
+(``gridmf_ooc``), ``numeric_factorize`` streams one matrix's factors to
+host memory (``gridmf.gridmf_factorize_ooc``) and ``factor_solve`` ships
+them back level by level (``gridmf.gridmf_solve_ooc``). Where the
+reference package factorizes under ``jit`` or ``vmap`` (Radau5's and the
+fused loops' pairs, BwEuler, batches), its data is traced and the plan
+runs in core; the port does the same on those paths.
 """
 
 from __future__ import annotations
@@ -54,12 +62,13 @@ __all__ = ["SolvePlan", "analyze", "prepare", "numeric_factorize",
 
 # Device memory (GiB) that the three f64 value planes of GRIDMF factors of
 # Radau5's real and complex pair may take; it picks the leaf, the
-# reference's candidates (64, then 16 cells) tried in turn. The factorize
-# pair's peak is several times its factors: the complex pivot blocks are
-# inverted as their K embedding, at twice the width, with the Schur
-# recursion's temporaries (on an H100, npoint-513 Brusselator, leaf 64:
-# 10.9 GiB of factors, a 53.6 GiB peak). 15 GiB keeps that ratio's peak
-# within the card's 80 GB.
+# reference's candidates (64, then 16 cells) tried in turn, and sends the
+# factors out of core when even the last leaf's real plane exceeds it. The
+# factorize pair's peak is several times its factors: the complex pivot
+# blocks are inverted as their K embedding, at twice the width, with the
+# Schur recursion's temporaries (on an H100, npoint-513 Brusselator, leaf
+# 64: 10.9 GiB of factors, a 53.6 GiB peak). 15 GiB keeps that ratio's
+# peak within the card's 80 GB.
 GRIDMF_BUDGET_GB = 15.0
 GRIDMF_LEAVES = (64, 16)
 # GENMF's leaf size: the reference package's default (factor.py:238-242,
@@ -87,6 +96,9 @@ class SolvePlan:
     use_bcr: bool = False
     splu_plan: Optional["_splu.SpluPlan"] = None
     gridmf_plan: Optional["_gridmf.GridMfPlan"] = None
+    # the GRIDMF factors exceed GRIDMF_BUDGET_GB: one matrix's go to host
+    # memory depth by depth (gridmf.gridmf_factorize_ooc)
+    gridmf_ooc: bool = False
     genmf_plan: Optional["_genmf.GenMfPlan"] = None
     # DENSE: the entries' dense slots (row-major), one pass per duplicate
     # rank, so that duplicates are summed in entry order on every device
@@ -138,13 +150,14 @@ def analyze(
     if grid is not None and (genie == Genie.GRIDMF or
                              (genie == Genie.AUTO and n > dense_threshold)):
         try:
-            gplan = _gridmf_plan(n, rows, cols, grid, pivot_epsilon)
+            gplan, ooc = _gridmf_plan(n, rows, cols, grid, pivot_epsilon)
         except ValueError:
             if genie == Genie.GRIDMF:
                 raise
             gplan = None  # not cell-local: fall through to the AUTO branch
         if gplan is not None:
             return SolvePlan(Genie.GRIDMF, n, rows, cols, gridmf_plan=gplan,
+                             gridmf_ooc=ooc,
                              scaling=Scaling.MAX if scaling == Scaling.AUTO
                              else scaling,
                              pivot_epsilon=pivot_epsilon,
@@ -294,27 +307,19 @@ def _dense_passes(n, rows, cols):
 
 
 def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
-    """The GRIDMF plan at the first leaf size of GRIDMF_LEAVES whose three
-    f64 value planes of factors fit GRIDMF_BUDGET_GB (the last one when
-    none does but its real plane fits). Raises ValueError for a pattern
-    that is not cell-local, and NotImplementedError when even the real
-    plane of the smallest leaf's factors exceeds the budget: the
-    reference streams those factors to host memory, which is a later
-    slice (ROADMAP.md §1, item 12)."""
+    """(plan, out of core?): the GRIDMF plan at the first leaf size of
+    GRIDMF_LEAVES whose three f64 value planes of factors fit
+    GRIDMF_BUDGET_GB, else at the last one, out of core when even its
+    real plane exceeds the budget (the reference package's rule). Raises
+    ValueError for a pattern that is not cell-local."""
     for leaf in GRIDMF_LEAVES:
         gplan = _gridmf.gridmf_analyze(n, rows, cols, grid,
                                        leaf_cells=leaf,
                                        pivot_epsilon=pivot_epsilon)
         store_gb = _gridmf.gridmf_store_gb(gplan)
         if 3.0 * store_gb <= GRIDMF_BUDGET_GB:
-            return gplan
-    if store_gb > GRIDMF_BUDGET_GB:
-        raise NotImplementedError(
-            f"GRIDMF factors of {store_gb:.1f} GiB a value plane exceed the "
-            f"{GRIDMF_BUDGET_GB} GiB device budget; the out-of-core path "
-            "that streams them to host memory is not ported yet "
-            "(ROADMAP.md §1, item 12)")
-    return gplan
+            return gplan, False
+    return gplan, store_gb > GRIDMF_BUDGET_GB
 
 
 def _on_device(plan: SolvePlan, what: str, device, make):
@@ -682,8 +687,21 @@ def numeric_factorize(plan: SolvePlan, data):
     """Numeric factorization of the entry values ``data`` (f64 or
     complex128 tensor, on the device to factorize on) laid out as
     (plan.rows, plan.cols): (nnz,), or a batch (B, nnz) of matrices of
-    the plan's pattern, factorized in one numeric phase (statistics (B,))."""
+    the plan's pattern, factorized in one numeric phase (statistics (B,)).
+    With an out-of-core GRIDMF plan one matrix's factors go to host memory
+    (real values only: complex ones raise NotImplementedError), and a
+    batch factorizes in core, as the reference package's vmapped phase
+    does."""
     _check_data(data)
+    return _numeric_factorize(plan, data,
+                              plan.gridmf_ooc and data.dim() == 1)
+
+
+def _numeric_factorize(plan: SolvePlan, data, out_of_core=False):
+    """``numeric_factorize``, out of core only when asked: in core it is
+    the factorization of the paths that the reference package runs under
+    ``jit`` (Radau5's pair, BwEuler), where its out-of-core plans run in
+    core."""
     if plan.genie == Genie.DENSE:
         return _dense_factorize(plan, data)
     if plan.genie == Genie.BANDED:
@@ -691,7 +709,9 @@ def numeric_factorize(plan: SolvePlan, data):
             return _banded_factorize_bcr(plan, data)
         return _banded_factorize(plan, data)
     data, rs, cs = _equilibrate(plan, data)
-    if plan.genie == Genie.GRIDMF:
+    if plan.genie == Genie.GRIDMF and out_of_core:
+        fac = _gridmf.gridmf_factorize_ooc(plan.gridmf_plan, data)
+    elif plan.genie == Genie.GRIDMF:
         fac = _gridmf.gridmf_factorize(plan.gridmf_plan, data)
     elif plan.genie == Genie.GENMF:
         fac = _genmf.genmf_factorize(plan.genmf_plan, data)
@@ -713,8 +733,8 @@ def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
     _check_data(data_r)
     _check_data(data_c)
     if plan.genie != Genie.SPLU:
-        return (numeric_factorize(plan, data_r),
-                numeric_factorize(plan, data_c))
+        return (_numeric_factorize(plan, data_r),
+                _numeric_factorize(plan, data_c))
     dr, rs_r, cs_r = _equilibrate(plan, data_r)
     dc, rs_c, cs_c = _equilibrate(plan, data_c)
     fr, fc = _splu.splu_factorize_multi(plan.splu_plan, (dr, dc))
@@ -742,7 +762,10 @@ def _solve_once(plan: SolvePlan, fac, b):
         return _banded_solve(plan, fac, b)
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
-    if plan.genie == Genie.GRIDMF:
+    if plan.genie == Genie.GRIDMF and isinstance(fac["levels"],
+                                                 _gridmf.HostLevels):
+        x = _gridmf.gridmf_solve_ooc(plan.gridmf_plan, fac, y)
+    elif plan.genie == Genie.GRIDMF:
         x = _gridmf.gridmf_solve(plan.gridmf_plan, fac, y)
     elif plan.genie == Genie.GENMF:
         x = _genmf.genmf_solve(plan.genmf_plan, fac, y)

@@ -24,6 +24,11 @@ Brusselator PDE Jacobian, the 2-D/3-D Laplacians).
 - **solve (device)**: an up-sweep of the right-hand side through the
   stored panels, then a down-sweep of back-substitution; batched
   matrix-vector products with gathers and scatters.
+- **out of core** (``gridmf_factorize_ooc``, ``gridmf_solve_ooc``): when
+  the factors exceed the device budget (``factor.GRIDMF_BUDGET_GB``), each
+  depth's factors go to pinned host memory as they are made, a node chunk
+  at a time, and the solve ships each level back when it needs it, the
+  next one on a side stream while the current one computes.
 
 Complex systems are carried as real and imaginary planes end to end,
 with 3-multiplication (Karatsuba) products, and the pivot block is
@@ -38,6 +43,10 @@ device) (``_device_plan``); no factorize or solve uploads an index.
 
 from __future__ import annotations
 
+import math
+import mmap
+import weakref
+from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -48,8 +57,18 @@ import torch.nn.functional as tnf
 from russell_tpu_torch.sparse.ordering import idx32 as _idx32, rank_passes
 from russell_tpu_torch.sparse.splu import _inv_block
 
-__all__ = ["GridMfPlan", "gridmf_analyze", "gridmf_factorize",
-           "gridmf_solve", "gridmf_flops", "gridmf_store_gb"]
+__all__ = ["GridMfPlan", "HostLevels", "gridmf_analyze", "gridmf_factorize",
+           "gridmf_solve", "gridmf_factorize_ooc", "gridmf_solve_ooc",
+           "gridmf_flops", "gridmf_store_gb"]
+
+# Out of core: a depth whose fronts take more than GRIDMF_CHUNK_GB GiB is
+# assembled and factorized a node chunk of at most that size at a time, its
+# children's Schur complements read back from host memory chunk by chunk;
+# a smaller depth is assembled whole and factorized in node chunks of about
+# GRIDMF_STEP_GB GiB of fronts (the reference package's 2.0, from
+# RUSSELL_TPU_GRIDMF_CHUNK_GB, and 1.5). Tests patch these attributes.
+GRIDMF_CHUNK_GB = 2.0
+GRIDMF_STEP_GB = 1.5
 
 
 # ---------------------------------------------------------------------------
@@ -797,9 +816,18 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
 
     The factors of a batch take ``bvec`` (B, n), one lane each, and
     return x (B, n)."""
+    levels = fac["levels"]
+    return _sweeps(plan, fac, bvec, split, levels[-1]["sir"].device,
+                   levels.__getitem__, levels.__getitem__)
+
+
+def _sweeps(plan: GridMfPlan, fac, bvec, split, dev, up, down):
+    """``gridmf_solve``'s sweeps on ``dev``; ``up(d)`` and ``down(d)`` give
+    depth d's stored factors where the up-sweep (d from the leaves to the
+    root) and the down-sweep (from the root) read them."""
     cplx = fac["levels"][-1]["sii"] is not None
     sir = fac["levels"][-1]["sir"]
-    rdt, dev = sir.dtype, sir.device
+    rdt = sir.dtype
     batched, bvec = _lane_rhs("GRIDMF", bvec, split, sir.shape[0],
                               plan.levels[-1].n_nodes)
     L = bvec.shape[0]
@@ -822,7 +850,7 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     for d in range(D, -1, -1):
         lv = plan.levels[d]
         dl = dp["levels"][d]
-        st = fac["levels"][d]
+        st = up(d)
         e = lv.e
         rng = ranges[d]
         blk = _block(plan, dp, d, rng)
@@ -859,7 +887,7 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     for d in range(0, D + 1):
         lv = plan.levels[d]
         dl = dp["levels"][d]
-        st = fac["levels"][d]
+        st = down(d)
         rng = ranges[d]
         if d == 0:
             nn = lv.n_nodes if rng is None else rng[1] - rng[0]
@@ -897,3 +925,340 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     _scatter_blocks(split, (x_re[0], x_im[0] if cplx else None), pending)
     x = torch.complex(x_re[:, :n], x_im[:, :n]) if cplx else x_re[:, :n]
     return x if batched else x[0]
+
+
+# ---------------------------------------------------------------------------
+# out of core: the factors in host memory
+# ---------------------------------------------------------------------------
+
+
+class HostLevels(list):
+    """The per-depth factor stores of an out-of-core factorization, each
+    {sir, lr, br} (``sii``, ``li``, ``bi`` None) a CPU tensor: pinned host
+    memory when the factors were made on a CUDA device, ordinary tensors on
+    the CPU. ``factor`` solves factors whose ``levels`` are HostLevels
+    with ``gridmf_solve_ooc``."""
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Host bytes the stores hold registered with CUDA."""
+        return sum(getattr(t, "_pinned", 0) for st in self
+                   for t in st.values() if t is not None)
+
+
+def _host_empty(shape, dtype, device):
+    """An uninitialised CPU tensor for a store that ``device`` fills. For a
+    CUDA device it is an anonymous private mapping of its own, its pages
+    made by the kernel as it is mapped (``MAP_POPULATE``), then registered
+    with CUDA whole (``cudaHostRegister``; ``t._pinned`` its bytes) and
+    unregistered when the tensor goes: the store's own bytes are pinned,
+    where torch's pinned allocator rounds each request up to a power of
+    two. Registering pages that are not populated yet, whole or a chunk at
+    a time, runs about half as fast (``ooc_variants.py``)."""
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    if device.type != "cuda" or not nbytes:
+        return torch.empty(shape, dtype=dtype)
+    buf = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+                    | mmap.MAP_POPULATE)
+    t = torch.frombuffer(buf, dtype=dtype).view(shape)
+    torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+        t.data_ptr(), nbytes, 0))
+    t._pinned = nbytes
+    weakref.finalize(t, _unpin, t.data_ptr(), buf).atexit = False
+    return t
+
+
+def _unpin(ptr, buf):
+    torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(ptr))
+
+
+def _chunked(lv: _Level, itm: int) -> bool:
+    """Whether a depth's fronts exceed GRIDMF_CHUNK_GB: it is then
+    assembled and factorized a node chunk at a time."""
+    return lv.n_nodes * lv.F * lv.F * itm > GRIDMF_CHUNK_GB * 2 ** 30
+
+
+def _ooc_stores(plan: GridMfPlan, dtype, device):
+    """The host stores of an out-of-core factorization, all made before
+    its first depth: each depth's {sir, lr, br}, and two buffers that the
+    chunked depths' Schur complements take in turn (a depth's, and its
+    children's that it reads), each as large as the largest of them."""
+    itm = torch.empty((), dtype=dtype).element_size()
+    levels = HostLevels(
+        {"sir": _host_empty((lv.n_nodes, lv.e, lv.e), dtype, device),
+         "sii": None,
+         "lr": _host_empty((lv.n_nodes, lv.r, lv.e), dtype, device),
+         "li": None,
+         "br": _host_empty((lv.n_nodes, lv.e, lv.r), dtype, device),
+         "bi": None} for lv in plan.levels)
+    most = max([lv.n_nodes * lv.r * lv.r for lv in plan.levels
+                if _chunked(lv, itm)], default=0)
+    return levels, [_host_empty((most,), dtype, device) for _ in range(2)]
+
+
+class _Copies:
+    """The host copies of an out-of-core factorization or solve on
+    ``device``: device to host on one side stream, host to device on
+    another, an event a copy, so that the compute stream overlaps them.
+    Copies to the host in flight hold their device sources (``record_stream``
+    on the copy's stream) up to ``inflight_bytes``, past which the host waits
+    for the oldest. On the CPU the stores are the tensors themselves."""
+
+    def __init__(self, device, inflight_bytes=0):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.limit = inflight_bytes
+        self.pending = deque()          # (event, bytes) of copies to host
+        self.inflight = 0
+        if self.cuda:
+            self.down = torch.cuda.Stream(device)
+            self.up = torch.cuda.Stream(device)
+
+    def to_host(self, host, lo, src):
+        """Copy ``src`` (contiguous, on the device) into the elements of the
+        store ``host`` from ``lo``."""
+        n = src.numel()
+        if not n:
+            return
+        dst = host.view(-1)[lo:lo + n]
+        if not self.cuda:
+            dst.copy_(src.reshape(-1))
+            return
+        self.down.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.down):
+            dst.copy_(src.reshape(-1), non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        src.record_stream(self.down)
+        nbytes = n * src.element_size()
+        self.pending.append((ev, nbytes))
+        self.inflight += nbytes
+        while self.inflight > self.limit and len(self.pending) > 1:
+            ev, nbytes = self.pending.popleft()
+            ev.synchronize()
+            self.inflight -= nbytes
+
+    def after_host_writes(self):
+        """Copies to the device started from now on read what the copies to
+        the host started so far wrote."""
+        if self.cuda:
+            self.up.wait_stream(self.down)
+
+    def to_device(self, host, lo=0, hi=None, shape=None):
+        """Start copying the elements [lo, hi) of the store ``host`` (all of
+        it by default) to the device; ``ready`` gives the tensor, of
+        ``shape`` (the store's by default)."""
+        hi = host.numel() if hi is None else hi
+        shape = host.shape if shape is None else shape
+        src = host.view(-1)[lo:hi]
+        if not self.cuda:
+            return src.view(shape), None
+        with torch.cuda.stream(self.up):
+            out = torch.empty(hi - lo, dtype=host.dtype, device=self.device)
+            out.copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        return out.view(shape), ev
+
+    def ready(self, copy):
+        """The tensor of a ``to_device`` copy, once the current stream has
+        waited for it."""
+        t, ev = copy
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            t.record_stream(cur)
+        return t
+
+    def reads_done(self):
+        """Wait for the copies to the device: what they read may go."""
+        if self.cuda:
+            self.up.synchronize()
+
+    def finish(self):
+        """Wait for every copy: the host stores are whole and no longer
+        read."""
+        self.reads_done()
+        if self.cuda:
+            self.down.synchronize()
+        self.pending.clear()
+        self.inflight = 0
+
+
+def _factor_fronts(fr, e, delta):
+    """``gridmf_factorize``'s steps on real fronts (n, F, F): the pivot
+    blocks' inverse and each front's statistics (n,), the panels L = C
+    S^-1, B, and the Schur complements R - L B."""
+    SIr, ld, mp, npc, ph = _inv_block(fr[:, :e, :e], delta)
+    SIr = SIr.contiguous()
+    Br = fr[:, :e, e:].contiguous()
+    Lr = fr[:, e:, :e] @ SIr
+    return SIr, Lr, Br, fr[:, e:, e:] - Lr @ Br, (ld, mp, npc, ph)
+
+
+def gridmf_factorize_ooc(plan: GridMfPlan, data):
+    """Out-of-core factorization of one real matrix's entry values
+    ``data`` (nnz,) on its device: each depth's factors {Sinv, Lhat, B} go
+    to host memory as soon as they are made, so the device holds a depth's
+    fronts and the Schur complements it passes up, never the whole store
+    (the reference package's ``gridmf_factorize_ooc``, its role that of
+    cuDSS's hybrid memory mode and MUMPS's out-of-core factors).
+
+    A depth whose fronts take more than ``GRIDMF_CHUNK_GB`` is assembled
+    and factorized a node chunk of at most that size at a time, its
+    children's Schur complements shipped from host memory chunk by chunk
+    (and this depth's sent there); a smaller one is assembled whole and
+    factorized in even-aligned node chunks of about ``GRIDMF_STEP_GB`` of
+    fronts, its Schur complements kept on the device. The extend-add is
+    ``gridmf_factorize``'s gathers (the reference scatters here to save
+    its device memory; the gathers give the in-core path's bits), each
+    chunk runs the in-core path's operations on its nodes, and a depth's
+    statistics are reduced over its fronts as there.
+
+    On a CUDA device the stores are pinned host memory, all made before
+    the first depth (``_ooc_stores``), filled on a side stream while the
+    next chunk computes; on the CPU they are ordinary tensors. Returns
+    ``gridmf_factorize``'s fac dict, its ``levels`` a ``HostLevels``.
+    Complex values raise NotImplementedError, as in the reference
+    package."""
+    if data.is_complex():
+        raise NotImplementedError(
+            "out-of-core GRIDMF factorizes real matrices only, as the "
+            "reference package does")
+    _, rdt, batched, data = _lane_data("GRIDMF", data, None)
+    if batched:
+        raise ValueError("out-of-core GRIDMF factorizes one matrix, got a "
+                         f"batch {tuple(data.shape)}")
+    dev = data.device
+    dp = _device_plan(plan, dev)
+    uniq = _presum(plan, dp, data)
+    delta = plan.pivot_epsilon * (1.0 + data.abs().amax(-1))
+    io = _Copies(dev, 2 * GRIDMF_CHUNK_GB * 2 ** 30)
+    store, sch_bufs = _ooc_stores(plan, rdt, dev)
+    ld = torch.zeros(1, dtype=rdt, device=dev)
+    mp = torch.full((1,), float("inf"), dtype=rdt, device=dev)
+    npc = torch.zeros(1, dtype=torch.int32, device=dev)
+    ph = torch.ones(1, dtype=rdt, device=dev)
+    sch = None            # the children's Schur complements: device or host
+    try:
+        for d in range(len(plan.levels) - 1, -1, -1):
+            sch, (ld_f, mp_f, np_f, ph_f) = _ooc_depth(
+                plan, dp, d, uniq, delta, sch, store[d], sch_bufs[d % 2],
+                io)
+            # the depth's statistics over its fronts, as _inv_planes
+            # reduces them
+            ld = ld + ld_f.view(1, -1).sum(-1)
+            mp = torch.minimum(mp, mp_f.view(1, -1).amin(-1))
+            npc = npc + np_f.view(1, -1).sum(-1, dtype=torch.int32)
+            ph = ph * ph_f.view(1, -1).prod(-1)
+    finally:
+        io.finish()       # no copy outlives the stores it reads or writes
+    fac = _stats_dict(False, logdet=ld, phase=ph, min_pivot=mp,
+                      n_perturbed=npc)
+    fac["levels"] = store
+    return fac
+
+
+def _ooc_depth(plan: GridMfPlan, dp, d, uniq, delta, sch, st, sch_buf, io):
+    """Depth ``d`` of ``gridmf_factorize_ooc``, from its children's Schur
+    complements ``sch`` (on the device, or in a host buffer), into its host
+    stores ``st``: returns its own Schur complements (in the host buffer
+    ``sch_buf`` where the depth is chunked, else on the device) and its
+    fronts' statistics (ld, mp, npc, ph), each (n_nodes,)."""
+    lv, dl = plan.levels[d], dp["levels"][d]
+    nn, F, e, r = lv.n_nodes, lv.F, lv.e, lv.r
+    dev = uniq.device
+    itm = uniq.element_size()
+    io.after_host_writes()
+    chunked = _chunked(lv, itm)
+    if chunked:
+        # node chunks of at most GRIDMF_CHUNK_GB of fronts, each assembled
+        # on its own with its children's Schur rows [2a, 2b)
+        c = min(max(1, int(GRIDMF_CHUNK_GB * 2 ** 30 // (F * F * itm))), nn)
+        out = sch_buf[:nn * r * r].view(nn, r, r)
+    else:
+        fr = _assemble(lv, dl, uniq)
+        if sch is not None:
+            s = io.ready(io.to_device(sch)) if sch.device != dev else sch
+            fr = fr + _embed_mat(dl, s, None)[0]
+            del s
+        # even-aligned chunks of about GRIDMF_STEP_GB of fronts
+        nch = max(1, math.ceil(nn * F * F * itm / (GRIDMF_STEP_GB * 2 ** 30)))
+        c = max(2, 2 * math.ceil(nn / (2 * nch)))
+        out = []
+    bounds = [(a, min(a + c, nn)) for a in range(0, nn, c)]
+
+    def child(a, b):
+        if not chunked or sch is None:
+            return None, None
+        if sch.device == dev:
+            return sch[2 * a:2 * b], None
+        q = sch[0].numel()
+        return io.to_device(sch, 2 * a * q, 2 * b * q,
+                            (2 * (b - a),) + tuple(sch.shape[1:]))
+
+    stats = []
+    nxt = child(*bounds[0])
+    for i, (a, b) in enumerate(bounds):
+        if chunked:
+            sc = io.ready(nxt)
+            if i + 1 < len(bounds):
+                nxt = child(*bounds[i + 1])      # overlaps this chunk
+            frc = _assemble(lv, dl, uniq, blk=_block(plan, dp, d, (a, b)))
+            if sc is not None:
+                frc = frc + _embed_mat(dl, sc, None)[0]
+            del sc
+        else:
+            frc = fr[a:b]
+        SIr, Lr, Br, sch_c, st_c = _factor_fronts(frc, e, delta)
+        del frc
+        stats.append(st_c)
+        io.to_host(st["sir"], a * e * e, SIr)
+        io.to_host(st["lr"], a * r * e, Lr)
+        io.to_host(st["br"], a * e * r, Br)
+        if chunked:
+            io.to_host(out, a * r * r, sch_c)
+        else:
+            out.append(sch_c)
+        del SIr, Lr, Br, sch_c
+    io.reads_done()       # the children's buffer is read: it may be reused
+    if not chunked:
+        out = out[0] if len(out) == 1 else torch.cat(out)
+    return out, [torch.cat(v) for v in zip(*stats)]
+
+
+def gridmf_solve_ooc(plan: GridMfPlan, fac, bvec):
+    """x = A^{-1} b for factors in host memory (``gridmf_factorize_ooc``'s,
+    or the reference package's carried over by ``interop``): the up-sweep
+    ships each depth's Lhat to ``bvec``'s device when it reaches it, the
+    down-sweep each depth's Sinv and B, the next depth's copy running on a
+    side stream while the current one computes, so the device holds about
+    the largest level and the next. ``gridmf_solve``'s operations on one
+    real right-hand side (n,) (the same bits)."""
+    if bvec.dim() != 1 or bvec.is_complex():
+        raise ValueError("out-of-core GRIDMF solves one real right-hand "
+                         f"side (n,), got {tuple(bvec.shape)} {bvec.dtype}")
+    levels = fac["levels"]
+    io = _Copies(bvec.device)
+    D = len(levels) - 1
+    order = ([(d, ("lr",)) for d in range(D, -1, -1)]
+             + [(d, ("sir", "br")) for d in range(D + 1)])
+    ships = {}
+
+    def ship(i):
+        d, keys = order[i]
+        ships[i] = {k: io.to_device(levels[d][k]) for k in keys}
+
+    def get(i):
+        if i + 1 < len(order):
+            ship(i + 1)
+        got = {k: io.ready(c) for k, c in ships.pop(i).items()}
+        return {"sii": None, "li": None, "bi": None, **got}
+
+    ship(0)
+    try:
+        x = _sweeps(plan, fac, bvec, None, bvec.device,
+                    lambda d: get(D - d), lambda d: get(D + 1 + d))
+    finally:
+        io.finish()
+    return x

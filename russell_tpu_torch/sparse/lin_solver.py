@@ -22,7 +22,9 @@ Complex systems work through the same class (dtype dispatch), covering the
 reference's ComplexLinSolver (complex_lin_solver.rs), in native
 complex128. Factors are f64 / complex128: ``mixed_precision=True`` (the
 reference package's f32 factors and their precision escalation) raises
-``NotImplementedError``.
+``NotImplementedError``. GRIDMF factors past ``factor.GRIDMF_BUDGET_GB``
+live in host memory (``stats.output["out_of_core"]``; real matrices
+only), and each solve ships them back level by level.
 """
 
 from __future__ import annotations
@@ -229,6 +231,9 @@ class LinSolver:
                 ordering=params.ordering.name, scaling=params.scaling.name)
             self.stats.output["effective_ordering"] = plan.effective_ordering
             self.stats.output["effective_scaling"] = plan.scaling.name
+            if plan.gridmf_ooc:
+                # GRIDMF factors past the device budget: in host memory
+                self.stats.output["out_of_core"] = True
             self.stats.time_nanoseconds["initialize"] = (
                 time.perf_counter_ns() - t0)
         elif structure != self._structure:
@@ -238,6 +243,10 @@ class LinSolver:
         t1 = time.perf_counter_ns()
         self._params = params
         self._vals_full = self._device_values(vv)
+        # the old factors go before the new ones are made: one store at a
+        # time in device memory, or in host memory out of core
+        self.fac = None
+        self._factorized = False
         self.fac = _factor.numeric_factorize(self.plan, self._vals_full)
         self._factorized = True
         mp = float(self.fac["min_pivot"])    # waits for the factorization

@@ -1521,3 +1521,56 @@ def test_world_of_one_on_nccl_is_single_device_bit_for_bit(cuda, tmp_path):
             assert torch.equal(got[k], want[k]), k
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("chunk_gb", [2.0, 0.1])
+def test_gridmf_out_of_core_on_card(cuda, monkeypatch, chunk_gb):
+    # laplacian_3d(24) with the hint (24, 24, 24): 0.63 GiB of factors, the
+    # leaf depth's 4 fronts 0.17 GiB each (chunk_gb 0.1: a node a chunk)
+    from russell_tpu_torch.sparse import gridmf
+    coo = ssamples.laplacian_3d(24)
+    ii, jj, vv = map(np.asarray, coo.triplets())
+    n = coo.nrow
+    vals = torch.as_tensor(vv, device=cuda)
+    b = torch.as_tensor(np.sin(np.arange(n)), device=cuda)
+    monkeypatch.setattr(gridmf, "GRIDMF_CHUNK_GB", chunk_gb)
+    runs = {}
+    for budget in (factor.GRIDMF_BUDGET_GB, 1e-9):
+        monkeypatch.setattr(factor, "GRIDMF_BUDGET_GB", budget)
+        plan = factor.analyze(n, ii, jj, genie=Genie.GRIDMF,
+                              grid=(24, 24, 24))
+        assert plan.gridmf_ooc is (budget == 1e-9)
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fac = factor.numeric_factorize(plan, vals)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            out.append((fac, factor.factor_solve(plan, fac, b), peak))
+        runs[plan.gridmf_ooc] = out
+    (fi, xi, pi), _ = runs[False]
+    (fo, xo, po), (fo2, xo2, _) = runs[True]
+    levels = fo["levels"]
+    assert isinstance(levels, gridmf.HostLevels)
+    nbytes = 0
+    for st in levels:
+        for k in ("sir", "lr", "br"):
+            t = st[k]
+            assert t.device.type == "cpu"
+            if t.numel():
+                assert t.is_pinned(), k
+            nbytes += t.numel() * t.element_size()
+    # the stores' bytes, each chunk's range rounded up to a page
+    assert nbytes <= levels.pinned_bytes < nbytes + 4096 * 3 * 64
+    torch.testing.assert_close(xo, xi, rtol=0,
+                               atol=1e-12 * float(xi.abs().max()))
+    if chunk_gb < 1.0:
+        assert po < pi
+    # a repeat gives the same bits
+    for a, c in zip(levels, fo2["levels"]):
+        for k in ("sir", "lr", "br"):
+            assert torch.equal(a[k], c[k]), k
+    assert torch.equal(xo, xo2)
+    for k in ("logdet", "min_pivot", "n_perturbed", "phase"):
+        assert torch.equal(fo[k], fo2[k]), k

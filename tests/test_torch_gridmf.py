@@ -302,7 +302,7 @@ def test_flops_and_store_match_reference():
 def test_leaf_follows_the_device_budget(monkeypatch):
     # the reference's rule at the port's budget: the first leaf whose three
     # f64 planes of factors fit, else the last one whose real plane fits,
-    # else out-of-core, which is not ported
+    # else the last one out of core
     system = samples.brusselator_pde(2e-3, 33)[0]
     ii, jj = system.jac_structure
     n = system.ndim
@@ -320,6 +320,13 @@ def test_leaf_follows_the_device_budget(monkeypatch):
         assert len(plan.gridmf_plan.levels) == len(want.levels)
         np.testing.assert_array_equal(plan.gridmf_plan.entry_perm,
                                       want.entry_perm)
-    monkeypatch.setattr(factor, "GRIDMF_BUDGET_GB", 0.5 * store[16])
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        factor.analyze(n, rows, cols, grid=system.grid)
+    for budget, ooc in ((1.5 * store[16], False), (0.5 * store[16], True)):
+        monkeypatch.setattr(factor, "GRIDMF_BUDGET_GB", budget)
+        plan = factor.analyze(n, rows, cols, grid=system.grid)
+        assert plan.gridmf_ooc is ooc
+        # the reference under the same budget (it counts f32 bytes a value,
+        # half the port's f64 ones): the same plan, marked the same
+        monkeypatch.setenv("RUSSELL_TPU_GRIDMF_MEM_GB", repr(budget / 2))
+        jplan = jfactor.analyze(n, rows, cols, grid=system.grid)
+        assert jplan.gridmf_ooc is ooc
+        _assert_plans_equal(jplan.gridmf_plan, plan.gridmf_plan)

@@ -1,7 +1,8 @@
 """russell_tpu_torch never imports jax (nor russell_tpu), and neither do
 chip_smoke.py, the variants scripts (kernel_variants.py, gj_inv_variants.py,
-jacobi_variants.py) and the rank processes of tests/test_torch_parallel.py
-(tests/_torch_parallel_ranks.py)."""
+jacobi_variants.py, ooc_variants.py), the rank processes of tests/test_torch_parallel.py
+(tests/_torch_parallel_ranks.py) and the port's examples (examples_torch/,
+each run with ``--device cpu``)."""
 
 import os
 import pkgutil
@@ -115,9 +116,14 @@ def test_port_modules_import_without_jax():
         "    importlib.import_module(name)\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke, kernel_variants, gj_inv_variants, "
-        "jacobi_variants\n"
+        "jacobi_variants, ooc_variants\n"
         "sys.path.insert(0, 'tests')\n"
         "import _torch_parallel_ranks\n"
+        "import contextlib, glob, io, runpy\n"
+        "for path in sorted(glob.glob('examples_torch/*.py')):\n"
+        "    sys.argv = [path, '--device', 'cpu']\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        runpy.run_path(path, run_name='__main__')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'russell_tpu'))\n"
         "assert not bad, bad\n"
