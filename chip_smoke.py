@@ -174,7 +174,11 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    card) on a MatrixMarket file of ``irregular_geometric(30_000)`` with
    ``--genie genmf``. ``gj_inv``'s entry on the kernels line gains its
    GENMF-264k launches and ms per factorization, and the SPLU kernels'
-   their launches per factorization on laplacian_3d_50.
+   their launches per factorization on laplacian_3d_50. The SuperLU
+   results are computed from the same seeded inputs (``ls_inputs``) in a
+   spawned pool of ORACLE_WORKERS niced one-thread processes started at
+   the smoke's start (``start_oracles``), so the phase only collects
+   them; the pool's own wall and the phase's wait are printed.
 22. pde_path: the PDE tools on the card. Poisson (``d2_problem_01``) on a
    PDE_NPOINT^2 grid (1,046,529 unknowns): the SPS system ``Fdm2d``
    builds, through one ``LinSolver`` with its grid hint (AUTO -> GRIDMF at
@@ -312,6 +316,22 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    profiler (H2D GB/s), and the time to free the host stores. The kernels
    line's ``gj_inv`` gains the path's launches and checks. ``--ooc`` runs it
    alone (with the kernels line and the last line).
+28. examples_path: every ``examples_torch/ex_*.py`` (the counterpart of
+   each reference example) on the card in this process, through
+   ``runpy`` with ``--device cuda``: each example's wall and standard
+   output, and the package's settings before and after it, which must be
+   equal (``examples_torch/_run.py``); an example that raises fails the
+   phase. The same examples run on the CPU in a subprocess started at the
+   smoke's start (niced, one intra-op thread), and each example's card
+   output is held to its CPU output by the comparison of the CPU parity
+   test (``examples_torch/_stdout.py``). ``gj_inv``, ``splu_pairs``,
+   ``gather_rows`` and ``jacobi_eig`` are counted from 0 over the phase,
+   each count above 0; in EXAMPLES_HELD the first launch of each at each
+   shape is held to its plain version (``held_once_a_shape``; a fused
+   solve's first launches are its warm-up's, outside the capture).
+   Each of the four kernels' entries on the kernels line gains its
+   ``examples_path`` launches and checks. ``--examples`` runs it alone
+   (with the kernels line and the last line).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -336,7 +356,7 @@ phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
 (with its kernels line and the last line), ``--stat-tensor`` only phase
 25 (with the last line; the fused GRIDMF-129 counters from a run of its
 own), ``--parallel`` only phase 26 (with the last line), ``--ooc`` only
-phase 27. ``--chunk-sweep`` times
+phase 27, ``--examples`` only phase 28. ``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -521,7 +541,9 @@ def kernel_device_ms(fn):
     ({kernel name: summed device ms} of every kernel it ran, the host wall
     of the run in s, the number of device events it ran: kernels, copies
     and fills, each counted whatever its duration: an event recorded with
-    0 device time is a launch too)."""
+    0 device time is a launch too). The sums are read from the raw device
+    events: ``key_averages()`` gives the same sums but builds an event tree
+    first, which made it the costliest host step of a whole smoke."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -530,13 +552,14 @@ def kernel_device_ms(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            out[e.key] = out.get(e.key, 0.0) + t / 1e3
-    launches = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    launches = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        launches += 1
+        ms = (ev.end_ns() - ev.start_ns()) / 1e6
+        if ms > 0:
+            out[ev.name()] = out.get(ev.name(), 0.0) + ms
     return out, wall, launches
 
 
@@ -3090,7 +3113,9 @@ def batch_kernel_checks(splan, gplan):
     dp = splu._device_plan(sp, dev)
     pk = sp.packed
     named, _ = named_rows(sp, dp)
-    rng = np.random.default_rng(SEED + 16)
+    # drawn on the card: the host's draws of these (B, n_store, be^2)
+    # blocks were among the smoke's costliest host steps
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     n_store = sp.nblk + pk["TL"] + 1
     out = {"splu_pairs": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
                           "plain_ms": 0.0, "library_ms": None,
@@ -3098,8 +3123,8 @@ def batch_kernel_checks(splan, gplan):
            "gather_rows": {"ms": 0.0, "singles_ms": 0.0, "bound_ms": 0.0,
                            "plain_ms": 0.0, "max_abs_err": 0.0}}
     for be in (sp.b, 2 * sp.b):
-        blocks = torch.as_tensor(rng.standard_normal((B, n_store, be * be)),
-                                 device=dev)
+        blocks = torch.randn((B, n_store, be * be), generator=gen,
+                             dtype=torch.float64, device=dev)
 
         def row_args(r):
             _, ln, _, npair, *_ = dp["rows"][r]
@@ -3252,6 +3277,15 @@ CLI_N = 30_000
 LS_WARM_RUNS = 2
 # the LinSolver path against SciPy's SuperLU: x and log|det|
 LS_RTOL = {"genmf": 1e-9, "banded": 1e-10, "splu": 1e-10}
+# SciPy's SuperLU of every (part, complex) of the path, on the host in a
+# spawned pool beside the card's phases (start_oracles)
+ORACLES = (("genmf", False), ("genmf", True), ("banded", False),
+           ("banded", True), ("splu", False))
+ORACLE_WORKERS = 2
+ORACLE_TIMEOUT_S = 900
+# the environment of a spawned host process: one BLAS/OpenMP thread
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
+                  "MKL_NUM_THREADS": "1"}
 
 
 def perm_sign(p):
@@ -3299,6 +3333,94 @@ def superlu_oracle(coo, vals, bs):
     phase = complex(np.prod(d / ad)) * perm_sign(lu.perm_r) * perm_sign(
         lu.perm_c)
     return xs, float(np.sum(np.log(ad))), phase, time.perf_counter() - t0
+
+
+def ls_inputs(part):
+    """A lin_solver_path part's matrix, values and right-hand sides, drawn
+    from its seed: (coo, vv, b, cv, cb) for "genmf" (geometric_264k) and
+    "banded" (laplacian_2d_317), cv and cb the complex values and
+    right-hand side; "splu" (laplacian_3d_50) has None for both."""
+    from russell_tpu_torch.sparse import samples
+    if part == "genmf":
+        coo = samples.irregular_geometric(GEOMETRIC_N, seed=0)
+        rng = np.random.default_rng(SEED)
+    elif part == "banded":
+        coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
+        rng = np.random.default_rng(SEED + 1)
+    else:
+        coo = samples.laplacian_3d(LAPLACIAN_3D_NPOINT)
+        rng = np.random.default_rng(SEED + 2)
+    vv = coo.triplets()[2]
+    b = rng.standard_normal(coo.nrow)
+    if part == "splu":
+        return coo, vv, b, None, None
+    cv = vv + 0.3j * rng.standard_normal(len(vv))
+    cb = b + 1j * rng.standard_normal(coo.nrow)
+    return coo, vv, b, cv, cb
+
+
+def oracle_job(part, complex_):
+    """The pool's job: ``superlu_oracle`` of a part on its seeded inputs,
+    with the host clock at its end."""
+    coo, vv, b, cv, cb = ls_inputs(part)
+    out = superlu_oracle(coo, cv if complex_ else vv,
+                         [cb if complex_ else b])
+    return out, time.time()
+
+
+def low_priority():
+    """A spawned host process's start: niced, one intra-op thread, so the
+    host-stepped walls of the card's phases keep their host."""
+    os.nice(10)
+    torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def one_thread_env():
+    """ONE_THREAD_ENV in os.environ while the block starts processes."""
+    old = {k: os.environ.get(k) for k in ONE_THREAD_ENV}
+    os.environ.update(ONE_THREAD_ENV)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def start_oracles():
+    """Start the SuperLU oracles of every (part, complex) in ORACLES in a
+    spawned pool of ORACLE_WORKERS processes: {"pool", "jobs", "t0"}, for
+    ``oracle`` to collect and ``stop_oracles`` to end."""
+    import multiprocessing
+    with one_thread_env():
+        pool = multiprocessing.get_context("spawn").Pool(
+            ORACLE_WORKERS, initializer=low_priority)
+    return {"pool": pool, "t0": time.time(), "ends": {}, "waited_s": 0.0,
+            "jobs": {key: pool.apply_async(oracle_job, key)
+                     for key in ORACLES}}
+
+
+def oracle(oracles, part, complex_):
+    """The pool's SuperLU result of (part, complex_): (xs, log|det|,
+    phase, its own seconds), waiting for it if it is not done."""
+    t0 = time.perf_counter()
+    out, end = oracles["jobs"][(part, complex_)].get(ORACLE_TIMEOUT_S)
+    oracles["waited_s"] += time.perf_counter() - t0
+    oracles["ends"][(part, complex_)] = end
+    return out
+
+
+def stop_oracles(oracles):
+    """End the pool; returns its record: its own wall (start to the last
+    job's end) and the time lin_solver_path waited for it."""
+    oracles["pool"].terminate()
+    oracles["pool"].join()
+    ends = oracles["ends"].values()
+    return {"pool_wall_s": (max(ends) - oracles["t0"]) if ends else None,
+            "waited_s": oracles["waited_s"], "workers": ORACLE_WORKERS}
 
 
 def det_log_phase(m, e):
@@ -3469,18 +3591,14 @@ def held_record(held, launches):
     return rec
 
 
-def ls_genmf(res):
+def ls_genmf(res, oracles):
     """geometric_264k through LinSolver(Genie.GENMF), real; then the same
     pattern with complex values through factor on the solver's plan."""
     from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
-                                          VerifyLinSys, factor, samples)
-    coo = samples.irregular_geometric(GEOMETRIC_N, seed=0)
-    ii, jj, vv = coo.triplets()
+                                          VerifyLinSys, factor)
+    coo, vv, b, cv, cb = ls_inputs("genmf")
+    ii, jj, _ = coo.triplets()
     n = coo.nrow
-    rng = np.random.default_rng(SEED)
-    b = rng.standard_normal(n)
-    cv = vv + 0.3j * rng.standard_normal(len(vv))
-    cb = b + 1j * rng.standard_normal(n)
     # AUTO's route for this matrix (host only): the reference package's
     # benchmark names GENMF (tools/bench_matrix_market.py:72)
     t0 = time.perf_counter()
@@ -3539,7 +3657,7 @@ def ls_genmf(res):
             (c.n_nodes, 2 * c.e) for c in gp.classes)})[1]
     rec["gj_inv_shapes_logdet_max_rel_err"] = ld_err
     rec["kernel_checks_s"] = time.perf_counter() - t0
-    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    oxs, ologdet, ophase, t_o = oracle(oracles, "genmf", False)
     rec.update(check_oracle("GENMF 264k", x, logdet, phase, oxs[0], ologdet,
                             ophase, LS_RTOL["genmf"]), superlu_s=t_o,
                logdet=logdet, det_phase=str(phase))
@@ -3587,7 +3705,7 @@ def ls_genmf(res):
         fact()
     crec["held_to_plain"] = held_record(held, {"gj_inv": crec[
         "gj_inv_launches"]})
-    oxs, ologdet, ophase, t_o = superlu_oracle(coo, cv, [cb])
+    oxs, ologdet, ophase, t_o = oracle(oracles, "genmf", True)
     crec.update(check_oracle("GENMF 264k complex", x, logdet, phase, oxs[0],
                              ologdet, ophase, LS_RTOL["genmf"]),
                 superlu_s=t_o, logdet=logdet, det_phase=str(phase),
@@ -3603,17 +3721,15 @@ def ls_genmf(res):
     torch.cuda.empty_cache()
 
 
-def ls_banded(res):
+def ls_banded(res, oracles):
     """laplacian_2d_317 through LinSolver(Genie.AUTO) (BANDED, cyclic
     reduction), the sequential scan on the same matrix, and a complex run
     through cyclic reduction."""
     from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
-                                          VerifyLinSys, factor, samples)
-    coo = samples.laplacian_2d(LAPLACIAN_2D_NPOINT)
-    ii, jj, vv = coo.triplets()
+                                          VerifyLinSys, factor)
+    coo, vv, b, cv, cb = ls_inputs("banded")
+    ii, jj, _ = coo.triplets()
     n = coo.nrow
-    rng = np.random.default_rng(SEED + 1)
-    b = rng.standard_normal(n)
     s = LinSolver(Genie.AUTO, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     s.factorize(coo, LinSolParams())
@@ -3637,9 +3753,7 @@ def ls_banded(res):
         coo, x.cpu().numpy(), b).relative_error
     s.factorize(coo)
     rec["bit_identical_repeat"] = bool(torch.equal(s.solve(b), x))
-    cv = vv + 0.3j * rng.standard_normal(len(vv))
-    cb = b + 1j * rng.standard_normal(n)
-    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    oxs, ologdet, ophase, t_o = oracle(oracles, "banded", False)
     rec.update(check_oracle("BANDED BCR 317", x, logdet, phase, oxs[0],
                             ologdet, ophase, LS_RTOL["banded"]),
                superlu_s=t_o)
@@ -3705,7 +3819,7 @@ def ls_banded(res):
     crec["relative_error"] = VerifyLinSys.from_system(
         coo.__class__.from_arrays(n, n, ii, jj, cv), x.cpu().numpy(),
         cb).relative_error
-    oxs, ologdet, ophase, t_o = superlu_oracle(coo, cv, [cb])
+    oxs, ologdet, ophase, t_o = oracle(oracles, "banded", True)
     crec.update(check_oracle("BANDED BCR 317 complex", x, logdet, phase,
                              oxs[0], ologdet, ophase, LS_RTOL["banded"]),
                 superlu_s=t_o)
@@ -3719,15 +3833,14 @@ def ls_banded(res):
     torch.cuda.empty_cache()
 
 
-def ls_splu(res):
+def ls_splu(res, oracles):
     """laplacian_3d through LinSolver(Genie.SPLU): splu_pairs, gather_rows
     and gj_inv on the path, two runs bit-identical."""
     from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
-                                          VerifyLinSys, samples)
-    coo = samples.laplacian_3d(LAPLACIAN_3D_NPOINT)
-    ii, jj, vv = coo.triplets()
+                                          VerifyLinSys)
+    coo, vv, b, _, _ = ls_inputs("splu")
+    ii, jj, _ = coo.triplets()
     n = coo.nrow
-    b = np.random.default_rng(SEED + 2).standard_normal(n)
     reset_launch_counts()
     s = LinSolver(Genie.SPLU, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -3760,7 +3873,7 @@ def ls_splu(res):
         s.factorize(coo)
     rec["held_to_plain"] = held_record(held, counts)
     rec["kernel_checks_s"] = time.perf_counter() - t0
-    oxs, ologdet, ophase, t_o = superlu_oracle(coo, vv, [b])
+    oxs, ologdet, ophase, t_o = oracle(oracles, "splu", False)
     rec.update(check_oracle("SPLU via LinSolver", x, logdet, phase, oxs[0],
                             ologdet, ophase, LS_RTOL["splu"]),
                superlu_s=t_o)
@@ -3810,18 +3923,29 @@ def ls_cli(res):
     res["cli"] = rec
 
 
-def phase_lin_solver_path():
+def phase_lin_solver_path(oracles=None):
     """LinSolver on the card at the reference's sparse benchmark sizes
     (GENMF geometric_264k real and complex, BANDED laplacian_2d_317 by
     cyclic reduction and by the scan, SPLU laplacian_3d_50) against SciPy's
-    SuperLU, then the solve_matrix_market CLI."""
+    SuperLU, then the solve_matrix_market CLI. The SuperLU results come
+    from ``oracles`` (``start_oracles``, started at the smoke's start),
+    else from a pool started here."""
     t0 = time.perf_counter()
+    own = oracles is None
+    if own:
+        oracles = start_oracles()
     res = {}
-    ls_genmf(res)
-    ls_banded(res)
-    ls_splu(res)
+    try:
+        ls_genmf(res, oracles)
+        ls_banded(res, oracles)
+        ls_splu(res, oracles)
+    finally:
+        if own:
+            res["superlu_pool"] = stop_oracles(oracles)
     ls_cli(res)
-    say("lin_solver_path", part="done", wall_s=time.perf_counter() - t0)
+    res["superlu_waited_s"] = oracles["waited_s"]
+    say("lin_solver_path", part="done", wall_s=time.perf_counter() - t0,
+        superlu_waited_s=oracles["waited_s"])
     return res
 
 
@@ -6396,31 +6520,6 @@ def det_logabs(sol):
     return (e + math.log10(abs(m))) * math.log(base)
 
 
-@contextlib.contextmanager
-def held_once_a_shape():
-    """Within the block, the first gj_inv launch at each (w, m) is held
-    against its plain version (``held_to_plain``'s check, on the path's own
-    inputs and strides); the others run unchecked. Yields held_to_plain's
-    record; the wrapper keeps counting its launches."""
-    from russell_tpu_torch.sparse import splu
-    orig = splu._gj_inv
-    with held_to_plain() as held:
-        check = splu._gj_inv
-
-        def once(D, delta):
-            if (D.shape[0], D.shape[-1]) in held["gj_inv"]["shapes"]:
-                return orig(D, delta)
-            return check(D, delta)
-
-        once.launches = check.launches
-        splu._gj_inv = once
-        try:
-            yield held
-        finally:
-            check.launches = once.launches
-            splu._gj_inv = check
-
-
 def copy_gbps(host, dev):
     """(H2D, D2H) GB/s of one ``copy_`` between ``host`` and ``dev`` (the same
     bytes), each the median of three timed by CUDA events."""
@@ -6689,6 +6788,212 @@ def ooc_entry(ores):
             "held_to_plain_3d_79": full["held_to_plain"]}
 
 
+# -- examples_path -----------------------------------------------------------
+
+# the examples whose first kernel launch at each shape is held to the
+# plain version: the main path's (AUTO -> GRIDMF -> gj_inv, fused), SPLU's
+# (splu_pairs, gather_rows, gj_inv) and the Jacobi rotations' (jacobi_eig)
+EXAMPLES_HELD = ("ex_ode_brusselator_pde_radau5.py", "ex_sparse_nd_splu.py",
+                 "ex_lab_eigen_symmetric.py")
+EXAMPLES_KERNELS = ("gj_inv", "splu_pairs", "gather_rows", "jacobi_eig")
+EXAMPLES_CPU_TIMEOUT_S = 600
+
+
+def start_examples_cpu():
+    """Start every example on the CPU in a subprocess (niced, one intra-op
+    thread, jax refused: ``examples_torch/_run.py``): {"proc", "out",
+    "tmp", "t0"}, for ``examples_cpu`` to collect."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="examples_cpu_")
+    out = os.path.join(tmp, "records.json")
+    env = dict(os.environ, PYTHONPATH=root, **ONE_THREAD_ENV)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(root, "examples_torch", "_run.py"),
+         "--device", "cpu", "--out", out], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(10))
+    return {"proc": proc, "out": out, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def examples_cpu(cpu):
+    """The CPU run's records by name and its wall; it fails if the run
+    failed, loaded jax or an example raised."""
+    import shutil
+    try:
+        _, err = cpu["proc"].communicate(timeout=EXAMPLES_CPU_TIMEOUT_S)
+        if cpu["proc"].returncode != 0:
+            raise AssertionError(f"examples on the CPU exited "
+                                 f"{cpu['proc'].returncode}: {err[-2000:]}")
+        with open(cpu["out"]) as f:
+            run = json.load(f)
+    finally:
+        stop_examples_cpu(cpu)
+        shutil.rmtree(cpu["tmp"], ignore_errors=True)
+    if run["refused_modules_loaded"]:
+        raise AssertionError(f"examples on the CPU loaded "
+                             f"{run['refused_modules_loaded']}")
+    recs = {r["name"]: r for r in run["records"]}
+    for name, r in recs.items():
+        if r["error"] is not None:
+            raise AssertionError(f"{name} on the CPU: {r['error']}")
+    return recs
+
+
+def stop_examples_cpu(cpu):
+    if cpu["proc"].poll() is None:
+        cpu["proc"].kill()
+        cpu["proc"].wait()
+
+
+@contextlib.contextmanager
+def held_once_a_shape():
+    """Within the block, the first launch of gj_inv at each (w, m), of
+    splu_pairs at each (n_live, be) and of gather_rows at each (rows,
+    width) is held against its plain version (``held_to_plain``'s checks,
+    on the path's own inputs and strides), and of jacobi_eig at each
+    (n, sweeps) bit for bit against ``_jacobi_eig_plain``; the others run
+    unchecked, as do launches made while a CUDA graph is captured (a fused
+    loop's warm-up has launched each shape before its capture). Yields
+    held_to_plain's record with jacobi_eig's beside it; the wrappers keep
+    counting their launches."""
+    from russell_tpu_torch.dense import matrix_ops
+    from russell_tpu_torch.sparse import splu
+    keys = {"gj_inv": lambda D, delta: (D.shape[0], D.shape[-1]),
+            "splu_pairs": lambda *a: (a[5], a[6]),
+            "gather_rows": lambda blocks, idx: (idx.numel(),
+                                                blocks.shape[1])}
+    attrs = {"gj_inv": "_gj_inv", "splu_pairs": "splu_pairs",
+             "gather_rows": "gather_rows"}
+    real = {k: getattr(splu, a) for k, a in attrs.items()}
+    orig_jacobi = matrix_ops.jacobi_eig
+    with held_to_plain() as held:
+        checks = {k: getattr(splu, a) for k, a in attrs.items()}
+        held["jacobi_eig"] = {"calls": 0, "shapes": collections.Counter(),
+                              "max_abs_err": 0.0}
+
+        def once(k):
+            def call(*args):
+                if (keys[k](*args) in held[k]["shapes"]
+                        or torch.cuda.is_current_stream_capturing()):
+                    return real[k](*args)
+                return checks[k](*args)
+            call.launches = checks[k].launches
+            return call
+
+        def jacobi(a, max_sweeps=matrix_ops.JACOBI_SWEEPS):
+            out = orig_jacobi(a, max_sweeps)
+            h = held["jacobi_eig"]
+            key = (a.shape[-1], int(max_sweeps))
+            if key not in h["shapes"]:
+                want = matrix_ops._jacobi_eig_plain(a, max_sweeps)
+                if not all(torch.equal(g, w) for g, w in zip(out, want)):
+                    raise AssertionError(f"jacobi_eig n {key[0]} on the "
+                                         "path: not the plain version's bits")
+                h["calls"] += 1
+                h["shapes"][key] += 1
+            return out
+
+        jacobi.launches = orig_jacobi.launches
+        wrapped = {k: once(k) for k in attrs}
+        for k, a in attrs.items():
+            setattr(splu, a, wrapped[k])
+        matrix_ops.jacobi_eig = jacobi
+        try:
+            yield held
+        finally:
+            for k, a in attrs.items():
+                checks[k].launches = wrapped[k].launches
+                setattr(splu, a, checks[k])
+            orig_jacobi.launches = jacobi.launches
+            matrix_ops.jacobi_eig = orig_jacobi
+
+
+def examples_counts():
+    from russell_tpu_torch.dense import matrix_ops
+    return {**kernel_counts(), "jacobi_eig": matrix_ops.jacobi_eig.launches}
+
+
+def phase_examples_path(cpu=None):
+    """Phase 28: every port example on the card, each held to its CPU run
+    (``cpu``: ``start_examples_cpu``'s, else one started here); the four
+    kernels counted over the phase. Returns the record."""
+    from examples_torch import _run, _stdout
+    t0 = time.perf_counter()
+    if cpu is None:
+        cpu = start_examples_cpu()
+    try:
+        _run.import_package()
+        reset_launch_counts()
+        recs, held, per_example = {}, {}, {}
+        for path in _run.example_paths():
+            name = os.path.basename(path)
+            before = examples_counts()
+            if name in EXAMPLES_HELD:
+                with held_once_a_shape() as h:
+                    rec = _run.run_one(path, "cuda", catch=False)
+                held[name] = {k: {"held": h[k]["calls"],
+                                  "shapes": len(h[k]["shapes"]),
+                                  "max_abs_err": h[k]["max_abs_err"]}
+                              for k in EXAMPLES_KERNELS}
+            else:
+                rec = _run.run_one(path, "cuda", catch=False)
+            torch.cuda.synchronize()
+            if rec["changed_settings"]:
+                raise AssertionError(f"{name} left changed: "
+                                     f"{rec['changed_settings']}")
+            recs[name] = rec
+            launched = {k: v - before[k] for k, v in examples_counts().items()
+                        if v > before[k]}
+            if launched:
+                per_example[name] = launched
+            say("examples_path", example=name, wall_s=rec["wall_s"],
+                lines=len(rec["stdout"].splitlines()), launches=launched)
+        counts = examples_counts()
+        t_cpu = time.perf_counter()
+        cpu_recs = examples_cpu(cpu)
+        cpu_wait = time.perf_counter() - t_cpu
+    finally:
+        stop_examples_cpu(cpu)
+    if set(cpu_recs) != set(recs):
+        raise AssertionError("the CPU run and the card's ran other examples")
+    diffs = {name: _stdout.compare(cpu_recs[name]["stdout"], r["stdout"],
+                                   name) for name, r in recs.items()}
+    diffs = {k: v for k, v in diffs.items() if v}
+    walls = {name: r["wall_s"] for name, r in recs.items()}
+    res = {"examples": len(recs), "launches": counts, "held": held,
+           "launches_by_example": per_example,
+           "card_walls_s": walls, "card_wall_s": sum(walls.values()),
+           "cpu_walls_s": {n: r["wall_s"] for n, r in cpu_recs.items()},
+           "cpu_wall_s": sum(r["wall_s"] for r in cpu_recs.values()),
+           "cpu_wait_s": cpu_wait,
+           "slowest_on_card": sorted(walls, key=walls.get)[-5:],
+           "differ_from_cpu": diffs}
+    say("examples_path", part="done", wall_s=time.perf_counter() - t0,
+        **{k: v for k, v in res.items()
+           if k not in ("card_walls_s", "cpu_walls_s")})
+    if diffs:
+        raise AssertionError(f"examples whose card output is not their CPU "
+                             f"output: {diffs}")
+    for k in EXAMPLES_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"examples_path: {k} was not launched")
+        if not any(h[k]["held"] for h in held.values()):
+            raise AssertionError(f"examples_path: no {k} launch was held "
+                                 "to its plain version")
+    return res
+
+
+def examples_entry(eres, name):
+    """A kernel's examples_path numbers on the kernels line."""
+    return {"launches": eres["launches"][name],
+            "held_to_plain": {ex: h[name] for ex, h in eres["held"].items()
+                              if h[name]["held"]},
+            "examples_launching": sorted(
+                ex for ex, c in eres["launches_by_example"].items()
+                if name in c)}
+
+
 def walled(name, fn, *args):
     """``fn(*args)``, then one line with its wall (each phase's share of
     the smoke's time limit)."""
@@ -6701,6 +7006,18 @@ def walled(name, fn, *args):
 def main():
     t_start = time.perf_counter()
     walled("device", phase_device)
+    # host-only work beside the card's phases: the SuperLU oracles of
+    # lin_solver_path and the examples' CPU run of examples_path
+    oracles = start_oracles()
+    cpu = start_examples_cpu()
+    try:
+        main_phases(t_start, oracles, cpu)
+    finally:
+        stop_oracles(oracles)
+        stop_examples_cpu(cpu)
+
+
+def main_phases(t_start, oracles, cpu):
     walled("build", phase_build)
     plan = brusselator_plan(NPOINT)
     plan_rows = len(plan.splu_plan.packed["t0"])
@@ -6742,7 +7059,8 @@ def main():
     cres = walled("bsr_complex", phase_bsr_complex)
     fres = walled("fused_path", phase_fused_path, gridmf_host, splu_host,
                   erk_host)
-    lres = walled("lin_solver_path", phase_lin_solver_path)
+    lres = walled("lin_solver_path", phase_lin_solver_path, oracles)
+    say("superlu_pool", **stop_oracles(oracles))
     pres = walled("pde_path", phase_pde_path)
     walled("nonlin_path", phase_nonlin_path)
     labres = walled("lab_path", phase_lab_path)
@@ -6752,6 +7070,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ores = walled("ooc_path", phase_ooc_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eres = walled("examples_path", phase_examples_path, cpu)
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -6843,6 +7164,9 @@ def main():
         "launches": fres["gridmf_129"]["launches_cold_run"]["lane_pow"],
         "fused_path": fused_entry(fres, "lane_pow"),
         "shapes": "one lane (the fused solves), 64 lanes (solve_batch)"})
+    for k in kernels:
+        if k["name"] in EXAMPLES_KERNELS:
+            k["examples_path"] = examples_entry(eres, k["name"])
     say("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7347,6 +7671,20 @@ if __name__ == "__main__":
         phase_build()
         lab_kernels = [jacobi_entry(phase_lab_path())]
         print(json.dumps({"kernels": lab_kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    elif "--examples" in sys.argv:
+        phase_device()
+        cpu = start_examples_cpu()
+        try:
+            phase_build()
+            eres = phase_examples_path(cpu)
+        finally:
+            stop_examples_cpu(cpu)
+        print(json.dumps({"kernels": [
+            {"name": k, "examples_path": examples_entry(eres, k)}
+            for k in EXAMPLES_KERNELS]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from russell_tpu_torch.core._place import host
 from russell_tpu_torch.math.chebyshev import (chebyshev_gauss_points,
                                               chebyshev_lobatto_points)
 
@@ -127,9 +128,10 @@ class InterpLagrange:
         return torch.where(any_hit, exact, interp)
 
     def eval_deriv1(self, x, uu):
-        """dI{f}/dx at x (interp_lagrange.rs:606)."""
+        """dI{f}/dx at x (interp_lagrange.rs:606), on the host (a tensor
+        ``uu`` of any device is copied there)."""
         x = float(x)
-        uu = np.asarray(uu)
+        uu = host(uu)
         d = x - self.xx
         hit = np.abs(d) < 1e-15
         if np.any(hit):
@@ -145,9 +147,10 @@ class InterpLagrange:
         return float((p * np.sum(t2) - np.sum(t2 * uu)) / s)
 
     def eval_deriv2(self, x, uu):
-        """d²I{f}/dx² at x (interp_lagrange.rs:725)."""
+        """d²I{f}/dx² at x (interp_lagrange.rs:725), on the host (a
+        tensor ``uu`` of any device is copied there)."""
         x = float(x)
-        uu = np.asarray(uu)
+        uu = host(uu)
         d = x - self.xx
         hit = np.abs(d) < 1e-15
         if np.any(hit):

@@ -7,9 +7,11 @@
 //
 // Computes, for every live lane s < n_live,
 //     out[s] = sum over the pairs p of lane s of B[pair_l[p]] @ B[pair_u[p]]
-// where B = blocks viewed as (N, BE, BE) row-major f64 tiles. BE is 32
-// (real matrices) or 64 (complex ones, stored as the real embedding
-// K = [[R,-I],[I,R]]). Only the n_live lanes are written: the plan puts no
+// where B = blocks viewed as (N, BE, BE) row-major f64 tiles. BE is the
+// plan's block size: 32 by default for real matrices and 64 for complex
+// ones (stored as the real embedding K = [[R,-I],[I,R]]); a plan made with
+// block_size 16 gives 16 (real) and 32. Only the n_live lanes are written:
+// the plan puts no
 // pair on a lane at or past the row's len (checked on the host), so the
 // TPU kernel's lanes past len are zeros that nobody reads.
 //
@@ -44,7 +46,8 @@
 //     Rows of the L slab (32 + 4 doubles) and of the U slab (BE + 4) are
 //     padded so that the fragment loads hit 16 distinct 8-byte bank pairs
 //     per half-warp. At BE 64 a stage is 35 KB (two CTAs per SM), at BE 32
-//     18 KB.
+//     18 KB. At BE 16 one warp computes the whole 16 x 16 tile from one
+//     16-deep slab a pair (5 KB a stage).
 // A batch of L matrices factorized over one plan (the lanes of an ensemble
 // of Radau5 integrations) shares the row's work list and index arrays: a
 // second grid dimension runs over the lanes (blockIdx.y), and each lane's
@@ -56,15 +59,16 @@
 
 namespace {
 
-constexpr int KS = 32;      // depth of one k-slab
 constexpr int NSTAGE = 3;   // cp.async stages
 constexpr int PAD = 4;      // row padding (doubles) of the shared slabs
 
 template <int BE>
 struct Cfg {
-  // warps along M and N: BE 32 -> 2 x 2 warps of 16 x 16; BE 64 -> 2 x 4
-  // warps of 32 x 16
-  static constexpr int WM = 2;
+  // depth of one k-slab: 32, or the whole block at BE 16
+  static constexpr int KS = BE < 32 ? BE : 32;
+  // warps along M and N: BE 16 -> one warp of 16 x 16; BE 32 -> 2 x 2
+  // warps of 16 x 16; BE 64 -> 2 x 4 warps of 32 x 16
+  static constexpr int WM = BE < 32 ? 1 : 2;
   static constexpr int WN = BE / 16;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int TM = BE / WM;     // warp tile rows
@@ -121,6 +125,7 @@ splu_pairs_kernel(const double* __restrict__ blocks,
                   double* __restrict__ scratch,
                   long long blocks_lane, int n_live, int n_multi) {
   using C = Cfg<BE>;
+  constexpr int KS = C::KS;
   extern __shared__ __align__(16) double smem[];
   __shared__ int s_last;
 
@@ -289,6 +294,10 @@ extern "C" int splu_pairs_f64(const double* blocks, const int* pair_l,
       n_multi < 0 || (n_multi && !scratch))
     return (int)cudaErrorInvalidValue;
   const int4* ck = reinterpret_cast<const int4*>(chunk);
+  if (be == 16)
+    return (int)launch<16>(blocks, pair_l, pair_u, ck, lane_off, tickets,
+                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
+                           n_multi, s);
   if (be == 32)
     return (int)launch<32>(blocks, pair_l, pair_u, ck, lane_off, tickets,
                            n_chunks, out, scratch, lanes, blocks_lane, n_live,

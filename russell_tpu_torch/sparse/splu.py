@@ -629,8 +629,8 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
                                  be)
     if blocks.device.type != "cuda":
         raise ValueError(f"splu_pairs: no kernel for {blocks.device}")
-    if be not in (32, 64) or blocks.data_ptr() % 16:
-        raise ValueError(f"splu_pairs: the kernel takes be 32 or 64 "
+    if be not in (16, 32, 64) or blocks.data_ptr() % 16:
+        raise ValueError(f"splu_pairs: the kernel takes be 16, 32 or 64 "
                          f"(got {be}) and 16-byte aligned blocks")
     lead = blocks.shape[:-2]
     lanes = blocks.shape[0] if lead else 1

@@ -49,7 +49,7 @@ def _row_args(dp, blocks, r, be):
             dp["pair_seg"][r, :npair], dp["work"][r], ln, be)
 
 
-@pytest.mark.parametrize("be", [32, 64])
+@pytest.mark.parametrize("be", [16, 32, 64])
 def test_kernels_match_plain_versions(cuda, be):
     plan, _ = _brusselator_plan(16)
     sp = plan.splu_plan
@@ -87,7 +87,7 @@ def test_kernels_match_plain_versions(cuda, be):
         assert splu.gather_rows.launches == n0 + 1
 
 
-@pytest.mark.parametrize("be", [32, 64])
+@pytest.mark.parametrize("be", [16, 32, 64])
 def test_splu_pairs_is_bit_identical_across_launches(cuda, be):
     plan, _ = _brusselator_plan(16)
     sp = plan.splu_plan

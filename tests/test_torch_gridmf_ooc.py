@@ -281,7 +281,9 @@ def test_ooc_stores_hold_each_depth_and_two_schur_buffers(reference,
 def test_example_runs_on_the_cpu(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["ex_sparse_out_of_core.py", "--device",
                                       "cpu"])
-    monkeypatch.setattr(factor, "GRIDMF_BUDGET_GB", factor.GRIDMF_BUDGET_GB)
+    budget = factor.GRIDMF_BUDGET_GB
     runpy.run_path(os.path.join(ROOT, "examples_torch",
                                 "ex_sparse_out_of_core.py"),
                    run_name="__main__")
+    # the example cuts the budget to force out of core, and restores it
+    assert factor.GRIDMF_BUDGET_GB == budget
