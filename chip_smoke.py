@@ -331,7 +331,20 @@ GRIDMF → ``gj_inv``) through a user's entry point.
    solve's first launches are its warm-up's, outside the capture).
    Each of the four kernels' entries on the kernels line gains its
    ``examples_path`` launches and checks. ``--examples`` runs it alone
-   (with the kernels line and the last line).
+   (with the kernels line and the last line);
+29. mixed_path: ``LinSolParams(mixed_precision=True)`` (f32/complex64
+   factors, the adaptive refinement at f64) with the f32 builds' launch
+   counts set to 0 at its start: the kappa-1e9 n-60 dense system, which
+   must escalate to f64 factors once; GRIDMF laplacian_2d 1000 (10^6
+   unknowns, the FCG tier) against the same plan at f64 (factor bytes at
+   most 0.55 of f64's, peak, walls, the tiers' rounds, x within 1e-10);
+   SPLU laplacian_3d_50 with every f32 ``splu_pairs``, ``gather_rows``
+   and ``gj_inv`` launch of a factorization held to its plain version;
+   GENMF on a complex irregular_geometric(20,000) (complex64 factors,
+   complex128 x); GRIDMF laplacian_3d_40 out of core (host stores half
+   the f64 run's). The kernels line gains the three f32 builds' entries,
+   timed at the phase's shapes. ``--mixed-path`` runs it alone (with the
+   kernels line and the last line).
 
 Every phase raises on failure, so the exit code is non-zero. The line
 before the last is the kernels' JSON; the last is
@@ -356,7 +369,8 @@ phases), ``--pde-nonlin`` only phases 22 and 23, ``--lab`` only phase 24
 (with its kernels line and the last line), ``--stat-tensor`` only phase
 25 (with the last line; the fused GRIDMF-129 counters from a run of its
 own), ``--parallel`` only phase 26 (with the last line), ``--ooc`` only
-phase 27, ``--examples`` only phase 28. ``--chunk-sweep`` times
+phase 27, ``--examples`` only phase 28, ``--mixed-path`` only phase 29.
+``--chunk-sweep`` times
 ``splu_pairs`` over every row of the npoint-129 plan for each chunk size
 K of CHUNK_SWEEP, which is how ``splu.CHUNK_PAIRS`` was chosen;
 ``--strip-sweep`` times ``spgemm`` at npoint 513 for each strip budget of
@@ -406,6 +420,8 @@ HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS_PER_S = 67e12
 # kernel against its plain version: the summation order differs
 RTOL = 1e-12
+F32_ULP = 2.0 ** -23      # an f32 build against its plain version
+GJ_LOGDET_RTOL = {torch.float64: 1e-14, torch.float32: 2e-6}
 # the replay's matrices: Radau5's real and complex shifts (radau5.f's
 # GAMMA, ALPHA + i BETA) at h = 0.1, minus the Brusselator Jacobian at y0
 H_REPLAY = 0.1
@@ -451,11 +467,14 @@ def gj_inv_launches():
 
 def assert_close(name, got, want):
     """Hold ``got`` to ``want`` at rtol 1e-12, atol 1e-12 x max|want|;
-    returns (max |got - want|, max |want|)."""
+    returns (max |got - want|, max |want|). f32 values (the f32 builds,
+    which sum in f64 and round once, in another order than their plain
+    versions) at rtol F32_ULP, one f32 ulp."""
     got = torch.as_tensor(got)
     want = torch.as_tensor(want, device=got.device)
     scale = float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=RTOL * scale,
+    rtol = F32_ULP if got.dtype == torch.float32 else RTOL
+    torch.testing.assert_close(got, want, rtol=rtol, atol=RTOL * scale,
                                msg=lambda m: f"{name}: {m}")
     return float((got - want).abs().max()), scale
 
@@ -3497,10 +3516,11 @@ def kernel_counts():
 @contextlib.contextmanager
 def held_to_plain():
     """Within the block, every launch of gj_inv, splu_pairs and gather_rows
-    is held against its plain version on the same inputs, as the kernel
-    checks do: gj_inv's Dinv bit-identical, min|pivot|, n_perturbed and
-    the sign exact, log|det| at rtol 1e-14; splu_pairs at rtol 1e-12
-    (``assert_close``); gather_rows bit-identical. Yields {kernel: {"calls",
+    (their f64 and f32 builds) is held against its plain version on the
+    same inputs, as the kernel checks do: gj_inv's Dinv bit-identical,
+    min|pivot|, n_perturbed and the sign exact, log|det| at rtol 1e-14 (f32
+    2e-6); splu_pairs at rtol 1e-12 (f32: one ulp; ``assert_close``);
+    gather_rows bit-identical. Yields {kernel: {"calls",
     "shapes", "max_abs_err"}} (gj_inv: also "logdet_max_rel_err"), filled
     as the block runs. The wrappers keep counting their launches."""
     from russell_tpu_torch.sparse import splu
@@ -3525,7 +3545,8 @@ def held_to_plain():
             raise AssertionError(
                 f"gj_inv ({w}, {m}) on the path: Dinv differs from the plain "
                 f"version by up to {float((got[0] - want[0]).abs().max())}")
-        torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=0,
+        torch.testing.assert_close(got[1], want[1],
+                                   rtol=GJ_LOGDET_RTOL[D.dtype], atol=0,
                                    msg=lambda s: f"gj_inv ({w}, {m}) on the "
                                    f"path, log|det|: {s}")
         for name, g, p in (("min|pivot|", got[2], want[2]),
@@ -3562,14 +3583,17 @@ def held_to_plain():
 
     checks = {"gj_inv": gj_inv, "splu_pairs": splu_pairs,
               "gather_rows": gather_rows}
+    counts = ("launches", "launches_f32")
     for k, a in names.items():
-        checks[k].launches = orig[k].launches
+        for c in counts:
+            setattr(checks[k], c, getattr(orig[k], c, 0))
         setattr(splu, a, checks[k])
     try:
         yield held
     finally:
         for k, a in names.items():
-            orig[k].launches = checks[k].launches
+            for c in counts:
+                setattr(orig[k], c, getattr(checks[k], c))
             setattr(splu, a, orig[k])
 
 
@@ -6879,6 +6903,7 @@ def held_once_a_shape():
                     return real[k](*args)
                 return checks[k](*args)
             call.launches = checks[k].launches
+            call.launches_f32 = checks[k].launches_f32
             return call
 
         def jacobi(a, max_sweeps=matrix_ops.JACOBI_SWEEPS):
@@ -6904,6 +6929,7 @@ def held_once_a_shape():
         finally:
             for k, a in attrs.items():
                 checks[k].launches = wrapped[k].launches
+                checks[k].launches_f32 = wrapped[k].launches_f32
                 setattr(splu, a, checks[k])
             orig_jacobi.launches = jacobi.launches
             matrix_ops.jacobi_eig = orig_jacobi
@@ -6994,6 +7020,510 @@ def examples_entry(eres, name):
                 if name in c)}
 
 
+# -- mixed_path ----------------------------------------------------------------
+
+MIXED_NPOINT = 1000        # laplacian_2d, 10^6 unknowns, through GRIDMF
+MIXED_SPLU_NPOINT = 50     # laplacian_3d_50 through SPLU
+MIXED_GENMF_N = 20_000     # irregular_geometric, complex values, GENMF
+MIXED_OOC_NPOINT = 40      # laplacian_3d, hint (N, N, N), out of core
+MIXED_X_RTOL = 1e-10       # x against the f64 route's, of max|x|
+MIXED_BYTES_RATIO = 0.55   # f32 factor bytes over the f64 route's, at most
+F32_KERNELS = ("splu_pairs", "gather_rows", "gj_inv")
+HELD_F32 = [{}]            # the f32 launches of the held factorizations
+
+
+def f32_counts():
+    """The f32 builds' launch counts."""
+    from russell_tpu_torch.sparse import splu
+    return {k: getattr(splu, a).launches_f32 for k, a in (
+        ("splu_pairs", "splu_pairs"), ("gather_rows", "gather_rows"),
+        ("gj_inv", "_gj_inv"))}
+
+
+def factor_bytes(fac):
+    """Bytes of a factorization's stored factors (device or host)."""
+    for key in ("levels", "classes"):
+        if key in fac:
+            return sum(t.numel() * t.element_size() for st in fac[key]
+                       for t in st.values() if isinstance(t, torch.Tensor))
+    t = fac["blocks"] if "blocks" in fac else fac["lu"]
+    return t.numel() * t.element_size()
+
+
+def factor_dtype(fac):
+    """The dtype of a factorization's stored factors."""
+    for key in ("levels", "classes"):
+        if key in fac:
+            return fac[key][0]["sir"].dtype
+    return (fac["blocks"] if "blocks" in fac else fac["lu"]).dtype
+
+
+def rel_x_err(x, want):
+    """max |x - want| / max |want| (on the card)."""
+    return float((x - want).abs().max() / want.abs().max())
+
+
+def mixed_runs(name, plan, vals, b, held="all", warm=2, cold=False):
+    """``plan``'s factorization of ``vals`` and its solve of ``b`` through
+    ``factor`` (the numeric phase LinSolver runs, without its host
+    bookkeeping), ``warm`` times after a cold one when ``cold``: walls,
+    peak memory, factor bytes, the f32 launches of a factorization, the
+    refinement's rounds of the first solve; then one more factorization
+    whose every launch (``held`` "all"), or first launch at each shape
+    ("once"), is held to the plain version. Returns (record, factors,
+    x)."""
+    from russell_tpu_torch.sparse import factor
+
+    def fact():
+        fac = factor.numeric_factorize(plan, vals)
+        float(fac["min_pivot"])
+        return fac
+
+    t_part = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    if cold:
+        t0 = time.perf_counter()
+        fac = fact()
+        rec["cold_factorize_s"] = time.perf_counter() - t0
+    walls = []
+    for _ in range(warm):
+        fac = None
+        c0 = f32_counts()
+        t0 = time.perf_counter()
+        fac = fact()
+        walls.append(time.perf_counter() - t0)
+        c1 = f32_counts()
+    launches = {k: c1[k] - c0[k] for k in c1}
+    rec.update(warm_factorize_s=walls, factor_bytes=factor_bytes(fac),
+               launches_f32_per_factorization=launches)
+    factor.factor_solve.refinement = {}
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        x = factor.factor_solve(plan, fac, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not rec.get("refinement"):
+            rec["refinement"] = dict(factor.factor_solve.refinement)
+    rec["warm_solve_s"] = walls
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if held and any(launches.values()):
+        fac = None
+        with (held_to_plain() if held == "all"
+              else held_once_a_shape()) as h:
+            fac = fact()
+        # the held run's launches, left out of the path's counts
+        HELD_F32[0] = {k: HELD_F32[0].get(k, 0) + v
+                       for k, v in launches.items()}
+        if held == "all":
+            rec["held_to_plain"] = held_record(
+                h, {k: v for k, v in launches.items() if v})
+        else:
+            rec["held_once_a_shape"] = {
+                k: {"shapes": len(h[k]["shapes"]),
+                    "max_abs_err": h[k]["max_abs_err"]}
+                for k in launches if launches[k]}
+        rec["held_shapes"] = {k: sorted(h[k]["shapes"].items()) for k in h
+                              if h[k]["calls"]}
+    rec["wall_s"] = time.perf_counter() - t_part
+    say("mixed_path", part=name, **{k: v for k, v in rec.items()
+                                    if k != "held_shapes"})
+    return rec, fac, x
+
+
+def user_run(name, s, mat, params, b):
+    """The user's path: ``LinSolver.factorize`` (the host analysis, the
+    symmetry check, a cold factorization) and one ``solve`` (with its
+    escalation probe), timed. Returns (record, x)."""
+    from russell_tpu_torch.sparse import factor
+    t0 = time.perf_counter()
+    s.factorize(mat, params)
+    rec = {"analyze_s": s.stats.time_nanoseconds["initialize"] / 1e9,
+           "cold_factorize_s": s.stats.time_nanoseconds["factorize"] / 1e9,
+           "genie": s.plan.genie.value, "mixed32": s.plan.mixed32,
+           "symmetric_values": s.plan.symmetric_values}
+    factor.factor_solve.refinement = {}
+    t1 = time.perf_counter()
+    x = s.solve(b)
+    rec.update(first_solve_s=time.perf_counter() - t1,
+               refinement=dict(factor.factor_solve.refinement),
+               precision_escalated=bool(
+                   s.stats.output.get("precision_escalated")),
+               wall_s=time.perf_counter() - t0)
+    say("mixed_path", part=name, **rec)
+    return rec, x
+
+
+def f64_plan(plan):
+    """The f64 plan of a mixed one: the same symbolic phase (``analyze``
+    makes it with mixed_precision=False unless the GRIDMF budget's leaf
+    choice differs, which the callers check), 2 refinement rounds."""
+    import dataclasses
+    return dataclasses.replace(plan, mixed32=False, refine_steps=2,
+                               symmetric_values=False)
+
+
+def mixed_pair(name, s, mat, params, b, held="all", warm=2, cold64=True):
+    """One mixed_path case: the user's path (``user_run``), then the same
+    plan's numeric phase at f32 and at f64 (``mixed_runs``): the factor
+    bytes and peaks' ratios and x against the f64 route's. Returns the
+    record and the f32 factors."""
+    from russell_tpu_torch.sparse import VerifyLinSys
+    t0 = time.perf_counter()
+    user, x_user = user_run(f"{name}_user", s, mat, params, b)
+    if user["precision_escalated"]:
+        raise AssertionError(f"mixed {name}: escalated to f64 factors")
+    plan, vals = s.plan, s._vals_full
+    bt = torch.as_tensor(b, device="cuda")
+    rel = VerifyLinSys.from_system(mat, x_user.cpu().numpy(),
+                                   b).relative_error
+    dtypes = {"factors": str(factor_dtype(s.fac)),
+              "data": str(s.fac["data"].dtype), "x": str(x_user.dtype)}
+    s.fac = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed, fac, x = mixed_runs(f"{name}_mixed", plan, vals, bt, held=held,
+                               warm=warm)
+    out = {"blocks": fac.get("blocks")}
+    del fac
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, fac, x64 = mixed_runs(f"{name}_f64", f64_plan(plan), vals, bt,
+                                held=False, warm=warm, cold=cold64)
+    del fac
+    rec = {"n": plan.n, "user": user, "mixed": mixed, "f64": full,
+           "dtypes": dtypes, "relative_error": rel,
+           "x_rel_err_vs_f64": rel_x_err(x_user, x64),
+           "factor_bytes_ratio": mixed["factor_bytes"] / full["factor_bytes"],
+           "peak_ratio": mixed["peak_mem_bytes"] / full["peak_mem_bytes"],
+           # the fastest warm run of each (a first solve may warm up)
+           "warm_factorize_ratio": min(mixed["warm_factorize_s"]) / min(
+               full["warm_factorize_s"]),
+           "warm_solve_ratio": min(mixed["warm_solve_s"]) / min(
+               full["warm_solve_s"]),
+           "wall_s": time.perf_counter() - t0}
+    say("mixed_path", part=name, **{k: v for k, v in rec.items()
+                                    if k not in ("user", "mixed", "f64")})
+    if not (rec["x_rel_err_vs_f64"] <= MIXED_X_RTOL and rel <= 1e-10
+            and rec["factor_bytes_ratio"] <= MIXED_BYTES_RATIO
+            and dtypes["factors"] in ("torch.float32", "torch.complex64")):
+        raise AssertionError(f"mixed {name}: x error "
+                             f"{rec['x_rel_err_vs_f64']}, relative error "
+                             f"{rel}, bytes ratio "
+                             f"{rec['factor_bytes_ratio']}")
+    del x, x64, x_user, bt, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, out
+
+
+def mixed_gridmf(res):
+    """laplacian_2d(MIXED_NPOINT) through LinSolver(GRIDMF) with f32
+    factors (numerically symmetric values: FCG is open to it), against the
+    same plan at f64; no escalation."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          factor, gridmf, samples)
+    N = MIXED_NPOINT
+    coo = samples.laplacian_2d(N)
+    b = np.random.default_rng(SEED + 31).standard_normal(coo.nrow)
+    s = LinSolver(Genie.GRIDMF, device="cuda")
+    rec, _ = mixed_pair("gridmf_1000", s, coo, LinSolParams(
+        grid=(N, N, 1), mixed_precision=True), b)
+    # the f64 route's analyze would keep this plan: the first leaf fits
+    # the budget at 8 bytes a value too
+    if not (3 * gridmf.gridmf_store_gb(s.plan.gridmf_plan, 8)
+            <= factor.GRIDMF_BUDGET_GB and not s.plan.gridmf_ooc
+            and rec["user"]["symmetric_values"]):
+        raise AssertionError("mixed GRIDMF 1000: the f64 plan would differ "
+                             "or the values are not found symmetric")
+    res["gridmf_1000"] = rec
+    res["gj_inv_shapes"] = rec["mixed"]["held_shapes"]["gj_inv"]
+
+
+def mixed_splu(res, lres=None):
+    """laplacian_3d_50 through LinSolver(SPLU) with f32 factors: every f32
+    splu_pairs, gather_rows and gj_inv launch of a factorization held to
+    its plain version; the f64 run of the same plan beside it."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          samples)
+    coo = samples.laplacian_3d(MIXED_SPLU_NPOINT)
+    b = np.random.default_rng(SEED + 32).standard_normal(coo.nrow)
+    s = LinSolver(Genie.SPLU, device="cuda")
+    rec, out = mixed_pair("splu_3d_50", s, coo, LinSolParams(
+        mixed_precision=True), b)
+    for k in F32_KERNELS:
+        if not rec["mixed"]["launches_f32_per_factorization"][k]:
+            raise AssertionError(f"mixed SPLU 3d_50: {k}'s f32 build was "
+                                 "not launched")
+    if lres is not None and "splu_3d" in lres:
+        rec["lin_solver_path_f64_warm_median_s"] = lres["splu_3d"][
+            "warm_median_s"]
+    res["splu_3d_50"] = rec
+    res["splu_plan"] = s.plan
+    res["splu_blocks"] = out["blocks"]
+
+
+def mixed_genmf_complex(res):
+    """irregular_geometric(MIXED_GENMF_N) with complex values through
+    LinSolver(GENMF) with complex64 factors (f32 planes): x complex128,
+    against the same plan with complex128 factors."""
+    from russell_tpu_torch.sparse import (CooMatrix, Genie, LinSolParams,
+                                          LinSolver, samples)
+    coo = samples.irregular_geometric(MIXED_GENMF_N, seed=3)
+    ii, jj, vv = coo.triplets()
+    n = coo.nrow
+    rng = np.random.default_rng(SEED + 33)
+    cv = np.asarray(vv) + 0.3j * rng.standard_normal(len(vv))
+    cb = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    ccoo = CooMatrix.from_arrays(n, n, ii, jj, cv)
+    s = LinSolver(Genie.GENMF, device="cuda")
+    rec, _ = mixed_pair("genmf_complex", s, ccoo, LinSolParams(
+        mixed_precision=True), cb, held="once")
+    # complex64 factors (f32 planes), complex128 entries and x
+    if rec["dtypes"] != {"factors": "torch.float32",
+                         "data": "torch.complex128", "x": "torch.complex128"}:
+        raise AssertionError(f"mixed GENMF complex: dtypes {rec['dtypes']}")
+    res["genmf_complex"] = rec
+
+
+def dense_case(n, kappa, seed, symmetric):
+    """An n x n dense system of condition ``kappa`` (singular values
+    logspaced from 1), Q D Q^T symmetric or Q D Q2^T, in full storage."""
+    from russell_tpu_torch.sparse import CooMatrix
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    q2 = q if symmetric else np.linalg.qr(rng.normal(size=(n, n)))[0]
+    A = (q * np.logspace(0, np.log10(kappa), n)) @ q2.T
+    if symmetric:
+        A = 0.5 * (A + A.T)
+    ii, jj = np.nonzero(np.ones((n, n)))
+    return CooMatrix.from_arrays(n, n, ii, jj, A[ii, jj]), A
+
+
+def mixed_escalation(res):
+    """Dense systems through LinSolver(AUTO) (DENSE) with f32 factors:
+    tests/test_lin_solver.py:670-687's n-60 system of condition 1e9,
+    which f32 factors cannot precondition, so the first solve must
+    refactorize at f64 once and later solves keep those factors; and two
+    of condition 3e8 (kappa eps_f32 ~ 18: plain refinement stalls) on
+    which a Krylov tier converges without escalating: symmetric (flexible
+    CG) and unsymmetric (FGMRES)."""
+    from russell_tpu_torch.sparse import (CooMatrix, Genie, LinSolParams,
+                                          LinSolver, VerifyLinSys, factor)
+    t0 = time.perf_counter()
+    # the reference's case: Q D Q^T, not symmetrized
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.normal(size=(60, 60)))
+    A = (q * np.logspace(0, 9, 60)) @ q.T
+    ii, jj = np.nonzero(np.ones((60, 60)))
+    coo = CooMatrix.from_arrays(60, 60, ii, jj, A[ii, jj])
+    s = LinSolver(Genie.AUTO, device="cuda")
+    s.factorize(coo, LinSolParams(mixed_precision=True))
+    genie, mixed = s.plan.genie.value, s.plan.mixed32
+    b = np.ones(60)
+    t1 = time.perf_counter()
+    x = s.solve(b)
+    solve_s = time.perf_counter() - t1
+    tiers = dict(factor.factor_solve.refinement)
+    fac = s.fac
+    escalated = s.stats.output.get("precision_escalated")
+    x2 = s.solve(np.arange(1.0, 61.0))
+    rec = {"genie": genie, "mixed_before": mixed,
+           "precision_escalated": escalated, "first_solve_s": solve_s,
+           "tiers_before_escalation": tiers,
+           "factor_dtype_after": str(s.fac["lu"].dtype),
+           "refactorized_again": s.fac is not fac,
+           "relative_error": VerifyLinSys.from_system(
+               coo, x.cpu().numpy(), b).relative_error,
+           "second_finite": bool(torch.isfinite(x2).all())}
+    if not (genie == "dense" and mixed and escalated is True
+            and not s.plan.mixed32 and not rec["refactorized_again"]
+            and rec["relative_error"] < 1e-10 and rec["second_finite"]):
+        raise AssertionError(f"mixed dense escalation: {rec}")
+    for name, kappa, sym, tier in (("fcg", 3e8, True, "cg"),
+                                   ("fgmres", 3e8, False, "fgmres")):
+        coo, _ = dense_case(60, kappa, 0, sym)
+        s = LinSolver(Genie.AUTO, device="cuda")
+        s.factorize(coo, LinSolParams(mixed_precision=True))
+        x = s.solve(b)
+        r = {"kappa": kappa, "symmetric_values": s.plan.symmetric_values,
+             "tiers": dict(factor.factor_solve.refinement),
+             "precision_escalated": bool(
+                 s.stats.output.get("precision_escalated")),
+             "relative_error": VerifyLinSys.from_system(
+                 coo, x.cpu().numpy(), b).relative_error}
+        rec[f"dense_{name}"] = r
+        if (r["precision_escalated"] or not r["tiers"][tier]
+                or r["symmetric_values"] is not sym
+                or not r["relative_error"] < 1e-10):
+            raise AssertionError(f"mixed dense {name}: {r}")
+    rec["wall_s"] = time.perf_counter() - t0
+    say("mixed_path", part="dense_escalation", **rec)
+    res["dense_escalation"] = rec
+
+
+def mixed_ooc(res):
+    """laplacian_3d(MIXED_OOC_NPOINT), hint (N, N, N), out of core (the
+    budget under its store) with f32 factors against the same plan at f64:
+    the host stores' bytes (f32 half f64's), walls, x against the f64
+    route's."""
+    from russell_tpu_torch.sparse import (Genie, LinSolParams, LinSolver,
+                                          factor, samples)
+    N = MIXED_OOC_NPOINT
+    coo = samples.laplacian_3d(N)
+    b = np.random.default_rng(SEED + 34).standard_normal(coo.nrow)
+    budget = factor.GRIDMF_BUDGET_GB
+    try:
+        factor.GRIDMF_BUDGET_GB = 1e-9
+        s = LinSolver(Genie.GRIDMF, device="cuda")
+        # one warm run a precision: pinning the host stores sets the walls
+        rec, _ = mixed_pair(f"ooc_3d_{N}", s, coo, LinSolParams(
+            grid=(N, N, N), mixed_precision=True), b, held="once", warm=1,
+            cold64=False)
+        if not s.plan.gridmf_ooc:
+            raise AssertionError("mixed OOC: the plan is in core")
+    finally:
+        factor.GRIDMF_BUDGET_GB = budget
+    res[f"ooc_3d_{N}"] = rec
+
+
+def f32_kernel_entries(res):
+    """The kernels line's entries of the three f32 builds: each against its
+    plain version and timed (device time back to back) at the mixed path's
+    shapes, beside its bound at 4 bytes a value: splu_pairs and gather_rows
+    on the SPLU laplacian_3d_50 plan's row with the most pairs (be 32, the
+    factorization's own f32 blocks), gj_inv over the base calls of the
+    GRIDMF 1000 f32 factorization (summed)."""
+    from russell_tpu_torch.sparse import splu
+    t0 = time.perf_counter()
+    sp = res["splu_plan"].splu_plan
+    pk = sp.packed
+    dev = torch.device("cuda")
+    dp = splu._device_plan(sp, dev)
+    r = named_rows(sp, dp)[0]["argmax_pairs"]
+    _, ln, _, npair, _, n_chunks, _ = dp["rows"][r]
+    be = sp.b
+    blocks = res["splu_blocks"]
+    args = (blocks, dp["pair_l"][r, :npair], dp["pair_u"][r, :npair],
+            dp["pair_seg"][r, :npair], dp["work"][r], ln, be)
+    got = splu.splu_pairs(*args)
+    want = splu._splu_pairs_plain(*args[:4], ln, be)
+    err, _ = assert_close("splu_pairs f32", got, want)
+    tiles = np.unique(np.concatenate([pk["pair_l"][r, :npair],
+                                      pk["pair_u"][r, :npair]])).size
+    b_ms, b_by = bound(4 * be * be * (tiles + ln) + 4 * (2 * npair + 2 * ln)
+                       + 16 * n_chunks, 2 * npair * be ** 3)
+    # the f64 builds at the same shapes, on the same values widened
+    wide = blocks.double()
+    args64 = (wide,) + args[1:]
+    out = {"splu_pairs": {
+        "max_abs_err": err, "ms": time_ms(lambda: splu.splu_pairs(*args)),
+        "f64_build_ms": time_ms(lambda: splu.splu_pairs(*args64)),
+        "plain_ms": time_ms(lambda: splu._splu_pairs_plain(*args[:4], ln,
+                                                           be)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shapes": f"laplacian_3d_50 mixed SPLU row {r}: {ln} lanes, "
+                  f"{npair} pairs, be {be}"}}
+    idx = dp["dinv"][r, :ln]
+    if not torch.equal(splu.gather_rows(blocks, idx), blocks[idx]):
+        raise AssertionError("gather_rows f32 differs from blocks[idx]")
+    b_ms, b_by = bound(4 * be * be * (torch.unique(idx).numel() + ln)
+                       + 4 * ln, 0)
+    out["gather_rows"] = {
+        "max_abs_err": 0.0, "ms": time_ms(lambda: splu.gather_rows(blocks,
+                                                                   idx)),
+        "f64_build_ms": time_ms(lambda: splu.gather_rows(wide, idx)),
+        "plain_ms": time_ms(lambda: splu._gather_rows_plain(blocks, idx)),
+        "library_ms": time_ms(lambda: torch.index_select(blocks, 0, idx)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shapes": f"laplacian_3d_50 mixed SPLU row {r}: {ln} rows of "
+                  f"{be * be} f32"}
+    calls = collections.Counter({tuple(s): c for s, c in
+                                 res["gj_inv_shapes"]})
+    delta = torch.tensor(1e-6, dtype=torch.float32, device=dev)
+    del wide, args64
+    ms = plain_ms = lib_ms = ms64 = 0.0
+    nbytes = flops = 0
+    # every launch at these shapes was held to the plain version in the
+    # GRIDMF run (its record: max_abs_err, logdet_max_rel_err)
+    held = res["gridmf_1000"]["mixed"]["held_to_plain"]["gj_inv"]
+    for (w, m), c in sorted(calls.items()):
+        D = gj_inputs(w, m, w + m).to(torch.float32)
+        # a few calls a shape: 18 shapes, the plain version ~40 ms a call
+        ms += c * time_ms(lambda: splu._gj_inv(D, delta), reps=5, warmup=1)
+        D64 = D.double()
+        ms64 += c * time_ms(lambda: splu._gj_inv(D64, delta), reps=5,
+                            warmup=1)
+        del D64
+        plain_ms += c * time_ms(lambda: splu._gj_inv_plain(D, delta),
+                                reps=1, warmup=1)
+        lib_ms += c * time_ms(lambda: torch.linalg.inv_ex(D), reps=5,
+                              warmup=1)
+        nbytes += c * (8 * w * m * m + 16 * w)
+        flops += c * 2 * m ** 3 * w
+        del D
+    b_ms, b_by = bound(nbytes, flops)
+    out["gj_inv"] = {
+        "max_abs_err": held["max_abs_err"],
+        "logdet_max_rel_err": held["logdet_max_rel_err"], "ms": ms,
+        "f64_build_ms": ms64,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by,
+        "shapes": "the base calls of the laplacian_2d 1000 mixed GRIDMF "
+                  f"factorization, summed: {sum(calls.values())} calls, "
+                  f"{len(calls)} shapes"}
+    say("mixed_path", part="f32_kernels", wall_s=time.perf_counter() - t0,
+        **out)
+    return out
+
+
+def phase_mixed_path(lres=None):
+    """LinSolver(mixed_precision=True) on the card: GRIDMF laplacian_2d
+    1000 (the FCG tier) against the f64 route, SPLU laplacian_3d_50 with
+    every f32 kernel launch held to its plain version, complex GENMF
+    (complex64 factors, complex128 x), the kappa-1e9 dense system's one
+    escalation, and a 3-D GRIDMF grid out of core at half the host bytes;
+    then the f32 builds' kernels-line entries. Every f32 build must be
+    launched in the phase (counts set to 0 at its start)."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    HELD_F32[0] = {}
+    res = {}
+    mixed_escalation(res)
+    mixed_gridmf(res)
+    mixed_splu(res, lres)
+    mixed_genmf_complex(res)
+    mixed_ooc(res)
+    launches = {k: v - HELD_F32[0].get(k, 0)
+                for k, v in f32_counts().items()}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"mixed_path: {k}'s f32 build was not "
+                                 "launched")
+    res["launches_f32"] = launches
+    res["kernels"] = f32_kernel_entries(res)
+    del res["splu_plan"], res["splu_blocks"]
+    res["wall_s"] = time.perf_counter() - t0
+    say("mixed_path", part="done", wall_s=res["wall_s"],
+        launches_f32=launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mixed_entries(mres):
+    """The f32 builds' entries on the kernels line."""
+    src = {"splu_pairs": "russell_tpu/sparse/splu.py:561",
+           "gather_rows": "russell_tpu/sparse/splu.py:634",
+           "gj_inv": "russell_tpu/sparse/splu.py:476 (plain XLA)"}
+    return [{"name": f"{k}_f32", "route": "cuda",
+             "source": f"russell_tpu_torch/csrc/{k}.cu", "replaces": src[k],
+             "launches": mres["launches_f32"][k], **mres["kernels"][k]}
+            for k in F32_KERNELS]
+
+
 def walled(name, fn, *args):
     """``fn(*args)``, then one line with its wall (each phase's share of
     the smoke's time limit)."""
@@ -7073,6 +7603,7 @@ def main_phases(t_start, oracles, cpu):
     gc.collect()
     torch.cuda.empty_cache()
     eres = walled("examples_path", phase_examples_path, cpu)
+    mres = walled("mixed_path", phase_mixed_path, lres)
     src = {"splu_pairs": ("russell_tpu_torch/csrc/splu_pairs.cu",
                           "russell_tpu/sparse/splu.py:561"),
            "gather_rows": ("russell_tpu_torch/csrc/gather_rows.cu",
@@ -7167,6 +7698,7 @@ def main_phases(t_start, oracles, cpu):
     for k in kernels:
         if k["name"] in EXAMPLES_KERNELS:
             k["examples_path"] = examples_entry(eres, k["name"])
+    kernels += mixed_entries(mres)
     say("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7685,6 +8217,14 @@ if __name__ == "__main__":
         print(json.dumps({"kernels": [
             {"name": k, "examples_path": examples_entry(eres, k)}
             for k in EXAMPLES_KERNELS]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    elif "--mixed-path" in sys.argv:
+        phase_device()
+        phase_build()
+        print(json.dumps({"kernels": mixed_entries(phase_mixed_path())}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

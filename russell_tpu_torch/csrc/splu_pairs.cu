@@ -1,5 +1,5 @@
-// Segment-summed block-pair products of one SPLU factorize row, f64, on
-// Hopper's f64 tensor cores.
+// Segment-summed block-pair products of one SPLU factorize row, f64 or
+// f32 storage, on Hopper's f64 tensor cores.
 //
 // Replaces: russell_tpu/sparse/splu.py, _pairs_pallas (the Pallas TPU
 // kernel, one sequential grid step per pair, which zeroes an output block
@@ -48,6 +48,15 @@
 //     per half-warp. At BE 64 a stage is 35 KB (two CTAs per SM), at BE 32
 //     18 KB. At BE 16 one warp computes the whole 16 x 16 tile from one
 //     16-deep slab a pair (5 KB a stage).
+// The f32 build (mixed-precision factors) stages f32 tiles (half the
+// bytes of the f64 build) and widens each value to f64 as a warp reads its
+// fragment from shared memory, so the products and their sums run in the
+// f64 pipeline above, partials included; each output value is rounded to
+// f32 once, at its store. Hopper has no full-precision f32 tensor-core
+// product (TF32 keeps 10 mantissa bits), so f32 operands take the f64 one:
+// the plain version widens, sums and rounds the same way. Its U slab rows
+// are padded by 8 floats, so that a half-warp's fragment loads hit 32
+// distinct 4-byte banks.
 // A batch of L matrices factorized over one plan (the lanes of an ensemble
 // of Radau5 integrations) shares the row's work list and index arrays: a
 // second grid dimension runs over the lanes (blockIdx.y), and each lane's
@@ -60,9 +69,10 @@
 namespace {
 
 constexpr int NSTAGE = 3;   // cp.async stages
-constexpr int PAD = 4;      // row padding (doubles) of the shared slabs
 
-template <int BE>
+// T: the storage type of blocks and out (double or float); the products
+// and partials are double.
+template <int BE, typename T>
 struct Cfg {
   // depth of one k-slab: 32, or the whole block at BE 16
   static constexpr int KS = BE < 32 ? BE : 32;
@@ -75,17 +85,22 @@ struct Cfg {
   static constexpr int TN = BE / WN;     // warp tile columns
   static constexpr int MT = TM / 16;     // m16 tiles per warp
   static constexpr int NT = TN / 8;      // n8 tiles per warp
-  static constexpr int SA = KS + PAD;    // L slab row stride
-  static constexpr int SB = BE + PAD;    // U slab row stride
+  static constexpr int VEC = 16 / sizeof(T);   // values per cp.async
+  // row padding (values) of the shared slabs: 16 distinct 8-byte bank
+  // pairs (f64) or 32 distinct banks (f32) per fragment load
+  static constexpr int PAD_A = 4;
+  static constexpr int PAD_B = sizeof(T) == 8 ? 4 : 8;
+  static constexpr int SA = KS + PAD_A;  // L slab row stride
+  static constexpr int SB = BE + PAD_B;  // U slab row stride
   static constexpr int A_ELEMS = BE * SA;
   static constexpr int B_ELEMS = KS * SB;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int SLABS = BE / KS;  // k-slabs per pair
   static constexpr int BB = BE * BE;
-  static constexpr size_t SMEM = sizeof(double) * NSTAGE * STAGE;
+  static constexpr size_t SMEM = sizeof(T) * NSTAGE * STAGE;
 };
 
-__device__ __forceinline__ void cp_async16(double* smem, const double* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
@@ -113,20 +128,31 @@ __device__ __forceinline__ void mma_16x8x4(double (&d)[4], const double (&a)[2],
       : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 
-template <int BE>
-__global__ void __launch_bounds__(Cfg<BE>::THREADS, 2)
-splu_pairs_kernel(const double* __restrict__ blocks,
+// Two adjacent values of a row, rounded to the storage type.
+__device__ __forceinline__ void store2(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
+}
+
+__device__ __forceinline__ void store2(float* p, double x, double y) {
+  *reinterpret_cast<float2*>(p) = make_float2((float)x, (float)y);
+}
+
+template <int BE, typename T>
+__global__ void __launch_bounds__(Cfg<BE, T>::THREADS, 2)
+splu_pairs_kernel(const T* __restrict__ blocks,
                   const int* __restrict__ pair_l,
                   const int* __restrict__ pair_u,
                   const int4* __restrict__ chunk,
                   const int* __restrict__ lane_off,
                   int* __restrict__ tickets,
-                  double* __restrict__ out,
+                  T* __restrict__ out,
                   double* __restrict__ scratch,
                   long long blocks_lane, int n_live, int n_multi) {
-  using C = Cfg<BE>;
+  using C = Cfg<BE, T>;
   constexpr int KS = C::KS;
-  extern __shared__ __align__(16) double smem[];
+  constexpr int VEC = C::VEC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int s_last;
 
   // this lane's blocks, output rows, partials and tickets
@@ -148,19 +174,19 @@ splu_pairs_kernel(const double* __restrict__ blocks,
   auto load = [&](int step) {
     const int p = ck.y + step / C::SLABS;
     const int ks = step % C::SLABS;
-    const double* L = blocks + (size_t)__ldg(pair_l + p) * C::BB + ks * KS;
-    const double* U =
+    const T* L = blocks + (size_t)__ldg(pair_l + p) * C::BB + ks * KS;
+    const T* U =
         blocks + (size_t)__ldg(pair_u + p) * C::BB + (size_t)ks * KS * BE;
-    double* as = smem + (step % NSTAGE) * C::STAGE;
-    double* bs = as + C::A_ELEMS;
+    T* as = smem + (step % NSTAGE) * C::STAGE;
+    T* bs = as + C::A_ELEMS;
 #pragma unroll
-    for (int i = tid; i < BE * KS / 2; i += C::THREADS) {
-      const int r = i / (KS / 2), q = 2 * (i % (KS / 2));
+    for (int i = tid; i < BE * KS / VEC; i += C::THREADS) {
+      const int r = i / (KS / VEC), q = VEC * (i % (KS / VEC));
       cp_async16(as + r * C::SA + q, L + r * BE + q);
     }
 #pragma unroll
-    for (int i = tid; i < KS * BE / 2; i += C::THREADS) {
-      const int r = i / (BE / 2), q = 2 * (i % (BE / 2));
+    for (int i = tid; i < KS * BE / VEC; i += C::THREADS) {
+      const int r = i / (BE / VEC), q = VEC * (i % (BE / VEC));
       cp_async16(bs + r * C::SB + q, U + r * BE + q);
     }
   };
@@ -183,18 +209,20 @@ splu_pairs_kernel(const double* __restrict__ blocks,
     __syncthreads();               // and every warp is done with step - 1
     if (step + NSTAGE - 1 < steps) load(step + NSTAGE - 1);
     cp_async_commit();
-    const double* as = smem + (step % NSTAGE) * C::STAGE;
-    const double* bs = as + C::A_ELEMS;
+    const T* as = smem + (step % NSTAGE) * C::STAGE;
+    const T* bs = as + C::A_ELEMS;
 #pragma unroll
     for (int k = 0; k < KS; k += 4) {
+      // each fragment value widened to f64 as it is read
       double a[C::MT][2], b[C::NT];
 #pragma unroll
       for (int m = 0; m < C::MT; ++m) {
-        a[m][0] = as[(row0 + 16 * m + g) * C::SA + k + t];
-        a[m][1] = as[(row0 + 16 * m + g + 8) * C::SA + k + t];
+        a[m][0] = (double)as[(row0 + 16 * m + g) * C::SA + k + t];
+        a[m][1] = (double)as[(row0 + 16 * m + g + 8) * C::SA + k + t];
       }
 #pragma unroll
-      for (int n = 0; n < C::NT; ++n) b[n] = bs[(k + t) * C::SB + col0 + 8 * n + g];
+      for (int n = 0; n < C::NT; ++n)
+        b[n] = (double)bs[(k + t) * C::SB + col0 + 8 * n + g];
 #pragma unroll
       for (int m = 0; m < C::MT; ++m)
 #pragma unroll
@@ -205,19 +233,29 @@ splu_pairs_kernel(const double* __restrict__ blocks,
 
   const int lane = ck.x;
   const int cnt = ck.w;
-  double* dst = cnt == 1 ? out + (size_t)lane * C::BB : scratch + (size_t)c * C::BB;
+  if (cnt == 1) {                      // the lane's sum: rounded once
+    T* dst = out + (size_t)lane * C::BB;
+#pragma unroll
+    for (int m = 0; m < C::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < C::NT; ++n) {
+        const int r = row0 + 16 * m + g;
+        const int col = col0 + 8 * n + 2 * t;
+        store2(dst + r * BE + col, acc[m][n][0], acc[m][n][1]);
+        store2(dst + (r + 8) * BE + col, acc[m][n][2], acc[m][n][3]);
+      }
+    return;
+  }
+  double* part_c = scratch + (size_t)c * C::BB;   // an f64 partial
 #pragma unroll
   for (int m = 0; m < C::MT; ++m)
 #pragma unroll
     for (int n = 0; n < C::NT; ++n) {
       const int r = row0 + 16 * m + g;
       const int col = col0 + 8 * n + 2 * t;
-      *reinterpret_cast<double2*>(dst + r * BE + col) =
-          make_double2(acc[m][n][0], acc[m][n][1]);
-      *reinterpret_cast<double2*>(dst + (r + 8) * BE + col) =
-          make_double2(acc[m][n][2], acc[m][n][3]);
+      store2(part_c + r * BE + col, acc[m][n][0], acc[m][n][1]);
+      store2(part_c + (r + 8) * BE + col, acc[m][n][2], acc[m][n][3]);
     }
-  if (cnt == 1) return;
 
   // a multi-chunk lane: the last of its CTAs sums the partials in chunk
   // order (threadFenceReduction pattern: fence, then count)
@@ -246,48 +284,39 @@ splu_pairs_kernel(const double* __restrict__ blocks,
       sum[e].y += v.y;
     }
   }
-  double2* o = reinterpret_cast<double2*>(out + (size_t)lane * C::BB);
+  T* o = out + (size_t)lane * C::BB;
 #pragma unroll
-  for (int e = 0; e < PER; ++e) o[tid + e * C::THREADS] = sum[e];
+  for (int e = 0; e < PER; ++e)
+    store2(o + 2 * (tid + e * C::THREADS), sum[e].x, sum[e].y);
 }
 
-template <int BE>
-cudaError_t launch(const double* blocks, const int* pair_l, const int* pair_u,
+template <int BE, typename T>
+cudaError_t launch(const T* blocks, const int* pair_l, const int* pair_u,
                    const int4* chunk, const int* lane_off, int* tickets,
-                   int n_chunks, double* out, double* scratch, int lanes,
+                   int n_chunks, T* out, double* scratch, int lanes,
                    long long blocks_lane, int n_live, int n_multi,
                    cudaStream_t stream) {
-  using C = Cfg<BE>;
+  using C = Cfg<BE, T>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        splu_pairs_kernel<BE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        splu_pairs_kernel<BE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  splu_pairs_kernel<BE><<<dim3(n_chunks, lanes), C::THREADS, C::SMEM,
-                          stream>>>(blocks, pair_l, pair_u, chunk, lane_off,
-                                    tickets, out, scratch, blocks_lane,
-                                    n_live, n_multi);
+  splu_pairs_kernel<BE, T><<<dim3(n_chunks, lanes), C::THREADS, C::SMEM,
+                             stream>>>(blocks, pair_l, pair_u, chunk,
+                                       lane_off, tickets, out, scratch,
+                                       blocks_lane, n_live, n_multi);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns `out` (lanes, n_live,
-// be*be), `scratch` (lanes, n_multi, be*be: one be*be row per chunk of the
-// multi-chunk lanes; null when n_multi is 0) and `tickets` (lanes, n_live
-// zeroed ints, left zeroed; launches that may overlap, on two streams, need
-// two buffers). Lane l's blocks start at blocks + l * blocks_lane doubles.
-// `chunk` is (n_chunks, 4) int32, 16-byte aligned, one list for every lane.
-extern "C" int splu_pairs_f64(const double* blocks, const int* pair_l,
-                              const int* pair_u, const int* chunk,
-                              const int* lane_off, int* tickets, int n_chunks,
-                              int n_live, int n_multi, int be, int lanes,
-                              long long blocks_lane, double* out,
-                              double* scratch, void* stream) {
+template <typename T>
+int splu_pairs(const T* blocks, const int* pair_l, const int* pair_u,
+               const int* chunk, const int* lane_off, int* tickets,
+               int n_chunks, int n_live, int n_multi, int be, int lanes,
+               long long blocks_lane, T* out, double* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // every live lane owns at least one chunk
   if (n_live <= 0 || n_chunks < n_live || lanes < 1 || lanes > 65535 ||
@@ -295,16 +324,50 @@ extern "C" int splu_pairs_f64(const double* blocks, const int* pair_l,
     return (int)cudaErrorInvalidValue;
   const int4* ck = reinterpret_cast<const int4*>(chunk);
   if (be == 16)
-    return (int)launch<16>(blocks, pair_l, pair_u, ck, lane_off, tickets,
-                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
-                           n_multi, s);
+    return (int)launch<16, T>(blocks, pair_l, pair_u, ck, lane_off, tickets,
+                              n_chunks, out, scratch, lanes, blocks_lane,
+                              n_live, n_multi, s);
   if (be == 32)
-    return (int)launch<32>(blocks, pair_l, pair_u, ck, lane_off, tickets,
-                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
-                           n_multi, s);
+    return (int)launch<32, T>(blocks, pair_l, pair_u, ck, lane_off, tickets,
+                              n_chunks, out, scratch, lanes, blocks_lane,
+                              n_live, n_multi, s);
   if (be == 64)
-    return (int)launch<64>(blocks, pair_l, pair_u, ck, lane_off, tickets,
-                           n_chunks, out, scratch, lanes, blocks_lane, n_live,
-                           n_multi, s);
+    return (int)launch<64, T>(blocks, pair_l, pair_u, ck, lane_off, tickets,
+                              n_chunks, out, scratch, lanes, blocks_lane,
+                              n_live, n_multi, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Returns a cudaError_t code (0 = launched). Launches on `stream`, does not
+// synchronise and allocates nothing: the caller owns `out` (lanes, n_live,
+// be*be), `scratch` (lanes, n_multi, be*be doubles: one be*be row per chunk
+// of the multi-chunk lanes; null when n_multi is 0) and `tickets` (lanes,
+// n_live zeroed ints, left zeroed; launches that may overlap, on two
+// streams, need two buffers). Lane l's blocks start at blocks + l *
+// blocks_lane values. `chunk` is (n_chunks, 4) int32, 16-byte aligned, one
+// list for every lane.
+extern "C" int splu_pairs_f64(const double* blocks, const int* pair_l,
+                              const int* pair_u, const int* chunk,
+                              const int* lane_off, int* tickets, int n_chunks,
+                              int n_live, int n_multi, int be, int lanes,
+                              long long blocks_lane, double* out,
+                              double* scratch, void* stream) {
+  return splu_pairs(blocks, pair_l, pair_u, chunk, lane_off, tickets,
+                    n_chunks, n_live, n_multi, be, lanes, blocks_lane, out,
+                    scratch, stream);
+}
+
+// splu_pairs_f64 on f32 blocks and output (`scratch` stays f64); blocks and
+// each lane's blocks 16-byte aligned (blocks_lane a multiple of 4).
+extern "C" int splu_pairs_f32(const float* blocks, const int* pair_l,
+                              const int* pair_u, const int* chunk,
+                              const int* lane_off, int* tickets, int n_chunks,
+                              int n_live, int n_multi, int be, int lanes,
+                              long long blocks_lane, float* out,
+                              double* scratch, void* stream) {
+  return splu_pairs(blocks, pair_l, pair_u, chunk, lane_off, tickets,
+                    n_chunks, n_live, n_multi, be, lanes, blocks_lane, out,
+                    scratch, stream);
 }

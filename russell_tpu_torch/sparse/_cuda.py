@@ -12,7 +12,8 @@ imported, so the CPU tests, which have no ``nvcc``, import it freely. The
 wrappers that launch the kernels live beside their plain PyTorch versions
 (``sparse/splu.py``, ``sparse/kernels.py``, ``dense/matrix_ops.py``). A
 kernel for several value types has one C entry point for each
-(``<name>_f64``, ``<name>_c128``).
+(``<name>_f64``, ``<name>_c128``; ``<name>_f32`` for the mixed-precision
+factors' three).
 ``KERNELS`` are the ports of the reference's TPU kernels (and of its
 clamped inverse); ``LIBRARIES`` adds the fused ODE loops' two:
 ``graph_cond``, CUDA graph conditional nodes (``ode/_device_loop.py``),
@@ -48,17 +49,18 @@ _L = ctypes.c_longlong
 _SPMV = [_P, _P, _P, _P, _I, _I, _P, _P]
 _SPMM = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
 _SPGEMM = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+_PAIRS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P, _P, _P]
+_GATHER = [_P, _P, _I, _I, _I, _L, _P, _P]
+_GJ = [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 # C entry points of each kernel library and their argument types (one per
 # value type where the kernel has several); every entry point returns a
 # cudaError_t code
 _SIGNATURES = {
     # blocks, pair_l, pair_u, chunk, lane_off, tickets, n_chunks, n_live,
     # n_multi, be, lanes, blocks' lane stride, out, scratch, stream
-    "splu_pairs": {"splu_pairs_f64":
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P, _P,
-                    _P]},
+    "splu_pairs": {"splu_pairs_f64": _PAIRS, "splu_pairs_f32": _PAIRS},
     # src, idx, n_rows, width, lanes, src's lane stride, out, stream
-    "gather_rows": {"gather_rows_f64": [_P, _P, _I, _I, _I, _L, _P, _P]},
+    "gather_rows": {"gather_rows_f64": _GATHER, "gather_rows_f32": _GATHER},
     # val, col, slice_off, x, n_rows, n_slices, y, stream
     "bsr_spmv": {"bsr_spmv_f64": _SPMV, "bsr_spmv_c128": _SPMV},
     # val, col, slice_off, X, n_rows, n_slices, m, Y, stream
@@ -69,8 +71,7 @@ _SIGNATURES = {
                       "spgemm_blocks_c128": _SPGEMM},
     # D, lane stride, row stride, delta, n_delta, w, m, Dinv, log|det|,
     # min|pivot|, n_perturbed, sign, stream
-    "gj_inv": {"gj_inv_f64": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P,
-                              _P, _P]},
+    "gj_inv": {"gj_inv_f64": _GJ, "gj_inv_f32": _GJ},
     # parent stream, child stream, pred, capture mode, body graph out;
     # child stream; graph, count out; capturing stream, count out
     "graph_cond": {"cond_if_begin": [_P, _P, _P, _I, _P],

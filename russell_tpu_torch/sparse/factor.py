@@ -25,9 +25,21 @@ nnz), right-hand sides (B, n), one lane each), which ``solve_batch`` and
 ``parallel.batch_factor_solve`` use: the numeric phase runs once over a
 leading lane dimension, not once a matrix. ``prepare`` uploads every
 index array of a plan before a CUDA graph capture, which may not copy
-from the host. Factors are full f64/complex128: the H100 has f64, so
-the reference package's mixed-precision regime (f32 factors and its
-adaptive refinement tiers) is not carried over.
+from the host.
+
+Factors are f64/complex128 unless ``analyze(mixed_precision=True)``: the
+reference package's mixed-precision regime (LAPACK's dsgesv, cuDSS's
+mixed mode) then factorizes in f32/complex64 through every genie, keeps
+the scaled entries at the input precision and refines against them with
+the reference's adaptive tiers (``factor_solve``): plain iterative
+refinement while it contracts, flexible CG for numerically symmetric real
+systems (``SolvePlan.symmetric_values``), then FGMRES(10) cycles
+preconditioned by the f32 factors. ``None`` is f64 here: the reference's
+default is "mixed on a TPU backend", and the card has f64. A complex128
+system's refinement runs in complex128 against complex128 scaled entries
+(the reference instead keeps c64 entries and refines f64 real planes,
+``factor_solve_planes``, because its TPU has no complex128); its solution
+is held to the same 1e-12 relative error.
 
 GRIDMF factors too large for the device budget (``GRIDMF_BUDGET_GB``) go
 out of core, as in the reference package: ``analyze`` marks the plan
@@ -71,6 +83,12 @@ __all__ = ["SolvePlan", "analyze", "prepare", "numeric_factorize",
 # peak within the card's 80 GB.
 GRIDMF_BUDGET_GB = 15.0
 GRIDMF_LEAVES = (64, 16)
+# the adaptive refinement of mixed-precision factors: the reference
+# package's constants (factor.py:1225-1250, 1350)
+IR_MAX_STEPS = 20       # plain refinement rounds at most
+FGMRES_M = 10           # Krylov dimension of an FGMRES cycle
+FGMRES_CYCLES = 6       # FGMRES cycles at most
+CG_MAX = 40             # flexible CG iterations at most
 # GENMF's leaf size: the reference package's default (factor.py:238-242,
 # chosen there by a sweep on geometric_264k)
 GENMF_LEAF = 256
@@ -107,6 +125,13 @@ class SolvePlan:
     pivot_epsilon: float = 1e-14
     refine_steps: int = 2
     effective_ordering: str = "natural"
+    # mixed precision: the factors in f32/complex64, the residuals of the
+    # refinement at the input precision
+    mixed32: bool = False
+    # the assembled values are numerically symmetric (set by
+    # LinSolver.factorize under mixed precision): unlocks the flexible-CG
+    # refinement tier
+    symmetric_values: bool = False
 
     @property
     def n_pad(self) -> int:
@@ -140,17 +165,20 @@ def analyze(
     ``dense_threshold``, and above it without a usable hint BANDED when the
     RCM bandwidth is at most ``max_block``, else GENMF. ``banded_kernel``
     ("auto", "bcr" or "scan") picks BANDED's kernel; "auto" takes cyclic
-    reduction at nb >= 32 blocks. ``mixed_precision=True`` (f32 factors)
-    is not ported."""
-    if mixed_precision:
-        raise NotImplementedError("mixed-precision factors are not ported: "
-                                  "the port factorizes in f64 (ROADMAP.md)")
+    reduction at nb >= 32 blocks. ``mixed_precision=True`` factorizes in
+    f32/complex64 (``SolvePlan.mixed32``; at least 3 refinement rounds, 2
+    for DENSE), and GRIDMF's budget then charges 4 bytes a value; None or
+    False factorizes at the input precision."""
+    mixed = bool(mixed_precision)
+    if mixed:
+        refine_steps = max(refine_steps, 3)
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     if grid is not None and (genie == Genie.GRIDMF or
                              (genie == Genie.AUTO and n > dense_threshold)):
         try:
-            gplan, ooc = _gridmf_plan(n, rows, cols, grid, pivot_epsilon)
+            gplan, ooc = _gridmf_plan(n, rows, cols, grid, pivot_epsilon,
+                                      4 if mixed else 8)
         except ValueError:
             if genie == Genie.GRIDMF:
                 raise
@@ -162,7 +190,7 @@ def analyze(
                              else scaling,
                              pivot_epsilon=pivot_epsilon,
                              refine_steps=max(refine_steps, 2),
-                             effective_ordering="nd-grid")
+                             effective_ordering="nd-grid", mixed32=mixed)
     if genie == Genie.GRIDMF:
         raise ValueError("Genie.GRIDMF needs a grid=(nr, nc, s) hint "
                          f"covering n={n}")
@@ -184,12 +212,12 @@ def analyze(
                          else scaling,
                          pivot_epsilon=pivot_epsilon,
                          refine_steps=max(refine_steps, 2),
-                         effective_ordering="nd-general")
+                         effective_ordering="nd-general", mixed32=mixed)
     if genie == Genie.DENSE:
-        return _dense_plan(n, rows, cols, scaling, pivot_epsilon)
+        return _dense_plan(n, rows, cols, scaling, pivot_epsilon, mixed)
     if genie == Genie.BANDED:
         return _banded_plan(n, rows, cols, ordering, scaling, pivot_epsilon,
-                            refine_steps, max_block, banded_kernel)
+                            refine_steps, max_block, banded_kernel, mixed)
     if genie != Genie.SPLU:
         raise ValueError(f"genie {genie} is not available in analyze()")
     # METIS is nested dissection in the reference (enums.rs:71-158);
@@ -225,20 +253,21 @@ def analyze(
                      else scaling,
                      pivot_epsilon=pivot_epsilon,
                      refine_steps=max(refine_steps, 2),
-                     effective_ordering=eff_ord)
+                     effective_ordering=eff_ord, mixed32=mixed)
 
 
-def _dense_plan(n, rows, cols, scaling, pivot_epsilon):
+def _dense_plan(n, rows, cols, scaling, pivot_epsilon, mixed):
     return SolvePlan(Genie.DENSE, n, rows, cols,
                      dense_passes=_dense_passes(n, rows, cols),
                      scaling=Scaling.NO if scaling == Scaling.AUTO
                      else scaling,
-                     pivot_epsilon=pivot_epsilon, refine_steps=0,
-                     effective_ordering="natural")
+                     pivot_epsilon=pivot_epsilon,
+                     refine_steps=2 if mixed else 0,
+                     effective_ordering="natural", mixed32=mixed)
 
 
 def _banded_plan(n, rows, cols, ordering, scaling, pivot_epsilon,
-                 refine_steps, max_block, banded_kernel):
+                 refine_steps, max_block, banded_kernel, mixed):
     """RCM-reorder (when it narrows the band), view the band as a
     block-tridiagonal matrix with block size k >= bandwidth (a multiple of
     8, as the reference package picks it), and freeze each entry's slot in
@@ -269,7 +298,7 @@ def _banded_plan(n, rows, cols, ordering, scaling, pivot_epsilon,
     nb = -(-n // k)
     if nb < 2:
         # degenerate band: dense is simpler and exact-pivoting
-        return _dense_plan(n, rows, cols, Scaling.NO, pivot_epsilon)
+        return _dense_plan(n, rows, cols, Scaling.NO, pivot_epsilon, mixed)
     iperm = np.empty(n, dtype=np.int64)
     iperm[perm] = np.arange(n)
     r = iperm[rows]
@@ -296,7 +325,7 @@ def _banded_plan(n, rows, cols, ordering, scaling, pivot_epsilon,
                      scaling=Scaling.MAX if scaling == Scaling.AUTO
                      else scaling,
                      pivot_epsilon=pivot_epsilon, refine_steps=refine_steps,
-                     effective_ordering=eff)
+                     effective_ordering=eff, mixed32=mixed)
 
 
 def _dense_passes(n, rows, cols):
@@ -306,17 +335,18 @@ def _dense_passes(n, rows, cols):
     return [(ids, slot[ids]) for ids in rank_passes(slot)]
 
 
-def _gridmf_plan(n, rows, cols, grid, pivot_epsilon):
+def _gridmf_plan(n, rows, cols, grid, pivot_epsilon, bytes_per=8):
     """(plan, out of core?): the GRIDMF plan at the first leaf size of
-    GRIDMF_LEAVES whose three f64 value planes of factors fit
-    GRIDMF_BUDGET_GB, else at the last one, out of core when even its
-    real plane exceeds the budget (the reference package's rule). Raises
-    ValueError for a pattern that is not cell-local."""
+    GRIDMF_LEAVES whose three value planes of factors (``bytes_per`` a
+    value: 8, or 4 for mixed-precision factors) fit GRIDMF_BUDGET_GB,
+    else at the last one, out of core when even its real plane exceeds
+    the budget (the reference package's rule). Raises ValueError for a
+    pattern that is not cell-local."""
     for leaf in GRIDMF_LEAVES:
         gplan = _gridmf.gridmf_analyze(n, rows, cols, grid,
                                        leaf_cells=leaf,
                                        pivot_epsilon=pivot_epsilon)
-        store_gb = _gridmf.gridmf_store_gb(gplan)
+        store_gb = _gridmf.gridmf_store_gb(gplan, bytes_per)
         if 3.0 * store_gb <= GRIDMF_BUDGET_GB:
             return gplan, False
     return gplan, store_gb > GRIDMF_BUDGET_GB
@@ -463,6 +493,17 @@ def _logdet_update(diag, piv):
     return logdet, phase
 
 
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_LOW = {torch.float64: torch.float32, torch.complex128: torch.complex64}
+
+
+def _factor_dtype(plan: SolvePlan, dtype):
+    """The factors' dtype for values of ``dtype``: f32/complex64 for
+    f64/complex128 under mixed precision (the reference package's
+    ``_factor_dtype``), else ``dtype``."""
+    return _LOW.get(dtype, dtype) if plan.mixed32 else dtype
+
+
 def _dense_passes_on(plan: SolvePlan, device):
     return _on_device(plan, "dense_passes", device, lambda d: [
         (torch.as_tensor(ids, device=d), torch.as_tensor(slots, device=d))
@@ -477,7 +518,8 @@ def _dense_factorize(plan: SolvePlan, data):
     a = torch.zeros(batch + (n * n,), dtype=data.dtype, device=data.device)
     for ids, slots in _dense_passes_on(plan, data.device):
         a[..., slots] = a[..., slots] + data[..., ids]
-    lu, piv = _bcr.lu_factor(a.reshape(batch + (n, n)))
+    lu, piv = _bcr.lu_factor(a.reshape(batch + (n, n)).to(
+        _factor_dtype(plan, data.dtype)))
     diag = torch.diagonal(lu, dim1=-2, dim2=-1)
     logdet, phase = _logdet_update(diag, piv)
     return {"lu": lu, "piv": piv, "perm": _bcr.lu_perm(lu, piv), "rs": rs,
@@ -489,8 +531,9 @@ def _dense_factorize(plan: SolvePlan, data):
 def _dense_solve(plan: SolvePlan, fac, b):
     out_dtype = fac["data"].dtype
     y = fac["rs"].to(out_dtype) * b.to(out_dtype)
-    x = _bcr.lu_solve(fac["lu"], fac["perm"], y[..., None])[..., 0]
-    return fac["cs"].to(out_dtype) * x
+    x = _bcr.lu_solve(fac["lu"], fac["perm"],
+                      y.to(fac["lu"].dtype)[..., None])[..., 0]
+    return fac["cs"].to(out_dtype) * x.to(out_dtype)
 
 
 def _banded_indices(plan: SolvePlan, device):
@@ -529,7 +572,7 @@ def _banded_factorize_bcr(plan: SolvePlan, data, split=None):
     then summed over the ranks in rank order. A batch (B, nnz) runs every
     matrix's levels together."""
     data, rs, cs = _equilibrate(plan, data)
-    blocks = _banded_scatter(plan, data)
+    blocks = _banded_scatter(plan, data).to(_factor_dtype(plan, data.dtype))
     fac = _bcr.bcr_factorize(blocks[..., 1, :, :, :], blocks[..., 0, :, :, :],
                              blocks[..., 2, :, :, :],
                              pivot_epsilon=plan.pivot_epsilon, split=split)
@@ -566,10 +609,12 @@ def _banded_rhs(plan: SolvePlan, fac, b):
 
 
 def _banded_x(plan: SolvePlan, fac, xp):
-    """x from the padded, permuted solution (..., nb, k)."""
+    """x, at the values' precision, from the padded, permuted solution
+    (..., nb, k)."""
     ix = _banded_indices(plan, xp.device)
+    out_dtype = fac["data"].dtype
     x = xp.reshape(xp.shape[:-2] + (-1,))[..., :plan.n]
-    return fac["cs"].to(x.dtype) * x[..., ix["iperm"]]
+    return fac["cs"].to(out_dtype) * x[..., ix["iperm"]].to(out_dtype)
 
 
 def _banded_solve_bcr(plan: SolvePlan, fac, b, split=None):
@@ -583,10 +628,13 @@ def _banded_factorize(plan: SolvePlan, data):
     ``bcr.lu_static``), C_i = S_i^{-1} F_i. A batch (B, nnz) steps every
     matrix's rows together."""
     data, rs, cs = _equilibrate(plan, data)
-    blocks = _banded_scatter(plan, data)
+    fdt = _factor_dtype(plan, data.dtype)
+    blocks = _banded_scatter(plan, data).to(fdt)
     E, D, F = (blocks[..., j, :, :, :] for j in range(3))
-    # static pivot perturbation threshold (MUMPS-style), per matrix
-    delta = plan.pivot_epsilon * (1.0 + data.abs().amax(-1))
+    # static pivot perturbation threshold (MUMPS-style), per matrix, at the
+    # factors' precision
+    delta = (plan.pivot_epsilon * (1.0 + data.abs().amax(-1))).to(
+        _REAL.get(fdt, fdt))
     lus, pivs, perms, Cs, bads = [], [], [], [], []
     C = None
     for i in range(plan.nb):
@@ -617,7 +665,7 @@ def _banded_factorize(plan: SolvePlan, data):
 
 def _banded_solve(plan: SolvePlan, fac, b):
     nb = plan.nb
-    bp = _banded_rhs(plan, fac, b)
+    bp = _banded_rhs(plan, fac, b).to(fac["lus"].dtype)
     lus, perms, E, Cs = fac["lus"], fac["perms"], fac["E"], fac["Cs"]
     ys = []
     y = None
@@ -688,6 +736,9 @@ def numeric_factorize(plan: SolvePlan, data):
     complex128 tensor, on the device to factorize on) laid out as
     (plan.rows, plan.cols): (nnz,), or a batch (B, nnz) of matrices of
     the plan's pattern, factorized in one numeric phase (statistics (B,)).
+    Under mixed precision the factors (and their statistics) are
+    f32/complex64 and ``fac["data"]``, the scaled entries the refinement
+    reads, stays at the input precision.
     With an out-of-core GRIDMF plan one matrix's factors go to host memory
     (real values only: complex ones raise NotImplementedError), and a
     batch factorizes in core, as the reference package's vmapped phase
@@ -709,14 +760,15 @@ def _numeric_factorize(plan: SolvePlan, data, out_of_core=False):
             return _banded_factorize_bcr(plan, data)
         return _banded_factorize(plan, data)
     data, rs, cs = _equilibrate(plan, data)
+    d = data.to(_factor_dtype(plan, data.dtype))
     if plan.genie == Genie.GRIDMF and out_of_core:
-        fac = _gridmf.gridmf_factorize_ooc(plan.gridmf_plan, data)
+        fac = _gridmf.gridmf_factorize_ooc(plan.gridmf_plan, d)
     elif plan.genie == Genie.GRIDMF:
-        fac = _gridmf.gridmf_factorize(plan.gridmf_plan, data)
+        fac = _gridmf.gridmf_factorize(plan.gridmf_plan, d)
     elif plan.genie == Genie.GENMF:
-        fac = _genmf.genmf_factorize(plan.genmf_plan, data)
+        fac = _genmf.genmf_factorize(plan.genmf_plan, d)
     else:
-        fac = _splu.splu_factorize(plan.splu_plan, data)
+        fac = _splu.splu_factorize(plan.splu_plan, d)
     fac["rs"] = rs
     fac["cs"] = cs
     fac["data"] = data  # scaled entries (kept for refinement)
@@ -737,7 +789,9 @@ def numeric_factorize_pair(plan: SolvePlan, data_r, data_c):
                 _numeric_factorize(plan, data_c))
     dr, rs_r, cs_r = _equilibrate(plan, data_r)
     dc, rs_c, cs_c = _equilibrate(plan, data_c)
-    fr, fc = _splu.splu_factorize_multi(plan.splu_plan, (dr, dc))
+    fr, fc = _splu.splu_factorize_multi(
+        plan.splu_plan, (dr.to(_factor_dtype(plan, dr.dtype)),
+                         dc.to(_factor_dtype(plan, dc.dtype))))
     fr["rs"], fr["cs"], fr["data"] = rs_r, cs_r, dr
     fc["rs"], fc["cs"], fc["data"] = rs_c, cs_c, dc
     return fr, fc
@@ -778,14 +832,211 @@ def factor_solve(plan: SolvePlan, fac, b, refine_steps=None):
     """Solve A x = b from a numeric factorization, with ``refine_steps``
     (default ``plan.refine_steps``) rounds of iterative refinement
     against the scaled matrix. Radau5 passes 0 for its Newton solves.
-    The factors of a batch take right-hand sides (B, n), one lane each."""
+    The factors of a batch take right-hand sides (B, n), one lane each.
+
+    Under mixed precision with no ``refine_steps`` the refinement is the
+    reference package's adaptive one (``_refine_adaptive``), and
+    ``factor_solve.refinement`` records its rounds."""
     _check_rhs(fac, b)
+    adaptive = refine_steps is None and plan.mixed32
     if refine_steps is None:
         refine_steps = plan.refine_steps
     x = _solve_once(plan, fac, b)
+    if adaptive:
+        return _refine_adaptive(plan, fac, b, x)
     for _ in range(refine_steps):
         x = x + _solve_once(plan, fac, _residual(plan, fac, x, b))
     return x
+
+
+factor_solve.refinement = {}
+
+
+def _vdot(a, b):
+    """conj(a) . b over the last dimension, one per lane."""
+    return (a.conj() * b).sum(-1)
+
+
+def _pick(mask, new, old):
+    """``new`` on the lanes of ``mask`` (L,), ``old`` on the others."""
+    return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)), new,
+                       old)
+
+
+def _refine_adaptive(plan: SolvePlan, fac, b, x):
+    """The reference package's adaptive refinement of f32 factors at the
+    input precision (its ``_factor_solve``, factor.py:1214-1423, the
+    host-driven form), over the residual and the Arioli-Demmel-Duff
+    backward error w = max_i |r_i| / (|As| |u| + |R b|)_i of the scaled
+    system (its denominator made once, from the first solution), in three
+    tiers:
+
+    1. plain refinement while each round cuts w by half (by ten where
+       CG is open), at most IR_MAX_STEPS rounds, down to 2 eps;
+    2. flexible CG (Polak-Ribiere beta, the true residual each
+       iteration, the best iterate kept) for numerically symmetric real
+       systems whose w is still above w_accept = max(300, 3 sqrt(n)) eps,
+       ending after two stalled iterations, a non-positive curvature or a
+       divergence, at most CG_MAX iterations;
+    3. FGMRES(FGMRES_M) cycles (modified Gram-Schmidt, Givens QR, the
+       preconditioner the factors with one inner refinement round) while
+       w is above w_accept and each cycle halves it, at most
+       FGMRES_CYCLES.
+
+    w is read on the host once a round. The rows' sums are the
+    deterministic ``_row_sum``. A batch (B, n) refines each lane as the
+    reference's vmapped loops do: a lane's rounds end with its own tests,
+    and the batch runs while any lane does. Records the rounds in
+    ``factor_solve.refinement``."""
+    n = plan.n
+    lead = x.shape[:-1]
+    x = x.reshape(-1, n)
+    b = b.reshape(-1, n)
+    dtype = x.dtype
+    rdt = _REAL.get(dtype, dtype)
+    _, cols = _device_indices(plan, x.device)
+    data = fac["data"]
+    data = data.reshape(-1, data.shape[-1])
+    rs = fac["rs"].reshape(-1, n).to(dtype)
+    cs = fac["cs"].reshape(-1, n).to(dtype)
+    rb = rs * b.to(dtype)
+    fi = torch.finfo(rdt)
+    eps, tiny = fi.eps, fi.tiny
+    tol = 2.0 * eps
+    w_accept = max(300.0, 3.0 * float(np.sqrt(n))) * eps
+    use_cg = plan.symmetric_values and not dtype.is_complex
+    denom = (_row_sum(plan, data.abs() * (x / cs).abs()[:, cols])
+             + rb.abs()).clamp(min=tiny)
+
+    def solve(v):
+        return _solve_once(plan, fac, v.view(lead + (n,))).reshape(-1, n)
+
+    def resid_w(v):
+        """(residual, w) of the iterate ``v``."""
+        r = rb - _row_sum(plan, data * (v / cs)[:, cols])
+        return r / rs, (r.abs() / denom).amax(-1)
+
+    def matvec(v):
+        """A v through the scaled entries (A = R^-1 As C^-1)."""
+        return _row_sum(plan, data * (v / cs)[:, cols]) / rs
+
+    def fgmres_cycle(x0, r0):
+        beta = torch.linalg.vector_norm(r0, dim=-1)
+        bsafe = beta.clamp(min=tiny)
+        V = [r0 / bsafe.to(dtype)[:, None]]
+        Z = []
+        zero = torch.zeros_like(beta, dtype=dtype)
+        one = torch.ones_like(beta, dtype=dtype)
+        R = [[zero] * FGMRES_M for _ in range(FGMRES_M)]
+        g = [beta.to(dtype)] + [zero] * FGMRES_M
+        gc, gs = [None] * FGMRES_M, [None] * FGMRES_M
+        for j in range(FGMRES_M):
+            # the preconditioner with one inner refinement round
+            z = solve(V[j])
+            z = z + solve(V[j] - matvec(z))
+            Z.append(z)
+            wv = matvec(z)
+            h = []
+            for i in range(j + 1):
+                hij = _vdot(V[i], wv)
+                wv = wv - hij[:, None] * V[i]
+                h.append(hij)
+            hn = torch.linalg.vector_norm(wv, dim=-1)
+            V.append(wv / hn.clamp(min=tiny).to(dtype)[:, None])
+            for i in range(j):
+                t0 = gc[i] * h[i] + gs[i].conj() * h[i + 1]
+                t1 = -gs[i] * h[i] + gc[i] * h[i + 1]
+                h[i], h[i + 1] = t0, t1
+            # the rotation [[c, conj(s)], [-s, c]] (c real) that zeroes hn
+            a = h[j]
+            absa = a.abs()
+            den = torch.sqrt(absa ** 2 + hn ** 2)
+            live = den > eps * 10.0 * (1.0 + beta / bsafe)
+            dsafe = den.clamp(min=tiny)
+            phase = torch.where(absa > tiny, a / absa.clamp(min=tiny).to(
+                dtype), one)
+            c = torch.where(live, absa / dsafe, torch.ones_like(absa))
+            sn = torch.where(live, (hn / dsafe).to(dtype) * phase.conj(),
+                             zero)
+            gc[j], gs[j] = c, sn
+            for i in range(j + 1):
+                R[i][j] = h[i]
+            R[j][j] = torch.where(live, c * a + sn.conj() * hn.to(dtype),
+                                  zero)
+            g[j + 1] = -sn * g[j]
+            g[j] = c * g[j]
+        y = [zero] * FGMRES_M
+        for j in range(FGMRES_M - 1, -1, -1):
+            acc = g[j]
+            for k in range(j + 1, FGMRES_M):
+                acc = acc - R[j][k] * y[k]
+            ok = R[j][j].abs() > eps * 10.0
+            y[j] = torch.where(ok, acc / torch.where(ok, R[j][j], one), zero)
+        return x0 + sum(y[j][:, None] * Z[j] for j in range(FGMRES_M))
+
+    resid, w = resid_w(x)
+    # 1. plain refinement
+    gain = 0.1 if use_cg else 0.5
+    w_prev = torch.full_like(w, float("inf"))
+    on = (w > tol) & (w < gain * w_prev)
+    ir = 0
+    while ir < IR_MAX_STEPS and bool(on.any()):
+        x2 = x + solve(resid)
+        r2, w2 = resid_w(x2)
+        x, resid = _pick(on, x2, x), _pick(on, r2, resid)
+        w_prev, w = torch.where(on, w, w_prev), torch.where(on, w2, w)
+        ir += 1
+        on = on & (w > tol) & (w < gain * w_prev)
+    # 2. flexible CG
+    cg = 0
+    if use_cg and bool((w > w_accept).any()):
+        cg_lanes = w > w_accept
+        on = cg_lanes.clone()
+        z = solve(resid)
+        p = z
+        rz = _vdot(resid, z)
+        x_best, w_best = x, w
+        stall = torch.zeros_like(w, dtype=torch.int32)
+        for _ in range(CG_MAX):
+            pAp = _vdot(p, matvec(p))
+            on = on & (pAp > 0.0) & (rz > 0.0)  # indefinite: keep the best
+            if not bool(on.any()):
+                break
+            alpha = rz / torch.where(on, pAp, 1.0)
+            x = _pick(on, x + alpha[:, None] * p, x)
+            r2, w2 = resid_w(x)
+            resid, w = _pick(on, r2, resid), torch.where(on, w2, w)
+            stall = torch.where(on, torch.where(w < 0.7 * w_best, 0,
+                                                stall + 1), stall)
+            better = on & (w < w_best)
+            x_best = _pick(better, x, x_best)
+            w_best = torch.where(better, w, w_best)
+            cg += 1
+            on = on & (w_best > w_accept) & (w <= 1e3 * w_best) & (stall < 2)
+            if not bool(on.any()):
+                break
+            z2 = solve(resid)
+            beta = _vdot(resid, z2 - z) / rz
+            rz = torch.where(on, _vdot(resid, z2), rz)
+            p = _pick(on, z2 + beta[:, None] * p, p)
+            z = _pick(on, z2, z)
+        x = _pick(cg_lanes, x_best, x)
+        w = torch.where(cg_lanes, w_best, w)
+        resid = _pick(cg_lanes, resid_w(x)[0], resid)
+    # 3. FGMRES-IR
+    w_prev = torch.full_like(w, float("inf"))
+    on = (w > w_accept) & (w < 0.5 * w_prev)
+    cycles = 0
+    while cycles < FGMRES_CYCLES and bool(on.any()):
+        x2 = fgmres_cycle(x, resid)
+        r2, w2 = resid_w(x2)
+        x, resid = _pick(on, x2, x), _pick(on, r2, resid)
+        w_prev, w = torch.where(on, w, w_prev), torch.where(on, w2, w)
+        cycles += 1
+        on = on & (w > w_accept) & (w < 0.5 * w_prev)
+    factor_solve.refinement = {"ir": ir, "cg": cg, "fgmres": cycles,
+                               "w": float(w.max())}
+    return x.view(lead + (n,))
 
 
 def factor_solve_batch(plan: SolvePlan, data, b):

@@ -578,7 +578,8 @@ def _add_rows(front, dl, vals):
 def genmf_factorize(plan: GenMfPlan, data, split=None):
     """Batched multifrontal factorization over the size classes of the
     entry values ``data`` (an f64 or complex128 tensor on the device to
-    factorize on, in the plan's entry order). Returns a fac dict with
+    factorize on, in the plan's entry order; f32 or complex64 for
+    mixed-precision factors). Returns a fac dict with
     per-class ``classes[ci]`` = {sir, sii, lr, li, br, bi} (planes; the
     imaginary ones None for a real matrix, lr/li/br/bi None for a class
     with no keep) plus logdet / phase / min_pivot / n_perturbed (0-dim
@@ -674,8 +675,8 @@ def _whole(split, rng, rows):
 def genmf_solve(plan: GenMfPlan, fac, bvec, split=None):
     """x = A^{-1} b: up-sweep (rhs elimination, deepest classes first) then
     down-sweep (back-substitution), batched matrix-vector products.
-    ``bvec`` is a tensor on the factors' device; x is complex128 when the
-    factors are complex, else float64.
+    ``bvec`` is a tensor on the factors' device; x is complex when the
+    factors are complex, else real, at the factors' precision.
 
     ``split`` solves factors made with the same ``split``: a split class's
     sweeps run on this rank's node block, and its keep right-hand sides

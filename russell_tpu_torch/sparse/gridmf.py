@@ -623,7 +623,8 @@ def _block(plan: GridMfPlan, dp, d, rng):
 def gridmf_factorize(plan: GridMfPlan, data, split=None):
     """Batched multifrontal factorization of the entry values ``data`` (an
     f64 or complex128 tensor on the device to factorize on, in the plan's
-    entry order). Returns a fac dict with per-depth ``levels[d]`` =
+    entry order; f32 or complex64 for mixed-precision factors, planes and
+    statistics then in f32). Returns a fac dict with per-depth ``levels[d]`` =
     {sir, sii, lr, li, br, bi} (planes; the imaginary ones None for a real
     matrix) plus logdet / phase / min_pivot / n_perturbed (0-dim tensors;
     phase is the determinant's sign for real matrices, 1 for complex).
@@ -710,9 +711,9 @@ def _lane_data(name, data, split):
     ``split`` raises."""
     cplx = data.is_complex()
     rdt = data.real.dtype if cplx else data.dtype
-    if rdt != torch.float64:
-        raise TypeError(f"{name} factorizes float64/complex128, got "
-                        f"{data.dtype}")
+    if rdt not in (torch.float64, torch.float32):
+        raise TypeError(f"{name} factorizes float64/complex128 or "
+                        f"float32/complex64, got {data.dtype}")
     if data.dim() not in (1, 2):
         raise ValueError(f"{name}: entry values (nnz,) or (B, nnz) "
                          f"expected, got {tuple(data.shape)}")
@@ -806,7 +807,8 @@ def gridmf_solve(plan: GridMfPlan, fac, bvec, split=None):
     """x = A^{-1} b through the stored fronts: up-sweep (forward
     elimination of the rhs) then down-sweep (back-substitution), batched
     matrix-vector products. ``bvec`` is a tensor on the factors' device;
-    x is complex128 when the factors are complex, else float64.
+    x is complex when the factors are complex, else real, at the factors'
+    precision.
 
     ``split`` solves factors made with the same ``split``: each split
     depth's sweeps run on this rank's node block, the keep right-hand

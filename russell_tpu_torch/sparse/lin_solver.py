@@ -20,11 +20,18 @@ russell_sparse/src/lin_solver.rs:12-105):
 
 Complex systems work through the same class (dtype dispatch), covering the
 reference's ComplexLinSolver (complex_lin_solver.rs), in native
-complex128. Factors are f64 / complex128: ``mixed_precision=True`` (the
-reference package's f32 factors and their precision escalation) raises
-``NotImplementedError``. GRIDMF factors past ``factor.GRIDMF_BUDGET_GB``
-live in host memory (``stats.output["out_of_core"]``; real matrices
-only), and each solve ships them back level by level.
+complex128. Factors are f64 / complex128, or f32 / complex64 with
+``LinSolParams(mixed_precision=True)``: each solve then refines at the
+input precision (``factor.factor_solve``'s adaptive tiers; the flexible-CG
+tier when the values are numerically symmetric, ``plan.symmetric_values``)
+and, once a factorization, checks the backward error of its answer; above
+1e4 eps of the input precision the matrix is factorized again at full
+precision on the same genie and solved again
+(``stats.output["precision_escalated"]``, the LAPACK dsgesv / cuDSS
+fallback contract of the reference package). GRIDMF factors past
+``factor.GRIDMF_BUDGET_GB`` live in host memory
+(``stats.output["out_of_core"]``; real matrices only), and each solve
+ships them back level by level.
 """
 
 from __future__ import annotations
@@ -76,7 +83,10 @@ class LinSolParams:
     # for grid-stencil matrices (species-major layout var = k*prod(dims)
     # + row_major_cell); unlocks the GRIDMF multifrontal path
     grid: Optional[tuple] = None
-    # None or False: f64 factors. True (f32 factors) is not ported.
+    # True: f32/complex64 factors, refined at the input precision, with
+    # one escalation to full-precision factors when they do not suffice.
+    # None or False: f64/complex128 factors (the reference's None means
+    # "True on a TPU"; the card has f64)
     mixed_precision: Optional[bool] = None
 
 
@@ -155,6 +165,10 @@ def _numeric_symmetry(n, rows, cols, vals) -> bool:
     return bool(np.max(np.abs(a - a[order])) <= 1e-12 * scale)
 
 
+def _host_values(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
 def _values_dtype(v):
     return torch.complex128 if (v.is_complex() if isinstance(
         v, torch.Tensor) else np.iscomplexobj(v)) else torch.float64
@@ -180,6 +194,8 @@ class LinSolver:
         self.stats.main["blas_lib"] = (
             "cuBLAS/cuSOLVER" if self.device.type == "cuda" else "torch CPU")
         self._factorized = False
+        self._escalated = False      # the plan was made anew at f64
+        self._esc_checked = None     # the factors the last probe checked
 
     # -- factorize -----------------------------------------------------------
 
@@ -190,10 +206,6 @@ class LinSolver:
         the *same* structure (lin_solver.rs:17-28) and only re-run the
         numeric factorization."""
         params = params or LinSolParams()
-        if params.mixed_precision:
-            raise NotImplementedError(
-                "mixed-precision factors are not ported: the port "
-                "factorizes in f64 (ROADMAP.md)")
         t0 = time.perf_counter_ns()
         if isinstance(mat, CooMatrix):
             ii, jj, vv = mat.triplets()
@@ -221,6 +233,11 @@ class LinSolver:
                 dense_threshold=params.dense_threshold,
                 max_block=params.max_block, grid=params.grid,
                 mixed_precision=params.mixed_precision)
+            if plan.mixed32:
+                # triangular symmetric storage mirrors the values; full
+                # storage gets the host check
+                plan.symmetric_values = sym.is_sym() or _numeric_symmetry(
+                    nrow, ii, jj, _host_values(vv))
             self._structure = structure
             self.stats.main["solver"] = plan.genie.value
             self.stats.matrix.update(
@@ -319,6 +336,18 @@ class LinSolver:
         b = self._rhs(rhs)
         x = _factor.factor_solve(self.plan, self.fac, b)
         float(x.abs().max())                  # waits for the solve
+        if (self.plan.mixed32 and not self._escalated
+                and self._esc_checked is not self.fac):
+            # one probe a factorization: solves against the same factors
+            # share their conditioning
+            self._esc_checked = self.fac
+            eps_in = torch.finfo(self._vals_full.real.dtype
+                                 if self._vals_full.is_complex()
+                                 else self._vals_full.dtype).eps
+            if self._backward_error(x, b) > 1e4 * eps_in:
+                self._escalate_precision()
+                x = _factor.factor_solve(self.plan, self.fac, b)
+                float(x.abs().max())
         self.stats.time_nanoseconds["solve"] = time.perf_counter_ns() - t0
         p = self._params
         if p is not None and (p.compute_error_estimates
@@ -351,6 +380,24 @@ class LinSolver:
         denom = _factor._row_sum(plan, vals.abs() * xj.abs()[cols]) + bj.abs()
         tiny = torch.finfo(denom.dtype).tiny
         return float(((bj - ax).abs() / denom.clamp(min=tiny)).max())
+
+    def _escalate_precision(self):
+        """Factorize again at full input precision: the plan made anew with
+        ``mixed_precision=False`` on the same genie and structure, then
+        the numeric phase on the values of the last ``factorize``. Later
+        factorizations keep the full-precision plan."""
+        plan = self.plan
+        p = self._params or LinSolParams()
+        self.fac = None
+        self.plan = _factor.analyze(
+            plan.n, plan.rows, plan.cols, genie=plan.genie,
+            ordering=p.ordering, scaling=p.scaling,
+            pivot_epsilon=p.pivot_epsilon, refine_steps=p.refinement_nstep,
+            dense_threshold=p.dense_threshold, max_block=p.max_block,
+            grid=p.grid, mixed_precision=False)
+        self.fac = _factor.numeric_factorize(self.plan, self._vals_full)
+        self._escalated = True
+        self.stats.output["precision_escalated"] = True
 
     def _error_analysis(self, x, b, with_cond: bool):
         """MUMPS ICNTL(11)-style error analysis (RINFOG(4..11) analogs;

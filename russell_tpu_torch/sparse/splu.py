@@ -520,9 +520,25 @@ def _kform_indices(plan: SpluPlan):
 # ---------------------------------------------------------------------------
 
 
+# the value types of the three kernels' builds: float64, and float32 for
+# mixed-precision factors (``factor.analyze(mixed_precision=True)``)
+KERNEL_DTYPES = (torch.float64, torch.float32)
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+def _count_launch(fn, dtype):
+    """One more launch of ``fn``'s kernel: ``fn.launches`` counts the f64
+    build's, ``fn.launches_f32`` the f32 build's."""
+    if dtype == torch.float32:
+        fn.launches_f32 += 1
+    else:
+        fn.launches += 1
+
+
 def _check_kernel_args(name, blocks, index_tensors):
-    if blocks.dtype != torch.float64:
-        raise TypeError(f"{name}: blocks must be float64, got {blocks.dtype}")
+    if blocks.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: blocks must be float64 or float32, got "
+                        f"{blocks.dtype}")
     if blocks.dim() not in (2, 3) or not blocks.is_contiguous():
         raise ValueError(f"{name}: blocks must be a contiguous (N, W) or "
                          "(lanes, N, W) tensor")
@@ -540,15 +556,17 @@ def _splu_pairs_plain(blocks, pair_l, pair_u, pair_seg, n_live, be):
     reference package): batched products of the gathered blocks, summed
     per segment into an (n_live + 1)-row buffer whose last row takes the
     pads (every segment >= n_live) and is dropped; per lane for (lanes, N,
-    W) blocks."""
+    W) blocks. f32 blocks are widened to f64, multiplied and summed there,
+    and the sums rounded to f32 once, as the f32 kernel does."""
     lead = blocks.shape[:-2]
-    Ls = blocks.index_select(-2, pair_l).view(-1, be, be)
-    Us = blocks.index_select(-2, pair_u).view(-1, be, be)
+    wide = blocks.to(torch.float64)
+    Ls = wide.index_select(-2, pair_l).view(-1, be, be)
+    Us = wide.index_select(-2, pair_u).view(-1, be, be)
     prod = torch.bmm(Ls, Us).view(lead + (-1, be * be))
-    out = torch.zeros(lead + (n_live + 1, be * be), dtype=blocks.dtype,
+    out = torch.zeros(lead + (n_live + 1, be * be), dtype=torch.float64,
                       device=blocks.device)
     out.index_add_(-2, pair_seg.clamp(max=n_live), prod)
-    return out[..., :n_live, :]
+    return out[..., :n_live, :].to(blocks.dtype)
 
 
 @dataclass(frozen=True)
@@ -629,27 +647,29 @@ def splu_pairs(blocks, pair_l, pair_u, pair_seg, work, n_live, be):
                                  be)
     if blocks.device.type != "cuda":
         raise ValueError(f"splu_pairs: no kernel for {blocks.device}")
-    if be not in (16, 32, 64) or blocks.data_ptr() % 16:
+    lead = blocks.shape[:-2]
+    if (be not in (16, 32, 64) or blocks.data_ptr() % 16
+            or (lead and blocks.stride(0) * blocks.element_size() % 16)):
         raise ValueError(f"splu_pairs: the kernel takes be 16, 32 or 64 "
                          f"(got {be}) and 16-byte aligned blocks")
-    lead = blocks.shape[:-2]
     lanes = blocks.shape[0] if lead else 1
     stream = _cuda.stream_of(blocks)
     tickets = _stream_tickets(blocks.device, stream, lanes * n_live)
     out = torch.empty(lead + (n_live, be * be), dtype=blocks.dtype,
                       device=blocks.device)
-    # one partial per chunk of the multi-chunk lanes, per matrix
+    # one f64 partial per chunk of the multi-chunk lanes, per matrix
     scratch = (torch.empty((lanes, work.n_multi, be * be),
-                           dtype=blocks.dtype, device=blocks.device)
+                           dtype=torch.float64, device=blocks.device)
                if work.n_multi else None)
-    fn = _cuda.library("splu_pairs").splu_pairs_f64
+    fn = getattr(_cuda.library("splu_pairs"),
+                 f"splu_pairs_{_SUFFIX[blocks.dtype]}")
     _cuda.launch_check("splu_pairs", fn(
         blocks.data_ptr(), pair_l.data_ptr(), pair_u.data_ptr(),
         chunk.data_ptr(), work.lane_off.data_ptr(), tickets.data_ptr(),
         n_chunks, n_live, work.n_multi, be, lanes, blocks.stride(0) if lead
         else 0, out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stream))
-    splu_pairs.launches += 1
+    _count_launch(splu_pairs, blocks.dtype)
     return out
 
 
@@ -659,8 +679,9 @@ def _gather_rows_plain(blocks, idx):
 
 
 def gather_rows(blocks, idx):
-    """Row gather ``blocks[idx]`` of a contiguous (N, W) f64 tensor with
-    even W; of each lane's rows, ``blocks[:, idx]`` (lanes, n, W), for
+    """Row gather ``blocks[idx]`` of a contiguous (N, W) f64 (or f32)
+    tensor whose rows are whole 16-byte words (W even, or a multiple of 4
+    at f32); of each lane's rows, ``blocks[:, idx]`` (lanes, n, W), for
     (lanes, N, W) blocks, in one launch. Replaces the reference package's
     ``_gather_rows``. A CPU tensor takes the plain version; a CUDA tensor
     launches ``csrc/gather_rows.cu`` or raises. Index ranges are plan
@@ -672,17 +693,21 @@ def gather_rows(blocks, idx):
         raise ValueError(f"gather_rows: no kernel for {blocks.device}")
     lead = blocks.shape[:-2]
     W = blocks.shape[-1]
-    if W % 2 or blocks.data_ptr() % 16 or (lead and blocks.stride(0) % 2):
-        raise ValueError("gather_rows: rows must have an even width and "
-                         "blocks be 16-byte aligned")
+    per_word = 16 // blocks.element_size()
+    if (W % per_word or blocks.data_ptr() % 16
+            or (lead and blocks.stride(0) % per_word)):
+        raise ValueError(f"gather_rows: rows must be whole 16-byte words "
+                         f"(a width of {W} {blocks.dtype} values) and blocks "
+                         "16-byte aligned")
     out = torch.empty(lead + (idx.shape[0], W), dtype=blocks.dtype,
                       device=blocks.device)
-    fn = _cuda.library("gather_rows").gather_rows_f64
+    fn = getattr(_cuda.library("gather_rows"),
+                 f"gather_rows_{_SUFFIX[blocks.dtype]}")
     _cuda.launch_check("gather_rows", fn(
         blocks.data_ptr(), idx.data_ptr(), idx.shape[0], W,
         blocks.shape[0] if lead else 1, blocks.stride(0) if lead else 0,
         out.data_ptr(), _cuda.stream_of(blocks)))
-    gather_rows.launches += 1
+    _count_launch(gather_rows, blocks.dtype)
     return out
 
 
@@ -703,9 +728,9 @@ def segment_sum(vals, order, offsets):
 
 
 def reset_launch_counts():
-    splu_pairs.launches = 0
-    gather_rows.launches = 0
-    _gj_inv.launches = 0
+    for fn in (splu_pairs, gather_rows, _gj_inv):
+        fn.launches = 0
+        fn.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -984,22 +1009,24 @@ def _gj_inv(D, delta):
 
     A CPU tensor takes the plain version (``_gj_inv_plain``); a CUDA
     tensor launches ``csrc/gj_inv.cu`` once, which returns the inverse and
-    the statistics (float64, 1 <= m <= ``GJ_MAX_M``, rows of a view read in
-    place when its last dimension is contiguous; ``delta`` is read on the
-    card, so the host does not wait), or raises."""
+    the statistics (float64, or float32 with its statistics in float32 as
+    the reference package gives them, 1 <= m <= ``GJ_MAX_M``, rows of a
+    view read in place when its last dimension is contiguous; ``delta`` is
+    read on the card, so the host does not wait), or raises."""
     if D.device.type == "cpu":
         return _gj_inv_plain(D, delta)
     if D.device.type != "cuda":
         raise ValueError(f"gj_inv: no kernel for {D.device}")
-    if D.dtype != torch.float64:
-        raise TypeError(f"gj_inv: the kernel takes float64, got {D.dtype}")
+    if D.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"gj_inv: the kernel takes float64 or float32, got "
+                        f"{D.dtype}")
     w, m = D.shape[0], D.shape[-1]
     if D.dim() != 3 or D.shape[1] != m or not 1 <= m <= GJ_MAX_M:
         raise ValueError(f"gj_inv: the kernel takes (w, m, m) with "
                          f"1 <= m <= {GJ_MAX_M}, got {tuple(D.shape)}")
     if D.stride(-1) != 1:
         D = D.contiguous()
-    d = torch.as_tensor(delta, dtype=torch.float64,
+    d = torch.as_tensor(delta, dtype=D.dtype,
                         device=D.device).reshape(-1).contiguous()
     n_delta = d.numel()
     if n_delta == 0 or w % n_delta:
@@ -1010,12 +1037,12 @@ def _gj_inv(D, delta):
                   for _ in range(3))
     npert = torch.empty(w, dtype=torch.int32, device=D.device)
     if w:
-        fn = _cuda.library("gj_inv").gj_inv_f64
+        fn = getattr(_cuda.library("gj_inv"), f"gj_inv_{_SUFFIX[D.dtype]}")
         _cuda.launch_check("gj_inv", fn(
             D.data_ptr(), D.stride(0), D.stride(1), d.data_ptr(), n_delta,
             w, m, Dinv.data_ptr(), ld.data_ptr(), mp.data_ptr(),
             npert.data_ptr(), ph.data_ptr(), _cuda.stream_of(D)))
-        _gj_inv.launches += 1
+        _count_launch(_gj_inv, D.dtype)
     return Dinv, ld, mp, npert, ph
 
 
@@ -1068,9 +1095,9 @@ def _init_states(plan: SpluPlan, datas, dp):
         cplx = data.is_complex()
         cplxs.append(cplx)
         rdt = data.real.dtype if cplx else data.dtype
-        if rdt != torch.float64:
-            raise TypeError(f"SPLU factorizes float64/complex128, got "
-                            f"{data.dtype}")
+        if rdt not in KERNEL_DTYPES:
+            raise TypeError(f"SPLU factorizes float64/complex128 or "
+                            f"float32/complex64, got {data.dtype}")
         dev = data.device
         # duplicate entries add in entry order, one duplicate rank a pass
         # (no two adds of a pass meet, so no race on the card)
@@ -1184,9 +1211,10 @@ def _fac_dict(state, batched: bool):
 
 def splu_factorize(plan: SpluPlan, data):
     """Numeric block elimination over the PACKED schedule; ``data`` are the
-    entry values (f64 or complex128 tensor) in the original entry order,
-    on the device the factorization runs on: (nnz,), or (B, nnz) for B
-    matrices at once."""
+    entry values (f64 or complex128 tensor; f32 or complex64 for
+    mixed-precision factors, as the reference package takes them) in the
+    original entry order, on the device the factorization runs on: (nnz,),
+    or (B, nnz) for B matrices at once."""
     return splu_factorize_multi(plan, (data,))[0]
 
 

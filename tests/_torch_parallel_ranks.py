@@ -218,6 +218,42 @@ def run_single(cs):
     return res
 
 
+def run_f32(mesh, cs):
+    """The SPLU, GRIDMF and GENMF cases on f32 values and right-hand sides
+    (tests/test_parallel.py's float32 cases) through ``parallel`` on
+    ``mesh`` and through the single-device functions: {case: (dist,
+    single)}, each with its factor planes, x and statistics."""
+    out = {}
+    for name in ("splu", "gridmf", "genmf"):
+        c = cs[name]
+        v = torch.as_tensor(c["vals"], dtype=torch.float32)
+        b = torch.as_tensor(c["rhs"], dtype=torch.float32)
+        plan = c["plan"]
+        if name == "splu":
+            runs = ((par.dist_splu_factorize(mesh, plan, v),
+                     lambda f: splu.splu_solve(plan, f, b)),
+                    (splu.splu_factorize(plan, v),
+                     lambda f: splu.splu_solve(plan, f, b)))
+            key = "blocks"
+        elif name == "gridmf":
+            runs = ((par.dist_gridmf_factorize(mesh, plan, v),
+                     lambda f: par.dist_gridmf_solve(mesh, plan, f, b)),
+                    (gridmf.gridmf_factorize(plan, v),
+                     lambda f: gridmf.gridmf_solve(plan, f, b)))
+            key = "levels"
+        else:
+            runs = ((par.dist_genmf_factorize(mesh, plan, v),
+                     lambda f: par.dist_genmf_solve(mesh, plan, f, b)),
+                    (genmf.genmf_factorize(plan, v),
+                     lambda f: genmf.genmf_solve(plan, f, b)))
+            key = "classes"
+        out[name] = tuple(
+            {"f": _np(fac[key]) if key == "blocks"
+             else [_np(st["sir"]) for st in fac[key]],
+             "x": _np(solve(fac)), **_stats(fac)} for fac, solve in runs)
+    return out
+
+
 def rank_main(rank, world, init_method, cs, out_dir):
     """One rank of a gloo world on the CPU: join it, run every case, write
     the results to ``out_dir``/rank<r>.pkl, leave the group."""

@@ -1574,3 +1574,180 @@ def test_gridmf_out_of_core_on_card(cuda, monkeypatch, chunk_gb):
     assert torch.equal(xo, xo2)
     for k in ("logdet", "min_pivot", "n_perturbed", "phase"):
         assert torch.equal(fo[k], fo2[k]), k
+
+
+# -- the f32 builds of the three SPLU kernels (mixed-precision factors) ------
+
+def _f32_blocks(rng, shape, cuda):
+    return torch.as_tensor(rng.standard_normal(shape), device=cuda).to(
+        torch.float32)
+
+
+@pytest.mark.parametrize("be", [16, 32, 64])
+def test_f32_kernels_match_plain_versions(cuda, be):
+    # every row of the npoint-16 plan (live pairs and the padded row), the
+    # plain version widening to f64, summing and rounding once as the
+    # kernel does: the sums differ in order only, so at most an f32 ulp;
+    # repeats give the same bits, and 4 lanes those of one-lane launches
+    plan, _ = _brusselator_plan(16)
+    sp = plan.splu_plan
+    dp = splu._device_plan(sp, cuda)
+    N = sp.nblk + sp.packed["TL"] + 1
+    rng = np.random.default_rng(be + 40)
+    blocks = _f32_blocks(rng, (N, be * be), cuda)
+    lanes = _f32_blocks(rng, (4, N, be * be), cuda)
+    multi = [r for r, row in enumerate(dp["rows"]) if row[6]]
+    assert multi
+    for r in range(len(dp["rows"])):
+        args = _row_args(dp, blocks, r, be)
+        ln = args[5]
+        for n in (args[1].numel(), dp["pair_l"].shape[1]):
+            a = (blocks, dp["pair_l"][r, :n], dp["pair_u"][r, :n],
+                 dp["pair_seg"][r, :n], dp["work"][r], ln, be)
+            n0 = (splu.splu_pairs.launches, splu.splu_pairs.launches_f32)
+            got = splu.splu_pairs(*a)
+            assert (splu.splu_pairs.launches,
+                    splu.splu_pairs.launches_f32) == (n0[0], n0[1] + 1)
+            assert got.dtype == torch.float32 and got.shape == (ln, be * be)
+            want = splu._splu_pairs_plain(*a[:4], ln, be)
+            torch.testing.assert_close(got, want, rtol=1.2e-7, atol=1e-12)
+        first = splu.splu_pairs(*args)
+        for _ in range(3 if r in multi else 1):
+            assert torch.equal(splu.splu_pairs(*args), first)
+        idx = dp["dinv"][r, :ln]
+        n0 = splu.gather_rows.launches_f32
+        assert torch.equal(splu.gather_rows(blocks, idx), blocks[idx])
+        assert splu.gather_rows.launches_f32 == n0 + 1
+        lane_args = (lanes,) + args[1:]
+        got = splu.splu_pairs(*lane_args)
+        for lane in range(4):
+            assert torch.equal(got[lane],
+                               splu.splu_pairs(lanes[lane], *args[1:]))
+        torch.testing.assert_close(
+            got, splu._splu_pairs_plain(*lane_args[:4], ln, be),
+            rtol=1.2e-7, atol=1e-12)
+        assert torch.equal(splu.gather_rows(lanes, idx), lanes[:, idx])
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in splu._tickets.values())
+
+
+@pytest.mark.parametrize("width", [1024, 4096])
+def test_f32_gather_rows_is_exact_at_every_size(cuda, width):
+    rng = np.random.default_rng(width + 1)
+    blocks = _f32_blocks(rng, (1100, width), cuda)
+    lanes = _f32_blocks(rng, (3, 300, width), cuda)
+    for rows in (1, 36, 1024):
+        idx = torch.as_tensor(rng.integers(0, 12, rows) * 91,
+                              dtype=torch.int32, device=cuda)
+        assert torch.equal(splu.gather_rows(blocks, idx), blocks[idx])
+        idx = torch.as_tensor(rng.integers(0, 300, rows), dtype=torch.int32,
+                              device=cuda)
+        assert torch.equal(splu.gather_rows(lanes, idx), lanes[:, idx])
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 33, 64, 67, 128,
+                               splu.GJ_MAX_M])
+@pytest.mark.parametrize("w", [1, 64])
+def test_f32_gj_inv_matches_plain_version(cuda, m, w):
+    # the f64 test's blocks rounded to f32, read in place from a view; the
+    # same elimination in f32, each operation rounded apart: the inverse's
+    # bits, log|det| summed in f32 in the same order. The threshold is one
+    # an f32 elimination survives: a zero pivot clamped to 1e-14 grows the
+    # later rows past f32's range
+    D = _gj_inputs(w, m, 10 * m + w + 1, cuda).to(torch.float32)
+    delta = torch.tensor(1e-6, dtype=torch.float32, device=cuda)
+    wide = torch.zeros((w, m + 3, m + 3), dtype=torch.float32, device=cuda)
+    wide[:, :m, :m] = D
+    n0 = (splu._gj_inv.launches, splu._gj_inv.launches_f32)
+    got = splu._gj_inv(wide[:, :m, :m], delta)
+    assert (splu._gj_inv.launches, splu._gj_inv.launches_f32) == (
+        n0[0], n0[1] + 1)
+    assert all(t.dtype == torch.float32 for i, t in enumerate(got) if i != 3)
+    want = splu._gj_inv_plain(D, delta)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=2e-6, atol=0)
+    for g, p in zip(got[2:], want[2:]):
+        assert torch.equal(g, p)
+    assert int(got[3].sum()) == (1 if w == m == 1 else 2)
+
+
+def test_f32_gj_inv_lanes_take_a_delta_per_matrix(cuda):
+    # f32 thresholds: a zero pivot clamped to 1e-9 grows its lane past
+    # f32's range (NaN, on both); the second matrix's 1e-3 alone catches a
+    # pivot of ~8e-5
+    B, w, m = 4, 16, 40
+    D = torch.cat([_gj_inputs(w, m, 90 + b, cuda)
+                   for b in range(B)]).to(torch.float32)
+    D[w + 3, 5, :] *= 1e-3
+    D[w + 3, :, 5] *= 1e-3
+    delta = torch.tensor([1e-6, 1e-3, 1e-6, 1e-6], dtype=torch.float32,
+                         device=cuda)
+    got = splu._gj_inv(D, delta)
+    want = splu._gj_inv_plain(D, delta)
+    assert torch.equal(got[0], want[0])
+    for g, p in zip(got[2:], want[2:]):
+        assert torch.equal(g, p)
+    for b in range(B):
+        one = splu._gj_inv(D[b * w:(b + 1) * w], delta[b])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b * w:(b + 1) * w], o), b
+    assert got[3].view(B, w).sum(1).tolist() == [2, 3, 2, 2]
+
+
+def test_f32_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    i32 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    chunk = torch.tensor([[0, 0, 1, 1], [1, 1, 1, 1]], dtype=torch.int32,
+                         device=cuda)
+    work = splu.PairWork(chunk, torch.arange(2, dtype=torch.int32,
+                                             device=cuda), 0)
+    for dtype in (torch.float16, torch.complex64):     # no build
+        with pytest.raises(TypeError):
+            splu.splu_pairs(torch.zeros((4, 32 * 32), dtype=dtype,
+                                        device=cuda), i32, i32, i32, work,
+                            2, 32)
+        with pytest.raises(TypeError):
+            splu.gather_rows(torch.zeros((4, 8), dtype=dtype, device=cuda),
+                             i32)
+        with pytest.raises(TypeError):
+            splu._gj_inv(torch.zeros((2, 4, 4), dtype=dtype, device=cuda),
+                         1e-14)
+    f32 = torch.zeros((4, 48 * 48), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):     # be 48
+        splu.splu_pairs(f32, i32, i32, i32, work, 2, 48)
+    with pytest.raises(ValueError):     # the index list on the CPU
+        splu.splu_pairs(f32[:, :32 * 32].contiguous(), i32.cpu(), i32, i32,
+                        work, 2, 32)
+    with pytest.raises(ValueError):     # 6 floats: not whole 16-byte words
+        splu.gather_rows(torch.zeros((4, 6), dtype=torch.float32,
+                                     device=cuda), i32)
+    with pytest.raises(ValueError):
+        splu.gather_rows(f32, i32.cpu())
+    m = splu.GJ_MAX_M + 1
+    with pytest.raises(ValueError):     # above the base
+        splu._gj_inv(torch.zeros((2, m, m), dtype=torch.float32,
+                                 device=cuda), 1e-14)
+    with pytest.raises(ValueError):     # thresholds that split no lanes
+        splu._gj_inv(torch.zeros((3, 4, 4), dtype=torch.float32,
+                                 device=cuda),
+                     torch.ones(2, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.parametrize("genie,kw", [
+    ("dense", {}), ("banded", {}), ("splu", {}),
+    ("gridmf", {"grid": (20, 20, 1)}), ("genmf", {})])
+def test_lin_solver_mixed_on_card_matches_cpu(cuda, one_thread, genie, kw):
+    # f32 factors on both devices, x refined to the f64 answer on both
+    from russell_tpu_torch.sparse import LinSolParams, LinSolver
+    coo = ssamples.laplacian_2d(20)
+    rhs = np.cos(np.arange(coo.nrow))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = LinSolver(Genie(genie), device=dev)
+        s.factorize(coo, LinSolParams(mixed_precision=True, **kw))
+        out[dev] = (s, s.solve(rhs).cpu())
+    (sc, xc), (sg, xg) = out["cpu"], out["cuda"]
+    assert sg.plan.mixed32 and sg.plan.symmetric_values
+    assert float(sg.fac["min_pivot"]) > 0
+    assert "precision_escalated" not in sg.stats.output
+    torch.testing.assert_close(xg, xc, rtol=1e-12,
+                               atol=1e-12 * float(xc.abs().max()))

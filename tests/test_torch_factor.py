@@ -214,10 +214,51 @@ def test_auto_above_dense_threshold_routes_as_reference(plans):
             assert (plan.genie == Genie.GENMF) == (max_block == 4)
 
 
-def test_mixed_precision_raises(plans):
-    n, ii, jj, *_ = plans
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfactor.analyze(n, ii, jj, genie=Genie.SPLU, mixed_precision=True)
+def test_mixed_precision_plans_and_pair_match_reference(plans):
+    # the reference's refinement rules under mixed precision (its
+    # factor.py:170-171, 217, 257, 265, 297, 326, 372) on every genie, the
+    # f32 factor dtype, f64 where mixed precision is not asked for (the
+    # reference's None is "mixed on a TPU"; the card has f64)
+    n, ii, jj, jv, *_ = plans
+    lap = jsamples.laplacian_2d(6)
+    li, lj = (np.asarray(a) for a in lap.triplets()[:2])
+    cases = [(Genie.SPLU, (n, ii, jj), {}), (Genie.DENSE, (n, ii, jj), {}),
+             (Genie.BANDED, (n, ii, jj), {}), (Genie.GENMF, (n, ii, jj), {}),
+             (Genie.AUTO, (n, ii, jj), {"dense_threshold": 8}),
+             (Genie.GRIDMF, (lap.nrow, li, lj), {"grid": (6, 6, 1)})]
+    for genie, args, kw in cases:
+        for steps in (0, 2, 5):
+            tp = tfactor.analyze(*args, genie=genie, refine_steps=steps,
+                                 mixed_precision=True, **kw)
+            jp = jfactor.analyze(*args, genie=JGenie(genie.value),
+                                 refine_steps=steps, mixed_precision=True,
+                                 **kw)
+            assert tp.mixed32 and jp.mixed32
+            assert tp.genie.value == jp.genie.value
+            assert tp.refine_steps == jp.refine_steps, (genie, steps)
+            assert tfactor._factor_dtype(tp, torch.complex128) \
+                == torch.complex64
+        assert not tfactor.analyze(*args, genie=genie, **kw).mixed32
+    # Radau5's pair under mixed precision: f32 blocks (complex as its f32
+    # K embedding), the scaled entries at the input precision, and the
+    # plan's three fixed rounds of refinement to the f64 answer
+    vr, vc = _pair_values(jv, n, 4)
+    tp = tfactor.analyze(n, ii, jj, genie=Genie.SPLU, mixed_precision=True)
+    fr, fc = tfactor.numeric_factorize_pair(tp, torch.as_tensor(vr),
+                                            torch.as_tensor(vc))
+    assert fr["blocks"].dtype == fc["blocks"].dtype == torch.float32
+    assert fr["data"].dtype == torch.float64
+    assert fc["data"].dtype == torch.complex128
+    rng = np.random.default_rng(8)
+    br = rng.standard_normal(n)
+    bc = br + 1j * rng.standard_normal(n)
+    xr, xc = tfactor.factor_solve_pair(tp, fr, fc, torch.as_tensor(br),
+                                       torch.as_tensor(bc))
+    for vals, b, x in ((vr, br, xr), (vc, bc, xc)):
+        A = np.zeros((n, n), dtype=vals.dtype)
+        np.add.at(A, (ii, jj), vals)
+        xt = np.linalg.solve(A, b)
+        assert np.abs(x.numpy() - xt).max() <= 1e-12 * np.abs(xt).max()
 
 
 @pytest.mark.parametrize("shape", ["real", "complex", "batched", "sorted"])

@@ -7,8 +7,9 @@ same inputs (made from a seed with numpy): x, the determinant (mantissa,
 exponent and complex phase) on the DENSE, BANDED, SPLU, GRIDMF and GENMF
 routes, the StatsLinSol fields that do not name the platform, the error
 analysis with the condition numbers, the structure-change, rectangular,
-singular and solve-before-factorize errors, the refused mixed precision,
-and the solve_matrix_market CLI's JSON on a file written here. f64 on the
+singular and solve-before-factorize errors, mixed precision's f32 factors
+(held to the reference in tests/test_torch_mixed.py), and the
+solve_matrix_market CLI's JSON on a file written here. f64 on the
 CPU; the reference runs jitted, as its LinSolver does.
 """
 
@@ -250,10 +251,25 @@ def test_errors():
                                 zero_tol=-1.0)
     with pytest.raises(RuntimeError, match="singular"):
         LinSolver(device="cpu").factorize(sing)
+
+
+@pytest.mark.parametrize("genie", ["dense", "splu"])
+def test_mixed_precision_factorizes_in_f32(genie):
+    # mixed precision runs (tests/test_torch_mixed.py holds it to the
+    # reference on every genie): f32 factors, the refined x of the f64
+    # solve, the reference's statistics keys
     coo = samples.umfpack_unsymmetric_5x5("cpu")[0]
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        LinSolver(device="cpu").factorize(
-            coo, LinSolParams(mixed_precision=True))
+    b = np.arange(1.0, 6.0)
+    xs = {}
+    for mixed in (False, True):
+        s = LinSolver(Genie(genie), device="cpu")
+        s.factorize(coo, LinSolParams(mixed_precision=mixed))
+        assert s.plan.mixed32 is mixed
+        xs[mixed] = s.solve(b).numpy()
+    blk = s.fac["lu" if genie == "dense" else "blocks"]
+    assert blk.dtype == torch.float32
+    np.testing.assert_allclose(xs[True], xs[False], rtol=1e-12)
+    assert "precision_escalated" not in s.stats.output
 
 
 def test_solve_planes_and_kernel_fns():

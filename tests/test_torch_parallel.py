@@ -9,8 +9,9 @@ single-device results with the JAX package and holds the ranks' to them
 at that test file's bounds: factors within 1e-12 (1 + max|.|), the
 absolute residual below 1e-9 (1e-10 for BANDED), log|det| within 1e-8.
 Every rank must hold the same bits. A world of one rank, in this process,
-must give the port's single-device results bit for bit; the mesh and the
-plans' refusals are checked there too.
+must give the port's single-device results bit for bit, also on the f32
+cases of that file (at its f32 bars, against the reference's f64
+factors); the mesh and the plans' refusals are checked there too.
 """
 
 import multiprocessing
@@ -330,6 +331,38 @@ def _bit_equal(got, want, path):
 def test_world_of_one_is_single_device_bit_for_bit(one_rank_results, case):
     got, want = one_rank_results
     _bit_equal(got[case], want[case], case)
+
+
+@pytest.fixture(scope="module")
+def f32_results(world_of_one):
+    return ranks.run_f32(world_of_one, ranks.cases())
+
+
+@pytest.mark.parametrize("case", ["splu", "gridmf", "genmf"])
+def test_world_of_one_f32_cases(f32_results, reference, world, case):
+    # tests/test_parallel.py's float32 cases: f32 factors and x, the world
+    # of one the single-device call bit for bit, held at that file's f32
+    # bars (an absolute residual of 1e-3, log|det| within 1e-2) and the
+    # factors at its f32 tolerance (1e-4, GRIDMF 1e-5, of 1 + max|.|)
+    # against the reference's f64 factors
+    cs, _ = world
+    got, single = f32_results[case]
+    _bit_equal(got, single, case)
+    want = reference[case]
+    assert got["x"].dtype == np.float32
+    assert _resid(cs[case]["coo"], got["x"].astype(np.float64),
+                  cs[case]["rhs"]) < 1e-3
+    assert abs(float(got["logdet"]) - want["logdet"]) < 1e-2
+    if case == "splu":
+        assert got["f"].dtype == np.float32
+        _close(got["f"].astype(np.float64), want["blocks"], 1e-4)
+    else:
+        for g, w in zip(got["f"], want["sir"]):
+            assert g.dtype == np.float32
+            _close(g.astype(np.float64), w, 1e-5 if case == "gridmf"
+                   else 1e-4)
+    if case == "genmf":
+        _close(got["x"].astype(np.float64), want["x"], 1e-4)
 
 
 def test_make_mesh_refusals(world_of_one):

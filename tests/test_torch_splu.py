@@ -353,8 +353,8 @@ def test_kernel_wrappers_check_their_arguments():
     i32 = torch.zeros(2, dtype=torch.int32)
     chunk = torch.tensor([[0, 0, 1, 1], [1, 1, 1, 1]], dtype=torch.int32)
     work = tsplu.PairWork(chunk, torch.arange(2, dtype=torch.int32), 0)
-    with pytest.raises(TypeError):
-        tsplu.splu_pairs(blocks.float(), i32, i32, i32, work, 2, 8)
+    with pytest.raises(TypeError):    # f64 and (mixed precision) f32 only
+        tsplu.splu_pairs(blocks.half(), i32, i32, i32, work, 2, 8)
     with pytest.raises(ValueError):
         tsplu.splu_pairs(blocks, i32.long(), i32, i32, work, 2, 8)
     with pytest.raises(ValueError):
